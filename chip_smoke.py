@@ -7,15 +7,23 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
-   the build of the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+   the build of the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, started together);
 1. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at the CPU tests' edge shapes, with its median time,
-   its bound, the plain version's time and a library yardstick;
+   path's shapes, at the CPU tests' edge shapes and at shapes that take the
+   kernels' slow paths (k up to 10,000, d = 8192 and 32768, PQ LUTs past
+   shared memory), with its median time, its bound, the plain version's
+   time and a library yardstick;
 2. the main path: WIKI-Dir ingested into ``DirectoryVectorDB(device="cuda")``
    with TrieHI and the flat executor, a 64-request ``dsq_batch`` mix held
    bitwise against a loop of ``dsq``, and recall@10 against a brute force;
 3. DSM: 21 structural ops through ``dsm_batch`` with a journal, patching the
-   cached device scope masks, then batch == loop == uncached batch again.
+   cached device scope masks, then batch == loop == uncached batch again;
+4. the int8 and PQ tiers on the same database: batch == loop bitwise at
+   both, recall@10 against fp32, then a device byte budget of a third of
+   the fp32 rows: the fp32 device mirror is released, fp32 batches are
+   served by the PQ plan equal to an explicit PQ batch, and hot scopes'
+   pins cut the rescore's host fetch.
 
 The last lines are the kernels' summary, then
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -36,23 +44,30 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 TOL = 1e-5
+MAIN_ROWS = 1_940_000      # WIKI-Dir's rows at scale 1.0: the main shapes'
+WIDE_ROWS = 100_000        # rows at d = 8192
 
-# data-sheet peaks (NVIDIA): HBM bytes/s and non-tensor fp32 FLOP/s
-CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-              "H100": (3.35e12, 67e12)}
+# data-sheet peaks (NVIDIA): HBM bytes/s, non-tensor fp32 FLOP/s and dense
+# int8 tensor-core OP/s
+CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12),
+              "H100 NVL": (3.9e12, 60e12, 1671e12),
+              "H100": (3.35e12, 67e12, 1979e12)}
 
+_ST = "src/repro/kernels/scoped_topk.py"
 REPLACES = {
-    "scoped_topk": "src/repro/kernels/scoped_topk.py:55",
-    "multi_scope_topk": "src/repro/kernels/scoped_topk.py:87",
+    "scoped_topk": f"{_ST}:55",
+    "multi_scope_topk": f"{_ST}:87",
     "bitmap_patch": "src/repro/kernels/bitmap_ops.py:36",
     "mask_and_popcount": "src/repro/kernels/bitmap_ops.py:19",
+    "scoped_topk_i8": f"{_ST}:130",
+    "multi_scope_topk_i8": f"{_ST}:170",
+    "scoped_topk_pq": f"{_ST}:228",
+    "multi_scope_topk_pq": f"{_ST}:256",
 }
-SOURCES = {
-    "scoped_topk": "src/repro_torch/kernels/csrc/scoped_topk.cu",
-    "multi_scope_topk": "src/repro_torch/kernels/csrc/scoped_topk.cu",
-    "bitmap_patch": "src/repro_torch/kernels/csrc/bitmap_ops.cu",
-    "mask_and_popcount": "src/repro_torch/kernels/csrc/bitmap_ops.cu",
-}
+_SCAN_CU = "src/repro_torch/kernels/csrc/scoped_topk.cu"
+SOURCES = {name: _SCAN_CU for name in REPLACES}
+SOURCES["bitmap_patch"] = SOURCES["mask_and_popcount"] = \
+    "src/repro_torch/kernels/csrc/bitmap_ops.cu"
 
 
 def emit(obj) -> None:
@@ -111,40 +126,85 @@ def timed(torch, fn, runs: int, names=None) -> dict:
             "device_ms": device_ms(torch, fn, runs, names)}
 
 
-def bound(nbytes: float, flops: float, peaks) -> dict:
-    bw, fl = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / fl * 1e3
+def bound(nbytes: float, ops: float, peaks, kind: str = "fp32") -> dict:
+    """The larger of bytes over HBM bandwidth and operations over the
+    peak rate of their type (non-tensor fp32, or int8 tensor-core)."""
+    bw, rate = peaks[0], peaks[1] if kind == "fp32" else peaks[2]
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 # --------------------------------------------------------------- phase 1
+def topk_case(ref, label, got, want) -> float:
+    """Kernel result vs plain result within TOL (ids equal up to ties);
+    returns the max abs error over filled lanes."""
+    err = ref.topk_disagreement(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                                want[1].cpu().numpy(),
+                                want[0].cpu().numpy(), TOL)
+    check(err is None, f"{label}: {err}")
+    gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
+    check(np.all(gv[gi < 0] == ref.NEG_INF), f"{label}: empty sentinel")
+    valid = gi >= 0
+    wv = want[0].cpu().numpy()
+    return float(np.max(np.abs(gv[valid] - wv[valid]))) if valid.any() \
+        else 0.0
+
+
+def exact_case(torch, label, got, want) -> float:
+    """int8 and PQ scores are computed in the same order by the kernel and
+    its plain version: ids and values must be bit-for-bit equal."""
+    check(torch.equal(got[1], want[1]), f"{label}: ids differ")
+    check(torch.equal(got[0], want[0]), f"{label}: values differ")
+    return 0.0
+
+
+def words_of(torch, dense):              # (S, n) bool -> (S, ceil(n/32)) i32
+    n = dense.shape[1]
+    pad = (-n) % 32
+    bits = torch.nn.functional.pad(dense.to(torch.int64), (0, pad))
+    bits = bits.reshape(dense.shape[0], -1, 32)
+    shifts = torch.arange(32, device=dense.device, dtype=torch.int64)
+    w = (bits << shifts).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unit(torch, x):
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def quantize(torch, x):
+    """Symmetric per-row int8 codes and scales (quant.quantize_rows's rule)
+    on the device: the kernels' inputs, made fast at 1.94M rows."""
+    scale = x.abs().amax(1) / 127
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def i8_case(torch, g, q, n, d, dev):
+    Q = torch.randn(q, d, generator=g, device=dev)
+    X = torch.randn(n, d, generator=g, device=dev)
+    X[n // 2] = X[n // 3]                                    # duplicated row
+    q8, qs = quantize(torch, Q)
+    x8, xs = quantize(torch, X)
+    sq = (x8.float() ** 2).sum(1) * xs * xs
+    return q8, qs, x8, xs, sq
+
+
+def pq_case(torch, g, q, n, m, dev):
+    lut = torch.randn(q, m, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    codes[n // 2] = codes[n // 3]                            # ties
+    return lut, codes
+
+
 def phase1(torch, ops, ref, peaks) -> dict:
     """Each kernel against its plain version, main shapes + edge shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
-
-    def topk_case(label, got, want):
-        err = ref.topk_disagreement(got[1].cpu().numpy(), got[0].cpu().numpy(),
-                                    want[1].cpu().numpy(),
-                                    want[0].cpu().numpy(), TOL)
-        check(err is None, f"{label}: {err}")
-        gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
-        check(np.all(gv[gi < 0] == ref.NEG_INF), f"{label}: empty sentinel")
-        valid = gi >= 0
-        wv = want[0].cpu().numpy()
-        return float(np.max(np.abs(gv[valid] - wv[valid]))) if valid.any() \
-            else 0.0
-
-    def words_of(dense):                 # (S, n) bool -> (S, ceil(n/32)) i32
-        n = dense.shape[1]
-        pad = (-n) % 32
-        bits = torch.nn.functional.pad(dense.to(torch.int64), (0, pad))
-        bits = bits.reshape(dense.shape[0], -1, 32)
-        shifts = torch.arange(32, device=dense.device, dtype=torch.int64)
-        w = (bits << shifts).sum(-1)
-        return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
     # edge shapes of the CPU sweep: ragged q/n, k vs scope size, ties
     edge = 0
@@ -162,12 +222,12 @@ def phase1(torch, ops, ref, peaks) -> dict:
                     sq = ref.row_sq_norms(X)
                     sid = torch.randint(0, 3, (q,), generator=g, device=dev,
                                         dtype=torch.int32)
-                    W = words_of(dense)
+                    W = words_of(torch, dense)
                     mask = dense[0].to(torch.int8)
-                    topk_case(f"scoped_topk q{q} n{n} k{k} {metric}",
+                    topk_case(ref, f"scoped_topk q{q} n{n} k{k} {metric}",
                               ops.scoped_topk(Q, X, mask, k, metric, sq),
                               ref.scoped_topk_ref(Q, X, mask, k, metric, sq))
-                    topk_case(f"multi_scope_topk q{q} n{n} k{k} {metric}",
+                    topk_case(ref, f"multi_scope_topk q{q} n{n} k{k} {metric}",
                               ops.multi_scope_topk(Q, X, W, sid, k, metric,
                                                    sq),
                               ref.multi_scope_topk_ref(Q, X, W, sid, k, metric,
@@ -176,7 +236,7 @@ def phase1(torch, ops, ref, peaks) -> dict:
     Q = torch.randn(3, 64, generator=g, device=dev)
     X = torch.randn(100_000, 64, generator=g, device=dev)
     ones = torch.ones(100_000, dtype=torch.int8, device=dev)
-    topk_case("scoped_topk k=256", ops.scoped_topk(Q, X, ones, 256),
+    topk_case(ref, "scoped_topk k=256", ops.scoped_topk(Q, X, ones, 256),
               ref.scoped_topk_ref(Q, X, ones, 256))
     for R, W in ((1, 1), (3, 7), (5, 2049)):
         m = torch.randint(-2 ** 31, 2 ** 31 - 1, (R, W), generator=g,
@@ -196,21 +256,20 @@ def phase1(torch, ops, ref, peaks) -> dict:
         edge += 2
 
     # main path shapes: WIKI-Dir n = 1.94M, d = 128; 64 requests, 8 scopes
-    n, d, k, B, S = 1_940_000, 128, 10, 64, 8
+    n, d, k, B, S = MAIN_ROWS, 128, 10, 64, 8
     n_words = (n + 31) // 32
-    X = torch.randn(n, d, generator=g, device=dev)
-    X = X / X.norm(dim=1, keepdim=True)
+    X = unit(torch, torch.randn(n, d, generator=g, device=dev))
     Q1 = torch.randn(1, d, generator=g, device=dev)
     QB = torch.randn(B, d, generator=g, device=dev)
     ones = torch.ones(n, dtype=torch.int8, device=dev)
     dense = torch.rand(S, n, generator=g, device=dev) < torch.linspace(
         0.2, 1.0, S, device=dev)[:, None]
     dense[-1] = True                                       # the root scope
-    words = words_of(dense)
+    words = words_of(torch, dense)
     sid = (torch.arange(B, device=dev) % S).to(torch.int32)
 
     # scoped_topk at q = 1 over every row (the root scan of one dsq)
-    err = topk_case("scoped_topk main", ops.scoped_topk(Q1, X, ones, k),
+    err = topk_case(ref, "scoped_topk main", ops.scoped_topk(Q1, X, ones, k),
                     ref.scoped_topk_ref(Q1, X, ones, k))
     scan_names = ("scan_pass1", "scan_pass2")
     out["scoped_topk"] = {
@@ -223,7 +282,7 @@ def phase1(torch, ops, ref, peaks) -> dict:
         **bound(n * d * 4 + n + d * 4 + k * 8, 2.0 * n * d, peaks),
         "shape": f"q=1 n={n} d={d} k={k} all rows admitted"}
 
-    err = topk_case("multi_scope_topk main",
+    err = topk_case(ref, "multi_scope_topk main",
                     ops.multi_scope_topk(QB, X, words, sid, k),
                     ref.multi_scope_topk_ref(QB, X, words, sid, k))
     admitted = dense.sum(1)[sid.long()].sum().item()
@@ -242,8 +301,9 @@ def phase1(torch, ops, ref, peaks) -> dict:
                  f"admitted_pairs={admitted}"}
 
     R = 16
-    masks = words_of(torch.rand(R, n, generator=g, device=dev) < 0.5)
-    delta = words_of(torch.rand(1, n, generator=g, device=dev) < 0.01)[0]
+    masks = words_of(torch, torch.rand(R, n, generator=g, device=dev) < 0.5)
+    delta = words_of(torch, torch.rand(1, n, generator=g, device=dev)
+                     < 0.01)[0]
     signs = torch.tensor([(1, -1, 0)[i % 3] for i in range(R)],
                          dtype=torch.int32, device=dev)
     check(torch.equal(ops.bitmap_patch(masks, delta, signs),
@@ -272,8 +332,251 @@ def phase1(torch, ops, ref, peaks) -> dict:
         "library_ms": None,
         **bound(3 * n_words * 4 + 4, 2 * n_words, peaks),
         "shape": f"W={n_words}"}
+    edge += phase1_limits(torch, ops, ref, peaks, g, out)
+    edge += phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
+                         sid)
     emit({"phase": 1, "edge_cases": edge, "kernels": out})
     return out
+
+
+def phase1_limits(torch, ops, ref, peaks, g, out) -> int:
+    """The lifted k and depth limits: k past the old 256 (shared-memory
+    lists with a smaller query tile, and device-memory lists past 8192),
+    d staged in slices, PQ LUTs that do not fit shared memory; and the fp32
+    scans' times at k = 320 and d = 8192."""
+    dev = torch.device("cuda")
+    cases = 0
+    for kind, q, n, depth, k in (
+            ("f32", 5, 20_000, 64, 257), ("f32", 5, 20_000, 64, 320),
+            ("f32", 5, 20_000, 64, 4096), ("f32", 3, 30_000, 64, 10_000),
+            ("f32", 8, 20_000, 8192, 10), ("i8", 5, 20_000, 64, 257),
+            ("i8", 5, 20_000, 64, 320), ("i8", 5, 20_000, 64, 4096),
+            ("i8", 3, 30_000, 64, 10_000), ("i8", 8, 20_000, 8192, 10),
+            ("i8", 8, 4_000, 32768, 10), ("pq", 5, 20_000, 16, 257),
+            ("pq", 5, 20_000, 16, 320), ("pq", 5, 20_000, 16, 4096),
+            ("pq", 3, 30_000, 16, 10_000), ("pq", 8, 20_000, 32, 10),
+            ("pq", 8, 20_000, 256, 10)):
+        dense = torch.rand(2, n, generator=g, device=dev) < 0.6
+        mask, words = dense[0].to(torch.int8), words_of(torch, dense)
+        sid = (torch.arange(q, device=dev) % 2).to(torch.int32)
+        label = f"{kind} q={q} n={n} depth={depth} k={k}"
+        if kind == "f32":
+            Q = torch.randn(q, depth, generator=g, device=dev)
+            X = unit(torch, torch.randn(n, depth, generator=g, device=dev))
+            sq = ref.row_sq_norms(X)
+            topk_case(ref, f"scoped_topk {label}",
+                      ops.scoped_topk(Q, X, mask, k, "l2", sq),
+                      ref.scoped_topk_ref(Q, X, mask, k, "l2", sq))
+            topk_case(ref, f"multi_scope_topk {label}",
+                      ops.multi_scope_topk(Q, X, words, sid, k),
+                      ref.multi_scope_topk_ref(Q, X, words, sid, k))
+        elif kind == "i8":
+            q8, qs, x8, xs, sq = i8_case(torch, g, q, n, depth, dev)
+            exact_case(torch, f"scoped_topk_i8 {label}",
+                       ops.scoped_topk_i8(q8, qs, x8, xs, sq, mask, k, "l2"),
+                       ref.scoped_topk_i8_ref(q8, qs, x8, xs, sq, mask, k,
+                                              "l2"))
+            exact_case(torch, f"multi_scope_topk_i8 {label}",
+                       ops.multi_scope_topk_i8(q8, qs, x8, xs, None, words,
+                                               sid, k),
+                       ref.multi_scope_topk_i8_ref(q8, qs, x8, xs, None,
+                                                   words, sid, k))
+        else:
+            lut, codes = pq_case(torch, g, q, n, depth, dev)
+            exact_case(torch, f"scoped_topk_pq {label}",
+                       ops.scoped_topk_pq(lut, codes, mask, k),
+                       ref.scoped_topk_pq_ref(lut, codes, mask, k))
+            exact_case(torch, f"multi_scope_topk_pq {label}",
+                       ops.multi_scope_topk_pq(lut, codes, words, sid, k),
+                       ref.multi_scope_topk_pq_ref(lut, codes, words, sid,
+                                                   k))
+        cases += 2
+
+    # fp32 scan times at a rescore window of 320 (main shape) and d = 8192,
+    # on unit rows as the main path's (scores near 1: a 1e-5 tie tolerance
+    # means what it says)
+    n, d, B, S = MAIN_ROWS, 128, 64, 8
+    X = unit(torch, torch.randn(n, d, generator=g, device=dev))
+    Q1 = torch.randn(1, d, generator=g, device=dev)
+    QB = torch.randn(B, d, generator=g, device=dev)
+    ones = torch.ones(n, dtype=torch.int8, device=dev)
+    words = words_of(torch, torch.ones(S, n, dtype=torch.bool, device=dev))
+    sid = (torch.arange(B, device=dev) % S).to(torch.int32)
+    names = ("scan_pass1", "scan_pass2")
+    extra = {}
+    for label, fn, plain, nbytes, flops in (
+            ("scoped_topk k=320", lambda: ops.scoped_topk(Q1, X, ones, 320),
+             lambda: ref.scoped_topk_ref(Q1, X, ones, 320),
+             n * d * 4 + n, 2.0 * n * d),
+            ("multi_scope_topk k=320",
+             lambda: ops.multi_scope_topk(QB, X, words, sid, 320),
+             lambda: ref.multi_scope_topk_ref(QB, X, words, sid, 320),
+             n * d * 4 + S * words.shape[1] * 4, 2.0 * B * n * d)):
+        topk_case(ref, label, fn(), plain())
+        extra[label] = {**timed(torch, fn, 10, names),
+                        "plain_ms": median_ms(torch, plain, 3),
+                        **bound(nbytes, flops, peaks)}
+    del X
+    n, d = WIDE_ROWS, 8192
+    X = unit(torch, torch.randn(n, d, generator=g, device=dev))
+    Q1 = torch.randn(1, d, generator=g, device=dev)
+    QB = torch.randn(B, d, generator=g, device=dev)
+    ones = torch.ones(n, dtype=torch.int8, device=dev)
+    words = words_of(torch, torch.ones(S, n, dtype=torch.bool, device=dev))
+    for label, fn, plain, nbytes, flops in (
+            ("scoped_topk d=8192", lambda: ops.scoped_topk(Q1, X, ones, 10),
+             lambda: ref.scoped_topk_ref(Q1, X, ones, 10),
+             n * d * 4 + n, 2.0 * n * d),
+            ("multi_scope_topk d=8192",
+             lambda: ops.multi_scope_topk(QB, X, words, sid, 10),
+             lambda: ref.multi_scope_topk_ref(QB, X, words, sid, 10),
+             n * d * 4 + S * words.shape[1] * 4, 2.0 * B * n * d)):
+        topk_case(ref, label, fn(), plain())
+        extra[label] = {**timed(torch, fn, 10, names),
+                        "plain_ms": median_ms(torch, plain, 3),
+                        **bound(nbytes, flops, peaks),
+                        "library_ms": median_ms(
+                            torch, lambda: torch.matmul(
+                                QB if "multi" in label else Q1, X.T), 10)}
+    del X
+    out["scoped_topk"]["slow_paths"] = {
+        key: v for key, v in extra.items() if key.startswith("scoped")}
+    out["multi_scope_topk"]["slow_paths"] = {
+        key: v for key, v in extra.items() if key.startswith("multi")}
+    return cases
+
+
+def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
+                 sid) -> int:
+    """The int8 and PQ scans: the CPU tests' edge shapes, then the main
+    path's shapes (WIKI-Dir n = 1.94M, d = 128, M = 32; k = r = 40 at
+    q = 1 and 80 at q = 64), timed."""
+    dev = torch.device("cuda")
+    cases = 0
+    for q in (1, 5, 16):
+        for n in (137, 2081):
+            for k in (1, 10, 40):
+                for metric in ("ip", "l2"):
+                    # n = 2081 takes the scalar loads (d % 16, M % 4 != 0)
+                    d, m = (16, 4) if n == 137 else (13, 3)
+                    q8, qs, x8, xs, sq = i8_case(torch, g, q, n, d, dev)
+                    lut, codes = pq_case(torch, g, q, n, m, dev)
+                    dn = torch.rand(3, n, generator=g, device=dev) < 0.3
+                    dn[1] = False                            # empty scope
+                    dn[2, : n - 5] = False                   # all-masked tiles
+                    W = words_of(torch, dn)
+                    m1 = dn[0].to(torch.int8)
+                    s1 = torch.randint(0, 3, (q,), generator=g, device=dev,
+                                       dtype=torch.int32)
+                    label = f"q{q} n{n} k{k} {metric}"
+                    exact_case(torch, f"scoped_topk_i8 {label}",
+                               ops.scoped_topk_i8(q8, qs, x8, xs, sq, m1, k,
+                                                  metric),
+                               ref.scoped_topk_i8_ref(q8, qs, x8, xs, sq, m1,
+                                                      k, metric))
+                    exact_case(torch, f"multi_scope_topk_i8 {label}",
+                               ops.multi_scope_topk_i8(q8, qs, x8, xs, sq, W,
+                                                       s1, k, metric),
+                               ref.multi_scope_topk_i8_ref(
+                                   q8, qs, x8, xs, sq, W, s1, k, metric))
+                    exact_case(torch, f"scoped_topk_pq {label}",
+                               ops.scoped_topk_pq(lut, codes, m1, k),
+                               ref.scoped_topk_pq_ref(lut, codes, m1, k))
+                    exact_case(torch, f"multi_scope_topk_pq {label}",
+                               ops.multi_scope_topk_pq(lut, codes, W, s1, k),
+                               ref.multi_scope_topk_pq_ref(lut, codes, W, s1,
+                                                           k))
+                    cases += 4
+
+    n, d, M, B = X.shape[0], X.shape[1], 32, sid.shape[0]
+    S, n_words = words.shape
+    x8, xs = quantize(torch, X)
+    sq = (x8.float() ** 2).sum(1) * xs * xs
+    Q1 = torch.randn(1, d, generator=g, device=dev)
+    QB = torch.randn(B, d, generator=g, device=dev)
+    (q1, s1), (qb, sb) = quantize(torch, Q1), quantize(torch, QB)
+    lut1 = torch.randn(1, M, 256, generator=g, device=dev)
+    lutb = torch.randn(B, M, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    ones = torch.ones(n, dtype=torch.int8, device=dev)
+    admitted = dense.sum(1)[sid.long()].sum().item()
+    union = dense.any(0).sum().item()
+    names = ("scan_pass1", "scan_pass2")
+    for metric, k1, kb in (("l2", 80, 40), ("ip", 40, 80)):
+        # both windows at both batch sizes are checked; the second (the
+        # main path's r = 40 at q = 1 and r = 80 at q = 64, ip) is timed
+        exact_case(torch, f"scoped_topk_i8 main {metric}",
+                   ops.scoped_topk_i8(q1, s1, x8, xs, sq, ones, k1, metric),
+                   ref.scoped_topk_i8_ref(q1, s1, x8, xs, sq, ones, k1,
+                                          metric))
+        exact_case(torch, f"multi_scope_topk_i8 main {metric}",
+                   ops.multi_scope_topk_i8(qb, sb, x8, xs, sq, words, sid,
+                                           kb, metric),
+                   ref.multi_scope_topk_i8_ref(qb, sb, x8, xs, sq, words,
+                                               sid, kb, metric))
+        exact_case(torch, f"scoped_topk_pq main k={k1}",
+                   ops.scoped_topk_pq(lut1, codes, ones, k1),
+                   ref.scoped_topk_pq_ref(lut1, codes, ones, k1))
+        exact_case(torch, f"multi_scope_topk_pq main k={kb}",
+                   ops.multi_scope_topk_pq(lutb, codes, words, sid, kb),
+                   ref.multi_scope_topk_pq_ref(lutb, codes, words, sid, kb))
+        cases += 4
+
+    def library_int_mm():
+        try:
+            x8t = x8.t()
+            torch._int_mm(qb, x8t)
+        except RuntimeError as exc:            # a yardstick only
+            print(f"chip_smoke: torch._int_mm unavailable: {exc}",
+                  file=sys.stderr)
+            return None
+        return median_ms(torch, lambda: torch._int_mm(qb, x8t), 20)
+
+    out["scoped_topk_i8"] = {
+        "max_abs_err": 0.0,
+        **timed(torch, lambda: ops.scoped_topk_i8(q1, s1, x8, xs, None, ones,
+                                                  40), 30, names),
+        "plain_ms": median_ms(torch, lambda: ref.scoped_topk_i8_ref(
+            q1, s1, x8, xs, None, ones, 40), 10),
+        "library_ms": None,
+        **bound(n * (d + 4) + n + d + 4 + 40 * 8, 2.0 * n * d, peaks,
+                "int8"),
+        "shape": f"q=1 n={n} d={d} k=40 ip, all rows admitted"}
+    out["multi_scope_topk_i8"] = {
+        "max_abs_err": 0.0,
+        **timed(torch, lambda: ops.multi_scope_topk_i8(
+            qb, sb, x8, xs, None, words, sid, 80), 30, names),
+        "plain_ms": median_ms(torch, lambda: ref.multi_scope_topk_i8_ref(
+            qb, sb, x8, xs, None, words, sid, 80), 5),
+        "library_ms": library_int_mm(),
+        **bound(union * (d + 4) + S * n_words * 4 + B * (d + 8 + 80 * 8),
+                2.0 * admitted * d, peaks, "int8"),
+        "shape": f"q={B} n={n} d={d} k=80 ip scopes={S} "
+                 f"admitted_pairs={admitted}; library: torch._int_mm "
+                 f"({B},{d})x({d},{n})"}
+    out["scoped_topk_pq"] = {
+        "max_abs_err": 0.0,
+        **timed(torch, lambda: ops.scoped_topk_pq(lut1, codes, ones, 40), 30,
+                names),
+        "plain_ms": median_ms(torch, lambda: ref.scoped_topk_pq_ref(
+            lut1, codes, ones, 40), 10),
+        "library_ms": None,
+        **bound(n * M + n + M * 256 * 4 + 40 * 8, 1.0 * n * M, peaks),
+        "shape": f"q=1 n={n} M={M} k=40, all rows admitted"}
+    out["multi_scope_topk_pq"] = {
+        "max_abs_err": 0.0,
+        **timed(torch, lambda: ops.multi_scope_topk_pq(
+            lutb, codes, words, sid, 80), 30, names),
+        "plain_ms": median_ms(torch, lambda: ref.multi_scope_topk_pq_ref(
+            lutb, codes, words, sid, 80), 5),
+        "library_ms": None,
+        **bound(union * M + S * n_words * 4 + B * (M * 256 * 4 + 4 + 80 * 8),
+                1.0 * admitted * M, peaks),
+        "shape": f"q={B} n={n} M={M} k=80 scopes={S} "
+                 f"admitted_pairs={admitted}; "
+                 f"shared-memory LUT lookups {admitted * M}"}
+    return cases
 
 
 # --------------------------------------------------------------- phase 2
@@ -455,6 +758,137 @@ def phase3(torch, ops, ds, db, batched, looped):
     return counts
 
 
+# --------------------------------------------------------------- phase 4
+PQ_RESCORE_K = 80          # benchmarks/bench_pq.py's RESCORE_K (8 k)
+PQ_WIDE_RESCORE_K = 320    # benchmarks/bench_pq.py's SCAN_RESCORE_K
+INT8_RECALL = 0.99         # benchmarks/bench_quantized.py's gate
+PQ_RECALL = 0.95           # benchmarks/bench_pq.py's gate
+
+
+def set_recall(base, other) -> float:
+    """recall@k of ``other`` against ``base`` as the reference benches
+    count it: the share of base's ids that other returns."""
+    hits = total = 0
+    for a, b in zip(base, other):
+        want = set(int(x) for x in a.ids[0] if x >= 0)
+        got = set(int(x) for x in b.ids[0] if x >= 0)
+        hits += len(want & got)
+        total += len(want)
+    return hits / max(total, 1)
+
+
+def phase4(torch, ops, ds, db, batched) -> dict:
+    """int8 and PQ on the phase-2 database (after phase 3's DSM), then
+    tiered storage. Every failed check is collected and reported at once."""
+    _, paths, rec = requests(ds)
+    queries = requests(ds)[0]
+    k = 10
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    dev = db.device
+    store = db.store
+    n, d = len(store), store.dim
+    fp = batched()                                    # the fp32 answers
+    t0 = time.perf_counter()
+    store.device_q_vectors(), store.device_q_scales()
+    t1 = time.perf_counter()
+    store.device_pq_codes()
+    t2 = time.perf_counter()
+    ops.reset_launch_counts()
+    info = {"phase": 4, "int8_setup_s": t1 - t0, "pq_setup_s": t2 - t1,
+            "pq_m": store.pq_codebook.m}
+    results = {}
+    for prec, rk in (("int8", None), ("pq", PQ_RESCORE_K)):
+        def batch():
+            return db.dsq_batch(queries, paths, k=k, recursive=rec,
+                                precision=prec, rescore_k=rk)
+        ta = time.perf_counter()
+        b = batch()
+        tb = time.perf_counter()
+        loop = [db.dsq(queries[i], paths[i], k=k, recursive=rec[i],
+                       precision=prec, rescore_k=rk)
+                for i in range(len(paths))]
+        tc = time.perf_counter()
+        batch()
+        td = time.perf_counter()
+        gate(same_results(b, loop), f"{prec}: dsq_batch != loop of dsq")
+        acct = b[0].batch
+        results[prec] = b
+        info[prec] = {
+            "rescore_k": rk, "batch_first_ms": (tb - ta) * 1e3,
+            "loop_ms": (tc - tb) * 1e3, "batch_warm_ms": (td - tc) * 1e3,
+            "precision_groups": acct.precision_groups,
+            "rescore_candidates": acct.rescore_candidates,
+            "db_bytes_fp32": acct.db_bytes_fp32,
+            f"db_bytes_{prec}": getattr(acct, f"db_bytes_{prec}"),
+            "recall_at_10": set_recall(fp, b)}
+    gate(info["int8"]["recall_at_10"] >= INT8_RECALL,
+         f"int8 recall@10 {info['int8']['recall_at_10']} < {INT8_RECALL}")
+    gate(info["pq"]["recall_at_10"] >= PQ_RECALL,
+         f"pq recall@10 {info['pq']['recall_at_10']} < {PQ_RECALL}")
+    # recall at a fixed window falls as scopes grow; reported at
+    # benchmarks/bench_pq.py's scan window too
+    info["pq"]["recall_at_10_r320"] = set_recall(fp, db.dsq_batch(
+        queries, paths, k=k, recursive=rec, precision="pq",
+        rescore_k=PQ_WIDE_RESCORE_K))
+
+    # tiered: a device byte budget of a third of the fp32 rows
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    store.set_device_budget(store.alive_nbytes() // 3)
+    torch.cuda.synchronize()
+    freed = mem0 - torch.cuda.memory_allocated(dev)
+    gate(store.tiered_active(), "budget set but the store is not tiered")
+    gate(freed >= n * d * 4,
+         f"fp32 mirror not released: {freed} B freed < {n * d * 4}")
+
+    def tiered():
+        return db.dsq_batch(queries, paths, k=k, recursive=rec,
+                            rescore_k=PQ_RESCORE_K)
+    ta = time.perf_counter()
+    first = tiered()
+    tb = time.perf_counter()
+    second = tiered()
+    tc = time.perf_counter()
+    a1, a2 = first[0].batch, second[0].batch
+    gate(a1.precision_groups.get("pq", 0) > 0,
+         f"fp32 batch did not take the PQ plan: {a1.precision_groups}")
+    gate(a1.tiered and a1.rescore_fetch_bytes > 0,
+         f"no rescore fetch: {a1.rescore_fetch_bytes}")
+    gate(a2.rows_device_pinned > 0
+         and a2.rescore_fetch_bytes < a1.rescore_fetch_bytes,
+         f"pins did not cut the fetch: {a1.rescore_fetch_bytes} -> "
+         f"{a2.rescore_fetch_bytes} ({a2.rows_device_pinned} pinned)")
+    gate(same_results(first, results["pq"]),
+         "tiered batch != explicit PQ batch (bitwise)")
+    gate(same_results(second, results["pq"]),
+         "tiered batch with pins != explicit PQ batch (bitwise)")
+    loop = [db.dsq(queries[i], paths[i], k=k, recursive=rec[i],
+                   rescore_k=PQ_RESCORE_K) for i in range(len(paths))]
+    gate(same_results(second, loop), "tiered: dsq_batch != loop of dsq")
+    tiered_recall = set_recall(fp, second)
+    gate(tiered_recall >= PQ_RECALL,
+         f"tiered recall@10 {tiered_recall} < {PQ_RECALL}")
+    counts = ops.launch_counts()
+    info["tiered"] = {
+        "budget_bytes": store.device_budget, "fp32_mirror_freed": freed,
+        "precision_groups": a1.precision_groups,
+        "fetch_bytes_first": a1.rescore_fetch_bytes,
+        "fetch_bytes_second": a2.rescore_fetch_bytes,
+        "rows_device_pinned": a2.rows_device_pinned,
+        "rows_host": a2.rows_host, "batch_first_ms": (tb - ta) * 1e3,
+        "batch_second_ms": (tc - tb) * 1e3, "recall_at_10": tiered_recall}
+    info["launches_phase"] = counts
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return counts
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -488,7 +922,8 @@ def main() -> int:
     emit({"phase": 0, "card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "nvcc_s": _build.build_seconds, "ptxas": regs,
-          "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1]},
+          "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1],
+                    "int8_ops": peaks[2]},
           "kernel_names": list(REPLACES)})
 
     measured = phase1(torch, ops, ref, peaks)
@@ -498,7 +933,8 @@ def main() -> int:
         ds, db, batched, looped, c2 = phase2(torch, args, ops,
                                               str(Path(tmp) / "dsm.journal"))
         c3 = phase3(torch, ops, ds, db, batched, looped)
-    launches = {key: c2[key] + c3[key] for key in c2}
+        c4 = phase4(torch, ops, ds, db, batched)
+    launches = {key: c2[key] + c3[key] + c4[key] for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

@@ -3,7 +3,8 @@
 Subpackages (importing any of them builds no kernel and touches no device):
   repro_torch.core      DSQ/DSM + PE-ONLINE / PE-OFFLINE / TrieHI scope indexes
   repro_torch.datasets  WIKI-Dir / ARXIV-Dir synthetic twins
-  repro_torch.vectordb  flat fp32 executor, batch planner, database facade
+  repro_torch.vectordb  flat executor (fp32 / int8 / PQ, tiered storage),
+                        batch planner, database facade
   repro_torch.kernels   hand-written Hopper kernels (CUDA C++, ctypes-bound)
                         and their plain PyTorch versions
 

@@ -1,5 +1,6 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, one shared
-library with a plain C interface, loaded with ctypes.
+"""Build and load the port's CUDA kernels: one ``nvcc -c`` per source, all
+started together, linked into one shared library with a plain C interface,
+loaded with ctypes.
 
 Nothing is built at import. :func:`library` compiles ``csrc/*.cu`` for
 ``sm_90a`` on first use into ``build/repro_torch/`` at the repository root
@@ -22,18 +23,17 @@ from typing import Optional
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("scoped_topk.cu", "bitmap_ops.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (every pointer and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "repro_scoped_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P],
-    "repro_multi_scope_topk_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "repro_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_bitmap_patch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_mask_and_popcount": [_P, _P, _P, _I, _I, _P, _P, _P],
 }
@@ -72,17 +72,32 @@ def _build(out: Path) -> None:
         build_seconds = 0.0
         return
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{Path(name).stem}.o") for name in SOURCES]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            build_log += link.stdout
+            failed = [link.returncode] if link.returncode != 0 else []
+        build_seconds = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

@@ -1,40 +1,57 @@
-// Masked fp32 scan + top-k for Hopper (sm_90a): scoped_topk and multi_scope_topk.
+// Masked scan + top-k for Hopper (sm_90a): the fp32, int8 and PQ scans.
 //
-// Replaces the Pallas TPU kernels src/repro/kernels/scoped_topk.py::scoped_topk
-// (_kernel + _merge_topk) and ::multi_scope_topk (_multi_kernel).
+// Replaces the Pallas TPU kernels of src/repro/kernels/scoped_topk.py:
+//   scoped_topk (_kernel + _merge_topk)   multi_scope_topk (_multi_kernel)
+//   scoped_topk_i8 (_kernel_i8)           multi_scope_topk_i8 (_multi_kernel_i8)
+//   scoped_topk_pq (_kernel_pq)           multi_scope_topk_pq (_multi_kernel_pq)
+// (the PQ pair with _adc_tile_scores).
 //
-// What it computes: for every query q and every row x that the query's mask
-// admits, score = q.x (ip/cos) or 2 q.x - ||x||^2 (l2), and keeps the k best
-// per query ranked by (score descending, id ascending) -- the tie rule of
-// jax.lax.top_k. Empty lanes are (-FLT_MAX, -1) == (finfo(float32).min, -1).
+// What it computes: for every query q and every row r that the query's mask
+// admits, a score, and the k best per query ranked by (score descending, id
+// ascending) -- the tie rule of jax.lax.top_k. Empty lanes are (-FLT_MAX, -1)
+// == (finfo(float32).min, -1). The scorer is a template policy:
+//   fp32: q.x, or 2 q.x - ||x||^2 for l2 (one fixed-order fmaf chain over d);
+//   int8: float(int32 sum of q_i8 * x_i8) * (q_scale * row_scale), then
+//         2 s - sq for l2 (sq: the dequantized rows' squared norms). Integer
+//         sums are exact in any order (d * 127^2 << 2^31);
+//   PQ:   sum over m = 0..M-1, in that order, of lut[q, m, code[r, m]]; the
+//         LUT folds the metric in, so this scorer is metric-free.
+// A score's bits depend on neither the query tile, the chunking nor the
+// entry point, so dsq_batch can stay bit-identical to a loop of dsq.
 //
-// What bounds it on an H100 SXM: the rows are read once from HBM (n*d*4
-// bytes) and every (query, row) pair costs d FMAs. At the main path's shapes
-// (n = 1.94M, d = 128) one query is bound by bytes (~0.30 ms at 3.35 TB/s);
-// 64 queries do 31.8 GFLOP, bound by the fp32 rate (~0.47 ms at 67 TFLOP/s).
-// The (q, n) score matrix is never written to device memory -- the point of
-// the TPU kernel, kept here.
+// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32, 1,979 TOP/s
+// int8): at the main path's shapes (n = 1.94M, d = 128) the fp32 scan moves
+// 0.99 GB of rows (~0.30 ms) and at q = 64 does 31.8 GFLOP (~0.47 ms); the
+// int8 scan moves n (d + 8) bytes (~0.08 ms) and is bytes-bound at q = 1 and
+// q = 64; the PQ scan moves n M bytes (~0.02 ms at M = 32), but at q = 64
+// does 4.0 G shared-memory LUT lookups, which bound it in practice. The
+// (q, n) score matrix is never written to device memory.
 //
 // Design. The TPU's sequential n-sweep with a running top-k in VMEM scratch
 // does not carry over: Hopper blocks run in parallel and in no order. So:
-//   pass 1: grid (query tiles of <= 8, row chunks). A block stages its query
-//           tile in shared memory and sweeps its chunk 256 rows at a time:
-//           each thread scores one row against the whole tile (one
-//           fixed-order fp32 FMA chain over d, so a score's bits do not
-//           depend on the tile, the chunking or the entry point), rows no
-//           query of the tile admits are skipped, and warp j merges query j's
-//           256 scores into its sorted top-k list in shared memory. The block
-//           writes its lists as (q, n_chunks, k) partials.
+//   pass 1: grid (query tiles of qt <= 8, row chunks). A block stages the
+//           query side of its tile in shared memory (fp32 or int8 query
+//           rows, or the tile's LUTs) and sweeps its chunk 256 rows at a
+//           time: each thread scores one row against the whole tile, rows
+//           no query of the tile admits are skipped, and warp j merges query
+//           j's 256 scores into its sorted top-k list. The block writes its
+//           lists as (q, n_chunks, k) partials.
 //   pass 2: one warp per query merges the partials into the final top-k.
-// Both entry points share the scoring loop and the merge; they differ only
-// in where the mask bit comes from (a dense int8 mask, or bit r%32 of word
-// r/32 of the query's row of a packed (n_scopes, n_words) matrix). The
-// result is the exact top-k under a total order, so it is the same whatever
-// the chunking, and no atomics are used: runs are bit-for-bit repeatable.
-// Rows are read per thread (one row per thread, float4 loads); the 8 query
-// tiles of a chunk are adjacent in launch order, so most re-reads of a chunk
-// hit L2. Making the scan reach its bound (staging rows through shared
-// memory, tensor-core-free register tiling) is left for a later change.
+// Limits lifted by design, with no other code path:
+//   any k: the insertion shifts a list 32 entries at a time from its tail,
+//          so a list has no length bound in registers; lists live in shared
+//          memory while they fit (the wrapper shrinks qt for large k) and in
+//          their partial slots in device memory past that;
+//   any depth: the query side is staged in slices of the reduction axis (d,
+//          or M for PQ) when a whole tile does not fit; each score's chain
+//          continues across slices in the same order, so its bits do not
+//          change. The wrapper prefers shrinking qt for PQ (a LUT slice per
+//          256 rows would cost more bytes than the codes).
+// The result is the exact top-k under a total order, and no atomics are
+// used: runs are bit-for-bit repeatable. Rows are read per thread (one row
+// per thread, 16-byte loads where the layout allows); making the scans
+// reach their bounds (tensor-core int8, LUTs in registers, staging rows
+// through shared memory) is left for a later change.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -44,91 +61,296 @@ namespace {
 
 constexpr int kWarps = 8;                 // = the largest query tile
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxK = 256;
-constexpr int kSlots = kMaxK / 32;        // list entries one lane shifts
 constexpr float kNegInf = -FLT_MAX;       // finfo(float32).min
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kPass2SmemList = 6144;      // pass 2 keeps lists of k <= this
+                                          // in shared memory (48 KB)
+
+enum Kind { kF32 = 0, kI8 = 1, kPQ = 2 };
+
+struct Scan {
+  const void* q;           // f32 (nq, depth) | i8 (nq, depth) | LUT f32 (nq, depth, 256)
+  const float* q_scale;    // int8: (nq,)
+  const void* rows;        // f32 (n, depth) | i8 (n, depth) | u8 codes (n, depth)
+  const float* row_scale;  // int8: (n,)
+  const float* sq;         // l2: (n,)
+  const int8_t* mask;      // dense (n,) mask, or the packed words below
+  const uint32_t* words;   // (n_scopes, n_words)
+  const int* sids;         // (nq,) scope row per query
+  int n_scopes, n_words;
+  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists;
+  float* part_v;
+  int* part_i;
+};
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
 // Offer one candidate per lane (``ok`` marks lanes that hold one) to the
-// warp's sorted list (lv, li) of length k, in lane order. The list lives in
-// shared memory and is owned by the calling warp alone.
+// warp's sorted list (lv, li) of length k, in lane order. The list is owned
+// by the calling warp alone (shared or device memory).
 __device__ void warp_offer(float* lv, int* li, int k, float cv, int ci,
                            bool ok) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
-  unsigned want =
-      __ballot_sync(0xffffffffu, ok && better(cv, ci, lv[k - 1], li[k - 1]));
+  unsigned want = __ballot_sync(kAll, ok && better(cv, ci, lv[k - 1],
+                                                   li[k - 1]));
   while (want) {
     const int src = __ffs(want) - 1;
     want &= want - 1;
-    const float v = __shfl_sync(0xffffffffu, cv, src);
-    const int id = __shfl_sync(0xffffffffu, ci, src);
+    const float v = __shfl_sync(kAll, cv, src);
+    const int id = __shfl_sync(kAll, ci, src);
     if (!better(v, id, lv[k - 1], li[k - 1])) continue;  // warp-uniform
     int pos = 0;
     for (int j = lane; j < k; j += 32) pos += better(lv[j], li[j], v, id);
 #pragma unroll
-    for (int o = 16; o; o >>= 1) pos += __shfl_xor_sync(0xffffffffu, pos, o);
-    // shift [pos, k-2] one place down, then write the candidate at pos
-    float sv[kSlots];
-    int si[kSlots];
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      const int j = lane + 32 * t;
-      if (j > pos && j < k) {
-        sv[t] = lv[j - 1];
-        si[t] = li[j - 1];
+    for (int o = 16; o; o >>= 1) pos += __shfl_xor_sync(kAll, pos, o);
+    // shift [pos, k-2] one place down, 32 entries at a time from the tail
+    // (each step reads before it writes, and reads only entries the steps
+    // below it have not written yet), writing the candidate at pos
+    for (int base = ((k - 1) >> 5) << 5; base >= 0 && base + 31 >= pos;
+         base -= 32) {
+      const int j = base + lane;
+      const bool move = j > pos && j < k;
+      float sv = 0.0f;
+      int si = 0;
+      if (move) {
+        sv = lv[j - 1];
+        si = li[j - 1];
       }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      const int j = lane + 32 * t;
-      if (j > pos && j < k) {
-        lv[j] = sv[t];
-        li[j] = si[t];
+      __syncwarp();
+      if (move) {
+        lv[j] = sv;
+        li[j] = si;
       } else if (j == pos) {
         lv[j] = v;
         li[j] = id;
       }
+      __syncwarp();
     }
-    __syncwarp();
   }
 }
 
-template <bool kWords, bool kL2, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-scan_pass1(const float* __restrict__ q, const float* __restrict__ rows,
-           const float* __restrict__ sq, const int8_t* __restrict__ mask,
-           const uint32_t* __restrict__ words, const int* __restrict__ sids,
-           int n_scopes, int n_words, int nq, int n, int d, int k, int qt,
-           int chunk_rows, float* __restrict__ part_v,
-           int* __restrict__ part_i) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // qt * d   query tile
-  float* sv = qs + qt * d;                   // qt * 256 scores of one sweep
-  float* lv = sv + qt * kThreads;            // qt * k   top-k values
-  int* li = reinterpret_cast<int*>(lv + qt * k);  // qt * k top-k ids
-  int* tile_sid = li + qt * k;               // qt       scope rows
+// ------------------------------------------------------------- scorers
+// stage():      copy the tile's query side for depth [c0, c0 + len) into
+//               shared memory, laid out (query, element);
+// accumulate(): continue row r's per-query chains over that slice;
+// finish():     the score from a finished chain.
 
-  const int q0 = blockIdx.x * qt;
-  const int nqt = min(qt, nq - q0);
+template <int kKind>
+struct Scorer;
+
+template <>
+struct Scorer<kF32> {
+  using Acc = float;
+  __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
+                               int nqt, int c0, int len) {
+    float* dst = reinterpret_cast<float*>(qs);
+    const float* q = static_cast<const float*>(p.q);
+    for (int i = threadIdx.x; i < nqt * len; i += kThreads) {
+      const int j = i / len;
+      dst[i] = q[static_cast<size_t>(q0 + j) * p.depth + c0 + (i - j * len)];
+    }
+  }
+  template <bool kVec>
+  __device__ static void accumulate(Acc (&acc)[kWarps],
+                                    const unsigned char* qs, const Scan& p,
+                                    int r, int c0, int len, int nqt) {
+    const float* qf = reinterpret_cast<const float*>(qs);
+    const float* x = static_cast<const float*>(p.rows) +
+                     static_cast<size_t>(r) * p.depth + c0;
+    if (kVec) {
+      const float4* x4 = reinterpret_cast<const float4*>(x);
+      for (int c = 0; c < len; c += 4) {
+        const float4 xv = __ldg(x4 + (c >> 2));
+#pragma unroll
+        for (int j = 0; j < kWarps; ++j) {
+          if (j < nqt) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qf + j * len + c);
+            acc[j] = fmaf(qv.x, xv.x, acc[j]);
+            acc[j] = fmaf(qv.y, xv.y, acc[j]);
+            acc[j] = fmaf(qv.z, xv.z, acc[j]);
+            acc[j] = fmaf(qv.w, xv.w, acc[j]);
+          }
+        }
+      }
+    } else {
+      for (int c = 0; c < len; ++c) {
+        const float xv = __ldg(x + c);
+#pragma unroll
+        for (int j = 0; j < kWarps; ++j)
+          if (j < nqt) acc[j] = fmaf(qf[j * len + c], xv, acc[j]);
+      }
+    }
+  }
+  template <bool kL2>
+  __device__ static float finish(Acc acc, float, float, float sqr) {
+    return kL2 ? 2.0f * acc - sqr : acc;
+  }
+};
+
+template <>
+struct Scorer<kI8> {
+  using Acc = int;
+  __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
+                               int nqt, int c0, int len) {
+    int8_t* dst = reinterpret_cast<int8_t*>(qs);
+    const int8_t* q = static_cast<const int8_t*>(p.q);
+    for (int i = threadIdx.x; i < nqt * len; i += kThreads) {
+      const int j = i / len;
+      dst[i] = q[static_cast<size_t>(q0 + j) * p.depth + c0 + (i - j * len)];
+    }
+  }
+  template <bool kVec>
+  __device__ static void accumulate(Acc (&acc)[kWarps],
+                                    const unsigned char* qs, const Scan& p,
+                                    int r, int c0, int len, int nqt) {
+    const int8_t* q8 = reinterpret_cast<const int8_t*>(qs);
+    const int8_t* x = static_cast<const int8_t*>(p.rows) +
+                      static_cast<size_t>(r) * p.depth + c0;
+    if (kVec) {
+      const int4* x16 = reinterpret_cast<const int4*>(x);
+      for (int c = 0; c < len; c += 16) {
+        const int4 xv = __ldg(x16 + (c >> 4));
+#pragma unroll
+        for (int j = 0; j < kWarps; ++j) {
+          if (j < nqt) {
+            const int4 qv = *reinterpret_cast<const int4*>(q8 + j * len + c);
+            acc[j] = __dp4a(xv.x, qv.x, acc[j]);
+            acc[j] = __dp4a(xv.y, qv.y, acc[j]);
+            acc[j] = __dp4a(xv.z, qv.z, acc[j]);
+            acc[j] = __dp4a(xv.w, qv.w, acc[j]);
+          }
+        }
+      }
+    } else {
+      for (int c = 0; c < len; ++c) {
+        const int xv = x[c];
+#pragma unroll
+        for (int j = 0; j < kWarps; ++j)
+          if (j < nqt) acc[j] += xv * static_cast<int>(q8[j * len + c]);
+      }
+    }
+  }
+  template <bool kL2>
+  __device__ static float finish(Acc acc, float qscale, float rscale,
+                                 float sqr) {
+    const float s = __int2float_rn(acc) * (qscale * rscale);
+    return kL2 ? 2.0f * s - sqr : s;
+  }
+};
+
+template <>
+struct Scorer<kPQ> {
+  using Acc = float;
+  __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
+                               int nqt, int c0, int len) {
+    // one query's slice is len * 256 contiguous floats of its (M, 256) LUT
+    float4* dst = reinterpret_cast<float4*>(qs);
+    const float4* lut = static_cast<const float4*>(p.q);
+    const int per = len * 64;
+    for (int i = threadIdx.x; i < nqt * per; i += kThreads) {
+      const int j = i / per;
+      dst[i] = lut[(static_cast<size_t>(q0 + j) * p.depth + c0) * 64 +
+                   (i - j * per)];
+    }
+  }
+  template <bool kVec>
+  __device__ static void accumulate(Acc (&acc)[kWarps],
+                                    const unsigned char* qs, const Scan& p,
+                                    int r, int c0, int len, int nqt) {
+    const float* lut = reinterpret_cast<const float*>(qs);
+    const uint8_t* code = static_cast<const uint8_t*>(p.rows) +
+                          static_cast<size_t>(r) * p.depth + c0;
+    const int stride = len * 256;          // one query's LUT slice
+    if (kVec) {
+      for (int m = 0; m < len; m += 4) {
+        const unsigned w =
+            __ldg(reinterpret_cast<const unsigned*>(code + m));
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float* l = lut + (m + t) * 256 + ((w >> (8 * t)) & 255u);
+#pragma unroll
+          for (int j = 0; j < kWarps; ++j)
+            if (j < nqt) acc[j] += l[j * stride];
+        }
+      }
+    } else {
+      for (int m = 0; m < len; ++m) {
+        const float* l = lut + m * 256 + code[m];
+#pragma unroll
+        for (int j = 0; j < kWarps; ++j)
+          if (j < nqt) acc[j] += l[j * stride];
+      }
+    }
+  }
+  template <bool kL2>
+  __device__ static float finish(Acc acc, float, float, float) {
+    return acc;
+  }
+};
+
+__host__ __device__ inline size_t kind_bytes(int kind) {
+  return kind == kF32 ? 4 : kind == kI8 ? 1 : 256 * 4;
+}
+
+// Shared memory of pass 1: the staged query side (rounded up to 16 bytes),
+// one sweep's scores, the tile's scope rows and, when they fit, its lists.
+__host__ __device__ inline size_t q_bytes(int kind, int qt, int slice) {
+  return (static_cast<size_t>(qt) * slice * kind_bytes(kind) + 15) / 16 * 16;
+}
+
+size_t pass1_smem(int kind, int qt, int slice, int k, int smem_lists) {
+  return q_bytes(kind, qt, slice) +
+         static_cast<size_t>(qt) * (kThreads * sizeof(float) + sizeof(int)) +
+         (smem_lists ? static_cast<size_t>(qt) * k * 8 : 0);
+}
+
+template <int kKind, bool kWords, bool kL2, bool kVec>
+__global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
+  using S = Scorer<kKind>;
+  using Acc = typename S::Acc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qs = smem;                                  // query side
+  float* sv = reinterpret_cast<float*>(
+      smem + q_bytes(kKind, p.qt, p.slice));                 // qt * 256
+  int* tile_sid = reinterpret_cast<int*>(sv + p.qt * kThreads);   // qt
+  float* lv_s = reinterpret_cast<float*>(tile_sid + p.qt);   // qt * k
+  int* li_s = reinterpret_cast<int*>(lv_s + p.qt * p.k);     // qt * k
+
+  const int k = p.k;
+  const int q0 = blockIdx.x * p.qt;
+  const int nqt = min(p.qt, p.nq - q0);
   const int chunk = blockIdx.y;
-  const int r_begin = chunk * chunk_rows;
-  const int r_end = min(n, r_begin + chunk_rows);
+  const int r_begin = chunk * p.chunk_rows;
+  const int r_end = min(p.n, r_begin + p.chunk_rows);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // query j's list: in shared memory, or in its own partial slot
+  auto list_off = [&](int j) {
+    return (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
+  };
 
-  for (int i = threadIdx.x; i < nqt * d; i += kThreads)
-    qs[i] = q[static_cast<size_t>(q0) * d + i];
-  for (int i = threadIdx.x; i < qt * k; i += kThreads) {
-    lv[i] = kNegInf;
-    li[i] = -1;
+  for (int i = threadIdx.x; i < nqt * k; i += kThreads) {
+    const int j = i / k;
+    const int s = i - j * k;
+    if (p.smem_lists) {
+      lv_s[i] = kNegInf;
+      li_s[i] = -1;
+    } else {
+      p.part_v[list_off(j) + s] = kNegInf;
+      p.part_i[list_off(j) + s] = -1;
+    }
   }
-  if (kWords && threadIdx.x < nqt) tile_sid[threadIdx.x] = sids[q0 + threadIdx.x];
+  if (kWords && threadIdx.x < nqt) tile_sid[threadIdx.x] = p.sids[q0 + threadIdx.x];
+  const bool one_slice = p.slice >= p.depth;
+  if (one_slice) S::stage(qs, p, q0, nqt, 0, p.depth);
   __syncthreads();
+
+  float* wl = p.smem_lists ? lv_s + warp * k : p.part_v + list_off(warp);
+  int* wi = p.smem_lists ? li_s + warp * k : p.part_i + list_off(warp);
 
   for (int base = r_begin; base < r_end; base += kThreads) {
     const int r = base + threadIdx.x;
@@ -137,58 +359,44 @@ scan_pass1(const float* __restrict__ q, const float* __restrict__ rows,
       if (kWords) {
         for (int j = 0; j < nqt; ++j) {
           const int s = tile_sid[j];
-          if (s >= 0 && s < n_scopes) {
+          if (s >= 0 && s < p.n_scopes) {
             const uint32_t w =
-                words[static_cast<size_t>(s) * n_words + (r >> 5)];
+                p.words[static_cast<size_t>(s) * p.n_words + (r >> 5)];
             admit |= ((w >> (r & 31)) & 1u) << j;
           }
         }
-      } else if (mask[r]) {
+      } else if (p.mask[r]) {
         admit = (1u << nqt) - 1u;
       }
     }
-    float acc[kWarps];
+    Acc acc[kWarps];
 #pragma unroll
-    for (int j = 0; j < kWarps; ++j) acc[j] = 0.0f;
-    if (admit) {
-      const float* x = rows + static_cast<size_t>(r) * d;
-      if (kVec) {
-        const float4* x4 = reinterpret_cast<const float4*>(x);
-        for (int c = 0; c < d; c += 4) {
-          const float4 xv = __ldg(x4 + (c >> 2));
-#pragma unroll
-          for (int j = 0; j < kWarps; ++j) {
-            if (j < nqt) {
-              const float4 qv = *reinterpret_cast<const float4*>(qs + j * d + c);
-              acc[j] = fmaf(qv.x, xv.x, acc[j]);
-              acc[j] = fmaf(qv.y, xv.y, acc[j]);
-              acc[j] = fmaf(qv.z, xv.z, acc[j]);
-              acc[j] = fmaf(qv.w, xv.w, acc[j]);
-            }
-          }
-        }
-      } else {
-        for (int c = 0; c < d; ++c) {
-          const float xv = __ldg(x + c);
-#pragma unroll
-          for (int j = 0; j < kWarps; ++j)
-            if (j < nqt) acc[j] = fmaf(qs[j * d + c], xv, acc[j]);
-        }
+    for (int j = 0; j < kWarps; ++j) acc[j] = Acc(0);
+    for (int c0 = 0; c0 < p.depth; c0 += p.slice) {
+      const int len = min(p.slice, p.depth - c0);
+      if (!one_slice) {                      // block-uniform
+        __syncthreads();
+        S::stage(qs, p, q0, nqt, c0, len);
+        __syncthreads();
       }
+      if (admit) S::template accumulate<kVec>(acc, qs, p, r, c0, len, nqt);
     }
-    const float sqr = (kL2 && admit) ? sq[r] : 0.0f;
+    const float rscale =
+        (kKind == kI8 && admit) ? p.row_scale[r] : 1.0f;
+    const float sqr = (kL2 && admit) ? p.sq[r] : 0.0f;
 #pragma unroll
     for (int j = 0; j < kWarps; ++j) {
       if (j < nqt) {
         float s = kNegInf;
-        if ((admit >> j) & 1u) s = kL2 ? 2.0f * acc[j] - sqr : acc[j];
+        if ((admit >> j) & 1u) {
+          const float qscale = kKind == kI8 ? p.q_scale[q0 + j] : 1.0f;
+          s = S::template finish<kL2>(acc[j], qscale, rscale, sqr);
+        }
         sv[j * kThreads + threadIdx.x] = s;
       }
     }
     __syncthreads();
     if (warp < nqt) {
-      float* wl = lv + warp * k;
-      int* wi = li + warp * k;
       for (int t = 0; t < kThreads; t += 32) {
         const int row = base + t + lane;
         const float v = sv[warp * kThreads + t + lane];
@@ -198,139 +406,129 @@ scan_pass1(const float* __restrict__ q, const float* __restrict__ rows,
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < nqt * k; i += kThreads) {
-    const int j = i / k;
-    const int s = i - j * k;
-    const size_t o =
-        (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k + s;
-    part_v[o] = lv[j * k + s];
-    part_i[o] = li[j * k + s];
+  if (p.smem_lists) {
+    for (int i = threadIdx.x; i < nqt * k; i += kThreads) {
+      const int j = i / k;
+      const int s = i - j * k;
+      p.part_v[list_off(j) + s] = lv_s[i];
+      p.part_i[list_off(j) + s] = li_s[i];
+    }
   }
 }
 
-// One warp per query: merge the (n_chunks, k) partial lists.
+// One warp per query: merge the (n_chunks, k) partial lists. The list
+// lives in shared memory for k <= kPass2SmemList, else in the output row.
 __global__ void __launch_bounds__(32)
 scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
            int n_chunks, int k, float* __restrict__ out_v,
            int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* lv = smem;
-  int* li = reinterpret_cast<int*>(lv + k);
+  extern __shared__ float smem2[];
   const int lane = threadIdx.x;
   const size_t qi = blockIdx.x;
+  const bool in_smem = k <= kPass2SmemList;
+  float* lv = in_smem ? smem2 : out_v + qi * k;
+  int* li = in_smem ? reinterpret_cast<int*>(smem2 + k) : out_i + qi * k;
   for (int j = lane; j < k; j += 32) {
     lv[j] = kNegInf;
     li[j] = -1;
   }
-  const int total = n_chunks * k;
+  const size_t total = static_cast<size_t>(n_chunks) * k;
   const float* pv = part_v + qi * total;
   const int* pi = part_i + qi * total;
-  for (int t = 0; t < total; t += 32) {
-    const int idx = t + lane;
+  for (size_t t = 0; t < total; t += 32) {
+    const size_t idx = t + lane;
     const bool in = idx < total;
     const float v = in ? pv[idx] : kNegInf;
     const int id = in ? pi[idx] : -1;
     warp_offer(lv, li, k, v, id, in && id >= 0);
   }
   __syncwarp();
-  for (int j = lane; j < k; j += 32) {
-    out_v[qi * k + j] = lv[j];
-    out_i[qi * k + j] = li[j];
+  if (in_smem) {
+    for (int j = lane; j < k; j += 32) {
+      out_v[qi * k + j] = lv[j];
+      out_i[qi * k + j] = li[j];
+    }
   }
 }
 
-template <bool kWords, bool kL2, bool kVec>
+template <int kKind, bool kWords, bool kL2, bool kVec>
 cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t stream,
-                         const float* q, const float* rows, const float* sq,
-                         const int8_t* mask, const uint32_t* words,
-                         const int* sids, int n_scopes, int n_words, int nq,
-                         int n, int d, int k, int qt, int chunk_rows,
-                         float* part_v, int* part_i) {
-  auto kern = scan_pass1<kWords, kL2, kVec>;
+                         const Scan& p) {
+  auto kern = scan_pass1<kKind, kWords, kL2, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, stream>>>(q, rows, sq, mask, words, sids,
-                                         n_scopes, n_words, nq, n, d, k, qt,
-                                         chunk_rows, part_v, part_i);
+  kern<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kWords>
-cudaError_t dispatch_pass1(int l2, dim3 grid, size_t smem,
-                           cudaStream_t stream, const float* q,
-                           const float* rows, const float* sq,
-                           const int8_t* mask, const uint32_t* words,
-                           const int* sids, int n_scopes, int n_words, int nq,
-                           int n, int d, int k, int qt, int chunk_rows,
-                           float* part_v, int* part_i) {
-  const bool vec = (d % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(rows) % 16 == 0);
-#define REPRO_PASS1(L2, VEC)                                                  \
-  return launch_pass1<kWords, L2, VEC>(grid, smem, stream, q, rows, sq, mask, \
-                                       words, sids, n_scopes, n_words, nq, n, \
-                                       d, k, qt, chunk_rows, part_v, part_i)
-  if (l2) {
-    if (vec) REPRO_PASS1(true, true);
-    REPRO_PASS1(true, false);
+template <int kKind, bool kWords>
+cudaError_t dispatch_pass1(bool l2, bool vec, dim3 grid, size_t smem,
+                           cudaStream_t stream, const Scan& p) {
+  if constexpr (kKind == kPQ) {              // metric-free: no l2 variant
+    if (vec) return launch_pass1<kKind, kWords, false, true>(grid, smem, stream, p);
+    return launch_pass1<kKind, kWords, false, false>(grid, smem, stream, p);
+  } else {
+    if (l2) {
+      if (vec) return launch_pass1<kKind, kWords, true, true>(grid, smem, stream, p);
+      return launch_pass1<kKind, kWords, true, false>(grid, smem, stream, p);
+    }
+    if (vec) return launch_pass1<kKind, kWords, false, true>(grid, smem, stream, p);
+    return launch_pass1<kKind, kWords, false, false>(grid, smem, stream, p);
   }
-  if (vec) REPRO_PASS1(false, true);
-  REPRO_PASS1(false, false);
-#undef REPRO_PASS1
 }
 
-template <bool kWords>
-int scan_topk(const float* q, const float* rows, const float* sq,
-              const int8_t* mask, const uint32_t* words, const int* sids,
-              int n_scopes, int n_words, int nq, int n, int d, int k, int l2,
-              int qt, int chunk_rows, int n_chunks, float* part_v,
-              int* part_i, float* out_v, int* out_i, void* stream_ptr) {
-  if (nq <= 0) return cudaSuccess;
-  if (k < 1 || k > kMaxK || qt < 1 || qt > kWarps || chunk_rows < 1 ||
-      n_chunks < 1 || d < 1)
-    return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem1 =
-      sizeof(float) * (static_cast<size_t>(qt) * d + qt * kThreads +
-                       2 * static_cast<size_t>(qt) * k + qt);
-  const dim3 grid1((nq + qt - 1) / qt, n_chunks);
-  cudaError_t err = dispatch_pass1<kWords>(
-      l2, grid1, smem1, stream, q, rows, sq, mask, words, sids, n_scopes,
-      n_words, nq, n, d, k, qt, chunk_rows, part_v, part_i);
-  if (err != cudaSuccess) return err;
-  const size_t smem2 = sizeof(float) * 2 * static_cast<size_t>(k);
-  scan_pass2<<<nq, 32, smem2, stream>>>(part_v, part_i, n_chunks, k, out_v,
-                                        out_i);
-  return cudaGetLastError();
+template <int kKind>
+cudaError_t dispatch_words(bool words, bool l2, bool vec, dim3 grid,
+                           size_t smem, cudaStream_t stream, const Scan& p) {
+  if (words) return dispatch_pass1<kKind, true>(l2, vec, grid, smem, stream, p);
+  return dispatch_pass1<kKind, false>(l2, vec, grid, smem, stream, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dense (n,) int8 mask shared by every query.
-int repro_scoped_topk_f32(const float* q, const float* rows, const float* sq,
-                          const int8_t* mask, int nq, int n, int d, int k,
-                          int l2, int qt, int chunk_rows, int n_chunks,
-                          float* part_v, int* part_i, float* out_v,
-                          int* out_i, void* stream) {
-  return scan_topk<false>(q, rows, sq, mask, nullptr, nullptr, 0, 0, nq, n,
-                          d, k, l2, qt, chunk_rows, n_chunks, part_v, part_i,
-                          out_v, out_i, stream);
-}
-
-// Packed (n_scopes, n_words) uint32 masks, one scope row per query.
-int repro_multi_scope_topk_f32(const float* q, const float* rows,
-                               const float* sq, const uint32_t* words,
-                               const int* sids, int n_scopes, int n_words,
-                               int nq, int n, int d, int k, int l2, int qt,
-                               int chunk_rows, int n_chunks, float* part_v,
-                               int* part_i, float* out_v, int* out_i,
-                               void* stream) {
-  return scan_topk<true>(q, rows, sq, nullptr, words, sids, n_scopes,
-                         n_words, nq, n, d, k, l2, qt, chunk_rows, n_chunks,
-                         part_v, part_i, out_v, out_i, stream);
+// One entry point for the six scans. kind: 0 fp32, 1 int8, 2 PQ. Exactly
+// one of ``mask`` (dense (n,) int8, shared by every query) and ``words``
+// (packed (n_scopes, n_words) masks, row sids[i] for query i) is non-null.
+// ``slice`` is the depth staged at once (depth = d, or M for PQ), ``qt``
+// the query tile, ``smem_lists`` whether the tile's lists fit in shared
+// memory; the partials are (nq, n_chunks, k).
+int repro_scan_topk(int kind, const void* q, const float* q_scale,
+                    const void* rows, const float* row_scale, const float* sq,
+                    const int8_t* mask, const uint32_t* words,
+                    const int* sids, int n_scopes, int n_words, int nq, int n,
+                    int depth, int slice, int k, int l2, int qt,
+                    int chunk_rows, int n_chunks, int smem_lists,
+                    float* part_v, int* part_i, float* out_v, int* out_i,
+                    void* stream_ptr) {
+  if (nq <= 0) return cudaSuccess;
+  if (kind < kF32 || kind > kPQ || k < 1 || qt < 1 || qt > kWarps ||
+      depth < 1 || slice < 1 || slice > depth || chunk_rows < 1 ||
+      n_chunks < 1 || n_chunks > 65535 || (mask == nullptr) == (words == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Scan p{q, q_scale, rows, row_scale, sq, mask, words, sids, n_scopes,
+         n_words, nq, n, depth, slice, k, qt, chunk_rows, smem_lists,
+         part_v, part_i};
+  const uintptr_t base = reinterpret_cast<uintptr_t>(rows);
+  const int unit = kind == kF32 ? 4 : kind == kI8 ? 16 : 4;
+  const bool vec = depth % unit == 0 && slice % unit == 0 &&
+                   base % (kind == kPQ ? 4 : 16) == 0;
+  const size_t smem1 = pass1_smem(kind, qt, slice, k, smem_lists);
+  const dim3 grid1((nq + qt - 1) / qt, n_chunks);
+  const bool w = words != nullptr;
+  cudaError_t err =
+      kind == kF32 ? dispatch_words<kF32>(w, l2, vec, grid1, smem1, stream, p)
+      : kind == kI8 ? dispatch_words<kI8>(w, l2, vec, grid1, smem1, stream, p)
+                    : dispatch_words<kPQ>(w, false, vec, grid1, smem1, stream, p);
+  if (err != cudaSuccess) return err;
+  const size_t smem2 = k <= kPass2SmemList ? sizeof(float) * 2 * k : 0;
+  scan_pass2<<<nq, 32, smem2, stream>>>(part_v, part_i, n_chunks, k, out_v,
+                                        out_i);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -96,6 +96,17 @@ def _device_of(*tensors: Optional[torch.Tensor]) -> torch.device:
     return dev
 
 
+def _pad_words(mask_words, n: int) -> torch.Tensor:
+    """Packed words as int32, zero-padded to cover ``ceil(n/32)`` words
+    (rows past the given words are out of every scope)."""
+    mask_words = as_words(mask_words)
+    want = (n + 31) // 32
+    if mask_words.shape[1] < want:
+        mask_words = torch.nn.functional.pad(
+            mask_words, (0, want - mask_words.shape[1]))
+    return mask_words
+
+
 def scoped_topk(queries: torch.Tensor, rows: torch.Tensor,
                 mask: torch.Tensor, k: int = 10, metric: str = "ip",
                 sq: Optional[torch.Tensor] = None,
@@ -130,12 +141,8 @@ def multi_scope_topk(queries: torch.Tensor, rows: torch.Tensor,
     scope row ``scope_ids[i]`` of the packed (n_scopes, ceil(n/32)) mask
     matrix admits. Mask words shorter than ceil(n/32) are padded with zero
     words (rows past them are out of every scope)."""
-    mask_words = as_words(mask_words)
+    mask_words = _pad_words(mask_words, rows.shape[0])
     dev = _device_of(queries, rows, mask_words, scope_ids, sq)
-    want = (rows.shape[0] + 31) // 32
-    if mask_words.shape[1] < want:
-        mask_words = torch.nn.functional.pad(
-            mask_words, (0, want - mask_words.shape[1]))
     if metric == "l2" and sq is None:
         sq = row_sq_norms(rows)
     if dev.type == "cpu":
@@ -148,6 +155,102 @@ def multi_scope_topk(queries: torch.Tensor, rows: torch.Tensor,
                                 mask_words.contiguous(),
                                 scope_ids.to(torch.int32).contiguous(), k,
                                 metric, sq, block_q, block_n)
+
+
+def _i8_sq(metric: str, sq: Optional[torch.Tensor]) -> None:
+    if metric == "l2" and sq is None:
+        raise ValueError("the int8 l2 scan needs sq, the dequantized rows' "
+                         "squared norms (VectorStore.q_sq_norms)")
+
+
+def scoped_topk_i8(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                   rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                   sq: Optional[torch.Tensor], mask: torch.Tensor,
+                   k: int = 10, metric: str = "ip",
+                   block_q: Optional[int] = None,
+                   block_n: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over the int8 store (the scan phase of the two-phase
+    int8 plan): scores ``float(int32 dot) * (q_scale * row_scale)``, and
+    ``2 s - sq`` for l2 (``sq`` read for l2 only)."""
+    dev = _device_of(q_i8, q_scale, rows_i8, row_scale, mask, sq)
+    _i8_sq(metric, sq)
+    if dev.type == "cpu":
+        return ref.scoped_topk_i8_ref(q_i8, q_scale, rows_i8, row_scale, sq,
+                                      mask, k, metric)
+    block_q, block_n = _blocks("scoped_topk_i8", block_q, block_n)
+    if block_n is not None:
+        block_n = _align_block_n(block_n, rows_i8.shape[0])
+    return _st.scoped_topk_i8(
+        q_i8.to(torch.int8).contiguous(), q_scale.float().contiguous(),
+        rows_i8, row_scale, sq, mask.to(torch.int8).contiguous(), k, metric,
+        block_q, block_n)
+
+
+def multi_scope_topk_i8(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                        rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                        sq: Optional[torch.Tensor], mask_words: torch.Tensor,
+                        scope_ids: torch.Tensor, k: int = 10,
+                        metric: str = "ip", block_q: Optional[int] = None,
+                        block_n: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-launch heterogeneous masked top-k over the int8 store: the
+    scope-id indirection of :func:`multi_scope_topk`, the scoring of
+    :func:`scoped_topk_i8`."""
+    mask_words = _pad_words(mask_words, rows_i8.shape[0])
+    dev = _device_of(q_i8, q_scale, rows_i8, row_scale, mask_words,
+                     scope_ids, sq)
+    _i8_sq(metric, sq)
+    if dev.type == "cpu":
+        return ref.multi_scope_topk_i8_ref(q_i8, q_scale, rows_i8, row_scale,
+                                           sq, mask_words, scope_ids, k,
+                                           metric)
+    block_q, block_n = _blocks("multi_scope_topk_i8", block_q, block_n)
+    if block_n is not None:
+        block_n = _align_block_n(block_n, rows_i8.shape[0])
+    return _st.multi_scope_topk_i8(
+        q_i8.to(torch.int8).contiguous(), q_scale.float().contiguous(),
+        rows_i8, row_scale, sq, mask_words.contiguous(),
+        scope_ids.to(torch.int32).contiguous(), k, metric, block_q, block_n)
+
+
+def scoped_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
+                   mask: torch.Tensor, k: int = 10,
+                   block_q: Optional[int] = None,
+                   block_n: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over the PQ code store (the ADC scan phase of the
+    two-phase PQ plan): lut (q, M, 256) f32 with the metric folded in,
+    codes (n, M) uint8. No metric argument: the LUT is the metric."""
+    dev = _device_of(lut, codes, mask)
+    if dev.type == "cpu":
+        return ref.scoped_topk_pq_ref(lut, codes, mask, k)
+    block_q, block_n = _blocks("scoped_topk_pq", block_q, block_n)
+    if block_n is not None:
+        block_n = _align_block_n(block_n, codes.shape[0])
+    return _st.scoped_topk_pq(lut.float().contiguous(), codes,
+                              mask.to(torch.int8).contiguous(), k, block_q,
+                              block_n)
+
+
+def multi_scope_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
+                        mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                        k: int = 10, block_q: Optional[int] = None,
+                        block_n: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-launch heterogeneous masked top-k over the PQ code store."""
+    mask_words = _pad_words(mask_words, codes.shape[0])
+    dev = _device_of(lut, codes, mask_words, scope_ids)
+    if dev.type == "cpu":
+        return ref.multi_scope_topk_pq_ref(lut, codes, mask_words, scope_ids,
+                                           k)
+    block_q, block_n = _blocks("multi_scope_topk_pq", block_q, block_n)
+    if block_n is not None:
+        block_n = _align_block_n(block_n, codes.shape[0])
+    return _st.multi_scope_topk_pq(lut.float().contiguous(), codes,
+                                   mask_words.contiguous(),
+                                   scope_ids.to(torch.int32).contiguous(), k,
+                                   block_q, block_n)
 
 
 def bitmap_patch(masks, delta, op_signs) -> torch.Tensor:
@@ -177,6 +280,8 @@ def mask_and_popcount(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return _bm.mask_and_popcount(a.contiguous(), b.contiguous())
 
 
-__all__ = ["scoped_topk", "multi_scope_topk", "bitmap_patch",
+__all__ = ["scoped_topk", "multi_scope_topk", "scoped_topk_i8",
+           "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq",
+           "bitmap_patch",
            "mask_and_popcount", "set_block_overrides", "get_block_overrides",
            "launch_counts", "reset_launch_counts", "as_words", "ref"]

@@ -14,9 +14,11 @@ Four traps these versions are built around:
   the CPU, so packed mask words travel as ``torch.int32`` views of the same
   bits: ``(w >> j) & 1`` is right even under an arithmetic shift, and the
   popcount is done by bit tricks on int64.
-* **Batch invariance.** Scores are one ``torch.mv`` per query row, so a
-  query's score bits do not depend on how many queries share the call —
-  the property ``dsq_batch == loop of dsq`` rests on.
+* **Batch invariance.** fp32 scores are one product-and-sum per query
+  row (see :func:`row_scores`), int8 scores are exact integer dots, and PQ
+  scores add the LUT entries elementwise in subspace order, so a query's
+  score bits do not depend on how many queries share the call — the
+  property ``dsq_batch == loop of dsq`` rests on.
 * **Sentinels.** Empty result lanes are ``NEG_INF = finfo(float32).min``
   with id -1, as in the Pallas kernels.
 
@@ -34,9 +36,11 @@ import torch
 from .common import row_sq_norms, unpack_words
 
 __all__ = ["NEG_INF", "stable_topk", "row_sq_norms", "row_scores",
-           "unpack_words", "scoped_topk_ref", "multi_scope_topk_ref",
-           "bitmap_patch_ref", "popcount32", "mask_and_popcount_ref",
-           "topk_disagreement"]
+           "i8_scores", "pq_scores", "unpack_words", "scoped_topk_ref",
+           "multi_scope_topk_ref", "scoped_topk_i8_ref",
+           "multi_scope_topk_i8_ref", "scoped_topk_pq_ref",
+           "multi_scope_topk_pq_ref", "bitmap_patch_ref", "popcount32",
+           "mask_and_popcount_ref", "topk_disagreement"]
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -66,15 +70,29 @@ def stable_topk(scores: torch.Tensor, k: int
 
 def row_scores(queries: torch.Tensor, rows: torch.Tensor, metric: str = "ip",
                sq: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(q, n) fp32 scores, one gemv per query row (batch-invariant). ip/cos:
-    q.x; l2: 2 q.x - ||x||^2 (argmax of the negated distance)."""
+    """(q, n) fp32 scores, one elementwise product and sum over d per query
+    row, so a score's bits depend on neither the query count nor the row
+    count nor the row's position (a CPU ``torch.mv`` sums in an order that
+    depends on the row count; the rescore concatenates a batch's windows).
+    ip/cos: q.x; l2: 2 q.x - ||x||^2 (argmax of the negated distance)."""
     rows = rows.float()
-    out = torch.stack([torch.mv(rows, qv) for qv in queries.float()])
+    out = torch.stack([(rows * qv).sum(dim=1) for qv in queries.float()])
     if metric == "l2":
         if sq is None:
             sq = row_sq_norms(rows)
         out = 2.0 * out - sq[None, :]
     return out
+
+
+def _masked_topk(scores: torch.Tensor, valid: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return stable_topk(torch.where(valid, scores,
+                                   torch.full_like(scores, NEG_INF)), k)
+
+
+def _scope_valid(mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    return unpack_words(mask_words, n)[scope_ids.long()]
 
 
 def scoped_topk_ref(queries: torch.Tensor, rows: torch.Tensor,
@@ -83,10 +101,8 @@ def scoped_topk_ref(queries: torch.Tensor, rows: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked top-k with one (n,) mask shared by every query; materialises
     the full (q, n) score matrix."""
-    scores = row_scores(queries, rows, metric, sq)
-    scores = torch.where(mask.bool()[None, :], scores,
-                         torch.full_like(scores, NEG_INF))
-    return stable_topk(scores, k)
+    return _masked_topk(row_scores(queries, rows, metric, sq),
+                        mask.bool()[None, :], k)
 
 
 def multi_scope_topk_ref(queries: torch.Tensor, rows: torch.Tensor,
@@ -96,11 +112,78 @@ def multi_scope_topk_ref(queries: torch.Tensor, rows: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Heterogeneous-batch masked top-k: query i takes row ``scope_ids[i]``
     of the packed (n_scopes, W) mask matrix."""
-    n = rows.shape[0]
-    scores = row_scores(queries, rows, metric, sq)
-    valid = unpack_words(mask_words, n)[scope_ids.long()]
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    return stable_topk(scores, k)
+    return _masked_topk(row_scores(queries, rows, metric, sq),
+                        _scope_valid(mask_words, scope_ids, rows.shape[0]),
+                        k)
+
+
+def i8_scores(q_i8: torch.Tensor, q_scale: torch.Tensor,
+              rows_i8: torch.Tensor, row_scale: torch.Tensor,
+              metric: str = "ip", sq: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """(q, n) fp32 scores of the int8 scan contract
+    (``repro/kernels/scoped_topk.py:151-154``): the integer dot of the codes
+    (taken in float64, where |dot| <= d * 127^2 is exact, so it equals the
+    kernel's int32 sum in any order), rounded to fp32, times
+    ``q_scale * row_scale`` formed first; l2 then ``2 s - sq`` with ``sq``
+    the dequantized rows' squared norms."""
+    dot = q_i8.double() @ rows_i8.double().T
+    scores = dot.float() * (q_scale.float()[:, None]
+                            * row_scale.float()[None, :])
+    if metric == "l2":
+        scores = 2.0 * scores - sq.float()[None, :]
+    return scores
+
+
+def pq_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(q, n) fp32 ADC scores: ``lut[q, m, codes[r, m]]`` added for
+    m = 0..M-1 in that order (the reference's jnp twin,
+    ``repro/vectordb/flat.py:162-174``). Metric-free: the LUT folds it in."""
+    lut = lut.float()
+    c = codes.long()
+    scores = lut[:, 0, :][:, c[:, 0]]
+    for m in range(1, codes.shape[1]):
+        scores = scores + lut[:, m, :][:, c[:, m]]
+    return scores
+
+
+def scoped_topk_i8_ref(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                       rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                       sq: Optional[torch.Tensor], mask: torch.Tensor,
+                       k: int = 10, metric: str = "ip"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over int8 codes with one (n,) mask for every query."""
+    scores = i8_scores(q_i8, q_scale, rows_i8, row_scale, metric, sq)
+    return _masked_topk(scores, mask.bool()[None, :], k)
+
+
+def multi_scope_topk_i8_ref(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                            rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                            sq: Optional[torch.Tensor],
+                            mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                            k: int = 10, metric: str = "ip"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`multi_scope_topk_ref`."""
+    scores = i8_scores(q_i8, q_scale, rows_i8, row_scale, metric, sq)
+    return _masked_topk(scores, _scope_valid(mask_words, scope_ids,
+                                             rows_i8.shape[0]), k)
+
+
+def scoped_topk_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
+                       mask: torch.Tensor, k: int = 10
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over PQ codes (n, M) through per-query LUTs
+    (q, M, 256), one (n,) mask for every query."""
+    return _masked_topk(pq_scores(lut, codes), mask.bool()[None, :], k)
+
+
+def multi_scope_topk_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
+                            mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                            k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PQ twin of :func:`multi_scope_topk_ref`."""
+    return _masked_topk(pq_scores(lut, codes),
+                        _scope_valid(mask_words, scope_ids, codes.shape[0]),
+                        k)
 
 
 def bitmap_patch_ref(masks: torch.Tensor, delta: torch.Tensor,

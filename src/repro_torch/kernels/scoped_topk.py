@@ -1,28 +1,41 @@
 """ctypes launch wrappers of the masked scan + top-k kernels
-(``csrc/scoped_topk.cu``): ``scoped_topk`` and ``multi_scope_topk``.
+(``csrc/scoped_topk.cu``): the fp32, int8 and PQ scans, each with one dense
+mask (``scoped_topk*``) or packed per-query scope masks
+(``multi_scope_topk*``).
 
 They take CUDA tensors only (``ops.py`` routes CPU tensors to ``ref.py``),
 check what the kernel cannot take, allocate outputs and scratch with
 ``torch.empty``, launch on the current stream, raise on a non-zero
-``cudaError_t``, and count their launches in :data:`launches`.
+``cudaError_t``, and count their launches in :data:`launches`. Any k >= 1
+and any depth (d, or M for PQ) are taken: :func:`geometry` picks the query
+tile, whether the top-k lists fit in shared memory and how much of the
+depth is staged at once.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
-MAX_K = 256            # the kernel's per-query top-k list (shared memory)
 MAX_BLOCK_Q = 8        # queries per block = warps per block
 THREADS = 256
 SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use
+LIST_SMEM = 64 * 1024  # shared memory a block's top-k lists may take
 _BLOCKS_PER_SM = 4     # target pass-1 blocks per SM when block_n is auto
 
-launches = {"scoped_topk": 0, "multi_scope_topk": 0}
+KINDS = {"f32": 0, "i8": 1, "pq": 2}
+# bytes one depth element of one query takes when staged, and the depth
+# granularity that keeps the kernel's wide loads aligned
+_DEPTH_BYTES = {"f32": 4, "i8": 1, "pq": 256 * 4}
+_DEPTH_UNIT = {"f32": 4, "i8": 16, "pq": 4}
+
+launches = {name: 0 for name in (
+    "scoped_topk", "multi_scope_topk", "scoped_topk_i8",
+    "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq")}
 _count_lock = threading.Lock()     # DSM worker threads launch kernels too
 
 
@@ -49,62 +62,108 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _geometry(nq: int, n: int, d: int, k: int, block_q: int,
-              block_n: Optional[int], device: torch.device
-              ) -> Tuple[int, int, int]:
-    """(query tile, rows per chunk, chunks) for pass 1."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside the kernel's range [1, {MAX_K}]")
-    if not 1 <= block_q <= MAX_BLOCK_Q:
-        raise ValueError(f"block_q={block_q} outside [1, {MAX_BLOCK_Q}]")
-    smem = 4 * (block_q * d + block_q * THREADS + 2 * block_q * k + block_q)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"d={d}, k={k}, block_q={block_q} need {smem} B of "
-                         f"shared memory (> {SMEM_LIMIT})")
-    if block_n is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        chunks = max(1, _ceil(_BLOCKS_PER_SM * sms, _ceil(nq, block_q)))
-        block_n = _ceil(max(n, 1), chunks)
-    # whole words per chunk, and at most 65535 chunks (the grid.y limit)
-    block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
-    return block_q, block_n, max(1, _ceil(n, block_n))
-
-
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _launch(name: str, fn, queries: torch.Tensor, rows: torch.Tensor,
-            sq: Optional[torch.Tensor], mask_args, k: int, metric: str,
+class Geometry(NamedTuple):
+    qt: int            # query tile (queries per block)
+    slice: int         # depth staged at once (== depth: staged once)
+    smem_lists: bool   # top-k lists in shared memory (else device memory)
+    chunk_rows: int    # rows one block sweeps
+    n_chunks: int
+
+
+def smem_bytes(kind: str, qt: int, slice_: int, k: int,
+               smem_lists: bool) -> int:
+    """Pass-1 shared memory, as ``pass1_smem`` in the CUDA source."""
+    q = _ceil(qt * slice_ * _DEPTH_BYTES[kind], 16) * 16
+    return q + qt * (THREADS * 4 + 4) + (qt * k * 8 if smem_lists else 0)
+
+
+def geometry(kind: str, nq: int, n: int, depth: int, k: int, block_q: int,
+             block_n: Optional[int], sms: int = 132) -> Geometry:
+    """Pass-1 launch shape for any k >= 1 and depth >= 1.
+
+    The query tile starts at ``min(block_q, nq)``. Top-k lists stay in
+    shared memory while the tile's lists fit ``LIST_SMEM`` (the tile
+    shrinks for large k) and move to their partial slots in device memory
+    past ``k * 8 > LIST_SMEM``. The query side is staged whole when it
+    fits; PQ first shrinks the tile to fit whole LUTs, since re-staging a
+    LUT slice every 256 rows would cost more bytes than the codes. What
+    still does not fit is staged in slices of the depth."""
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    if depth < 1:
+        raise ValueError(f"depth={depth} must be >= 1")
+    if not 1 <= block_q <= MAX_BLOCK_Q:
+        raise ValueError(f"block_q={block_q} outside [1, {MAX_BLOCK_Q}]")
+    qt = max(1, min(block_q, nq))
+    smem_lists = k * 8 <= LIST_SMEM
+    if smem_lists:
+        qt = max(1, min(qt, LIST_SMEM // (k * 8)))
+    per = _DEPTH_BYTES[kind]
+
+    def room(qt: int) -> int:
+        return SMEM_LIMIT - smem_bytes(kind, qt, 0, k, smem_lists) - 16
+
+    if kind == "pq":
+        while qt > 1 and qt * depth * per > room(qt):
+            qt -= 1
+    fit = room(qt) // (qt * per)
+    unit = _DEPTH_UNIT[kind]
+    slice_ = depth if fit >= depth else max(1, fit // unit * unit)
+    if block_n is None:
+        chunks = max(1, _ceil(_BLOCKS_PER_SM * sms, _ceil(max(nq, 1), qt)))
+        block_n = max(_ceil(max(n, 1), chunks), k)
+    # whole words per chunk, and at most 65535 chunks (the grid.y limit)
+    block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
+    return Geometry(qt, slice_, smem_lists, block_n,
+                    max(1, _ceil(n, block_n)))
+
+
+def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
+            row_scale, sq, mask, words, sids, depth: int, k: int, l2: bool,
             block_q: int, block_n: Optional[int]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    dev = queries.device
-    _check(queries, "queries", torch.float32, 2, dev)
-    _check(rows, "rows", torch.float32, 2, dev)
-    nq, d = queries.shape
-    n = rows.shape[0]
-    if rows.shape[1] != d:
-        raise ValueError(f"rows have d={rows.shape[1]}, queries d={d}")
-    if metric not in ("ip", "cos", "l2"):
-        raise ValueError(f"unknown metric {metric!r}")
-    l2 = metric == "l2"
+    dev = q.device
+    nq, n = q.shape[0], rows.shape[0]
     if l2:
         _check(sq, "sq", torch.float32, 1, dev)
         if sq.shape[0] < n:
             raise ValueError(f"sq has {sq.shape[0]} norms for {n} rows")
-    qt, chunk_rows, n_chunks = _geometry(nq, n, d, k, block_q, block_n, dev)
+    if words is not None:
+        _check(words, "mask_words", torch.int32, 2, dev)
+        _check(sids, "scope_ids", torch.int32, 1, dev)
+        if words.shape[1] * 32 < n:
+            raise ValueError(f"{words.shape[1]} mask words cover fewer than "
+                             f"{n} rows")
+        if sids.shape[0] != nq:
+            raise ValueError(f"{sids.shape[0]} scope ids for {nq} queries")
+        n_scopes, n_words = words.shape
+    else:
+        _check(mask, "mask", torch.int8, 1, dev)
+        if mask.shape[0] != n:
+            raise ValueError(f"mask has {mask.shape[0]} lanes for {n} rows")
+        n_scopes = n_words = 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = geometry(kind, nq, n, depth, k, block_q, block_n, sms)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_i
-    part_v = torch.empty((nq, n_chunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nq, n_chunks, k), dtype=torch.int32, device=dev)
+    part_v = torch.empty((nq, geo.n_chunks, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((nq, geo.n_chunks, k), dtype=torch.int32,
+                         device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(
-            _ptr(queries), _ptr(rows), _ptr(sq if l2 else None), *mask_args,
-            nq, n, d, k, int(l2), qt, chunk_rows, n_chunks, _ptr(part_v),
+        rc = lib.repro_scan_topk(
+            KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows), _ptr(row_scale),
+            _ptr(sq if l2 else None), _ptr(mask), _ptr(words), _ptr(sids),
+            n_scopes, n_words, nq, n, depth, geo.slice, k, int(l2), geo.qt,
+            geo.chunk_rows, geo.n_chunks, int(geo.smem_lists), _ptr(part_v),
             _ptr(part_i), _ptr(out_v), _ptr(out_i), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
@@ -112,42 +171,101 @@ def _launch(name: str, fn, queries: torch.Tensor, rows: torch.Tensor,
     return out_v, out_i
 
 
-def scoped_topk(queries: torch.Tensor, rows: torch.Tensor,
-                mask: torch.Tensor, k: int, metric: str = "ip",
-                sq: Optional[torch.Tensor] = None, block_q: int = 8,
-                block_n: Optional[int] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _metric_l2(metric: str) -> bool:
+    if metric not in ("ip", "cos", "l2"):
+        raise ValueError(f"unknown metric {metric!r}")
+    return metric == "l2"
+
+
+def _f32(queries, rows):
+    dev = queries.device
+    _check(queries, "queries", torch.float32, 2, dev)
+    _check(rows, "rows", torch.float32, 2, dev)
+    if rows.shape[1] != queries.shape[1]:
+        raise ValueError(f"rows have d={rows.shape[1]}, queries "
+                         f"d={queries.shape[1]}")
+    return queries.shape[1]
+
+
+def _i8(q_i8, q_scale, rows_i8, row_scale):
+    dev = q_i8.device
+    _check(q_i8, "q_i8", torch.int8, 2, dev)
+    _check(rows_i8, "rows_i8", torch.int8, 2, dev)
+    _check(q_scale, "q_scale", torch.float32, 1, dev)
+    _check(row_scale, "row_scale", torch.float32, 1, dev)
+    if rows_i8.shape[1] != q_i8.shape[1]:
+        raise ValueError(f"codes have d={rows_i8.shape[1]}, queries "
+                         f"d={q_i8.shape[1]}")
+    if q_scale.shape[0] != q_i8.shape[0] or \
+            row_scale.shape[0] < rows_i8.shape[0]:
+        raise ValueError("one scale per query and per row")
+    return q_i8.shape[1]
+
+
+def _pq(lut, codes):
+    dev = lut.device
+    _check(lut, "lut", torch.float32, 3, dev)
+    _check(codes, "codes", torch.uint8, 2, dev)
+    if lut.shape[2] != 256 or lut.shape[1] != codes.shape[1]:
+        raise ValueError(f"lut {tuple(lut.shape)} does not fit codes "
+                         f"{tuple(codes.shape)}")
+    return codes.shape[1]
+
+
+def scoped_topk(queries, rows, mask, k, metric="ip", sq=None, block_q=8,
+                block_n=None):
     """queries (q, d) f32; rows (n, d) f32; mask (n,) int8 (non-zero admits
     the row); sq (n,) f32 squared norms, read for l2 only. Returns
     (vals (q, k) f32, ids (q, k) int32), ``finfo.min`` / -1 when empty."""
-    _check(mask, "mask", torch.int8, 1, queries.device)
-    if mask.shape[0] != rows.shape[0]:
-        raise ValueError(f"mask has {mask.shape[0]} lanes for "
-                         f"{rows.shape[0]} rows")
-    return _launch("scoped_topk", "repro_scoped_topk_f32", queries, rows, sq,
-                   (_ptr(mask),), k, metric, block_q, block_n)
+    d = _f32(queries, rows)
+    return _launch("scoped_topk", "f32", queries, None, rows, None, sq, mask,
+                   None, None, d, k, _metric_l2(metric), block_q, block_n)
 
 
-def multi_scope_topk(queries: torch.Tensor, rows: torch.Tensor,
-                     mask_words: torch.Tensor, scope_ids: torch.Tensor,
-                     k: int, metric: str = "ip",
-                     sq: Optional[torch.Tensor] = None, block_q: int = 8,
-                     block_n: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def multi_scope_topk(queries, rows, mask_words, scope_ids, k, metric="ip",
+                     sq=None, block_q=8, block_n=None):
     """As :func:`scoped_topk`, with query i admitting row r where bit r%32 of
     ``mask_words[scope_ids[i], r // 32]`` is set. mask_words (S, W) int32
     view of the packed uint32 words, W >= ceil(n/32); scope_ids (q,) int32
     (an id outside [0, S) admits nothing)."""
-    dev = queries.device
-    _check(mask_words, "mask_words", torch.int32, 2, dev)
-    _check(scope_ids, "scope_ids", torch.int32, 1, dev)
-    n_scopes, n_words = mask_words.shape
-    if n_words * 32 < rows.shape[0]:
-        raise ValueError(f"{n_words} mask words cover fewer than "
-                         f"{rows.shape[0]} rows")
-    if scope_ids.shape[0] != queries.shape[0]:
-        raise ValueError(f"{scope_ids.shape[0]} scope ids for "
-                         f"{queries.shape[0]} queries")
-    return _launch("multi_scope_topk", "repro_multi_scope_topk_f32", queries,
-                   rows, sq, (_ptr(mask_words), _ptr(scope_ids), n_scopes,
-                              n_words), k, metric, block_q, block_n)
+    d = _f32(queries, rows)
+    return _launch("multi_scope_topk", "f32", queries, None, rows, None, sq,
+                   None, mask_words, scope_ids, d, k, _metric_l2(metric),
+                   block_q, block_n)
+
+
+def scoped_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, mask, k,
+                   metric="ip", block_q=8, block_n=None):
+    """int8 scan: q_i8 (q, d) int8 with q_scale (q,) f32; rows_i8 (n, d)
+    int8 with row_scale (n,) f32; sq (n,) f32 dequantized squared norms
+    (l2 only); mask (n,) int8."""
+    d = _i8(q_i8, q_scale, rows_i8, row_scale)
+    return _launch("scoped_topk_i8", "i8", q_i8, q_scale, rows_i8, row_scale,
+                   sq, mask, None, None, d, k, _metric_l2(metric), block_q,
+                   block_n)
+
+
+def multi_scope_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, mask_words,
+                        scope_ids, k, metric="ip", block_q=8, block_n=None):
+    """int8 scan with packed per-query scope masks."""
+    d = _i8(q_i8, q_scale, rows_i8, row_scale)
+    return _launch("multi_scope_topk_i8", "i8", q_i8, q_scale, rows_i8,
+                   row_scale, sq, None, mask_words, scope_ids, d, k,
+                   _metric_l2(metric), block_q, block_n)
+
+
+def scoped_topk_pq(lut, codes, mask, k, block_q=8, block_n=None):
+    """PQ/ADC scan: lut (q, M, 256) f32 (metric folded in); codes (n, M)
+    uint8; mask (n,) int8."""
+    m = _pq(lut, codes)
+    return _launch("scoped_topk_pq", "pq", lut, None, codes, None, None,
+                   mask, None, None, m, k, False, block_q, block_n)
+
+
+def multi_scope_topk_pq(lut, codes, mask_words, scope_ids, k, block_q=8,
+                        block_n=None):
+    """PQ/ADC scan with packed per-query scope masks."""
+    m = _pq(lut, codes)
+    return _launch("multi_scope_topk_pq", "pq", lut, None, codes, None, None,
+                   None, mask_words, scope_ids, m, k, False, block_q,
+                   block_n)

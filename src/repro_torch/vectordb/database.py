@@ -4,13 +4,13 @@ torch device.
 Composes (1) one or more *namespaces* (independent directory hierarchies,
 e.g. ARXIV-Dir's subject + temporal trees), each backed by a pluggable
 ScopeIndex strategy, with (2) a vector store mirrored on the database's
-device and the flat fp32 executor. DSQ runs scope resolution first, then
+device and the flat executor at fp32, int8 or PQ precision, with tiered
+storage past a device byte budget. DSQ runs scope resolution first, then
 ranks inside the resolved candidate set; DSM goes through the journaled,
 region-locked executor (§IV-A consistency ordering), and its delta events
 patch the planner's device-resident scope masks.
 
-This slice ports the flat fp32 path; the IVF, proximity-graph and sharded
-executors, the quantized tiers and online maintenance raise
+The IVF, proximity-graph and sharded executors and online maintenance raise
 ``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
@@ -27,8 +27,9 @@ from ..core import (DSM, DSMBatchResult, DSMExecutor, DSMJournal, DSMStats,
 from ..core.interface import normalize_batch
 from ..device import resolve_device
 from .costmodel import install_kernel_tuning, model_of, resolve_calibration
-from .flat import FlatExecutor
+from .flat import PRECISIONS, FlatExecutor
 from .planner import BatchAccounting, BatchPlanner, ScopeMaskCache
+from .quant import resolve_rescore_k
 from .store import VectorStore
 
 DEFAULT_NS = "fs"
@@ -55,7 +56,8 @@ class DirectoryVectorDB:
     def __init__(self, dim: int, metric: str = "ip",
                  scope_strategy: str = "triehi",
                  journal_path: Optional[str] = None,
-                 calibration=None, device=None):
+                 pq_m: Optional[int] = None, calibration=None,
+                 device=None):
         """``device`` holds the store's mirror, the scope masks and every
         kernel launch; ``None`` means ``"cuda"``, and without a card only
         ``device="cpu"`` runs (the plain PyTorch path).
@@ -64,7 +66,9 @@ class DirectoryVectorDB:
         ``{journal_path}.{namespace}``. Reopening an existing journal
         continues its sequence numbers from the persisted tail; after the
         caller restores index state on restart, :meth:`recover` replays any
-        op whose COMMIT was lost to a crash.
+        op whose COMMIT was lost to a crash. ``pq_m`` overrides the PQ
+        subspace count (default: the largest divisor of ``dim`` at or below
+        ``dim // 4``).
 
         ``calibration`` attaches the measured cost model that replaces the
         hand-set planner/executor constants: a calibration-artifact path,
@@ -74,7 +78,7 @@ class DirectoryVectorDB:
         model explicitly. An artifact calibrated on another backend than
         this device's degrades to the roofline model."""
         self.device = resolve_device(device)
-        self.store = VectorStore(dim, metric, device=self.device)
+        self.store = VectorStore(dim, metric, device=self.device, pq_m=pq_m)
         self.store.cost_model = resolve_calibration(calibration, self.device)
         if self.store.cost_model.source == "measured":
             install_kernel_tuning(self.store.cost_model)
@@ -84,6 +88,10 @@ class DirectoryVectorDB:
         self._dsm: Dict[str, DSMExecutor] = {}
         self._planners: Dict[str, BatchPlanner] = {}
         self._journal_path = journal_path
+        # ns -> {scope key -> last resolved candidate ids}: the candidate
+        # pool the tiered hot-pin ranking draws from, so scopes absent from
+        # the current batch keep competing for the pin budget
+        self._hot_scope_ids: Dict[str, Dict[object, np.ndarray]] = {}
         self.namespace(DEFAULT_NS)  # default filesystem namespace
 
     # -------------------------------------------------------------- plumbing
@@ -152,11 +160,15 @@ class DirectoryVectorDB:
     def _request_knobs(self, precision: str, k: int,
                        rescore_k: Optional[int]
                        ) -> Tuple[str, Optional[int]]:
-        """Request-level cost-model decisions, shared by :meth:`dsq` and
-        :meth:`dsq_batch` so both paths decide identically."""
-        if precision not in ("fp32", "int8", "pq"):
-            raise ValueError(
-                f"precision {precision!r} not in (fp32, int8, pq)")
+        """Request-level decisions, shared by :meth:`dsq` and
+        :meth:`dsq_batch` so both paths decide identically: a store over its
+        device byte budget serves fp32 requests with the PQ plan (its fp32
+        rows live in host RAM), then the cost model may retune the
+        precision and the rescore window."""
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+        if precision == "fp32" and self.store.tiered_active():
+            precision = "pq"
         model = model_of(self.store)
         precision = model.pick_precision(
             precision, len(self.store), k, rescore_k,
@@ -169,8 +181,10 @@ class DirectoryVectorDB:
             precision: str = "fp32", rescore_k: Optional[int] = None,
             **executor_params) -> DSQResult:
         """Directory-scoped query: resolve the scope, then rank inside it.
-        Only ``precision="fp32"`` is ported; int8/pq raise
-        ``NotImplementedError``."""
+        ``precision="int8"`` / ``"pq"`` run the executor's two-phase plan
+        (the int8 or PQ/ADC scan keeps ``rescore_k >= k`` candidates, an
+        exact fp32 rescore ranks the final top-k). Past a device byte budget
+        (``store.set_device_budget``) fp32 requests take the PQ plan."""
         precision, rescore_k = self._request_knobs(precision, k, rescore_k)
         idx = self.namespaces[namespace]
         stats = ResolveStats()
@@ -217,7 +231,17 @@ class DirectoryVectorDB:
         rows. Results are bit-identical to calling :meth:`dsq` per request,
         but the directory and kernel work is amortized (see
         ``DSQResult.batch``). Executor params the planner cannot plan (e.g. a
-        forced ``plan="scan"``) take the per-request fallback loop."""
+        forced ``plan="scan"``) take the per-request fallback loop.
+
+        With ``precision="int8"`` / ``"pq"`` the planner picks the precision
+        per scope group (scan groups quantize; gather groups only when they
+        outsize the rescore window), each precision's scan groups share one
+        launch plus one exact fp32 rescore, and ``DSQResult.batch`` reports
+        the store bytes of each tier and the rescored candidates. Over the
+        device byte budget fp32 batches take the PQ plan, and the batch
+        also reports the rescore's host->device fetch bytes and the
+        pinned vs host row placement; hot scopes' rows are pinned after
+        each tiered batch."""
         precision, rescore_k = self._request_knobs(precision, k, rescore_k)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         B = queries.shape[0]
@@ -236,17 +260,23 @@ class DirectoryVectorDB:
         def launch_flat(groups, out_scores, out_ids, acct):
             self._launch_gather(ex, queries, k, groups, out_scores, out_ids,
                                 acct, rescore_k)
-            # ONE launch for every scan-plan request in the batch
-            scan_groups = [g for g in groups if g.plan == "scan"]
-            if scan_groups:
+            # ONE launch per precision for every scan-plan request in the
+            # batch (a single-precision batch stays one launch)
+            for prec in PRECISIONS:
+                scan_groups = [g for g in groups
+                               if g.plan == "scan" and g.precision == prec]
+                if not scan_groups:
+                    continue
                 words = torch.stack([g.words for g in scan_groups])
                 rows, sids = self._scan_assembly(scan_groups)
                 s, i = ex.search_multi(queries[rows], words, sids, k,
-                                       precision=scan_groups[0].precision,
-                                       rescore_k=rescore_k)
+                                       precision=prec, rescore_k=rescore_k)
                 out_scores[rows] = s
                 out_ids[rows] = i
                 acct.launches += 1
+                if prec != "fp32":
+                    acct.rescore_candidates += len(rows) * resolve_rescore_k(
+                        k, rescore_k, len(self.store))
 
         return self._dsq_batch_planned(queries, paths, k, recursive, exclude,
                                        namespace, launch_flat,
@@ -256,7 +286,9 @@ class DirectoryVectorDB:
     @staticmethod
     def _launch_gather(flat_ex, queries, k, groups, out_scores, out_ids,
                        acct, rescore_k=None) -> None:
-        """One gather launch per selective group."""
+        """One gather launch per selective group, at the group's planned
+        precision (int8/pq only when the scope outsizes the rescore
+        window)."""
         for g in groups:
             if g.plan != "gather":
                 continue
@@ -268,6 +300,9 @@ class DirectoryVectorDB:
             out_scores[rows] = s
             out_ids[rows] = i
             acct.launches += 1
+            if g.precision != "fp32":
+                acct.rescore_candidates += len(rows) * resolve_rescore_k(
+                    k, rescore_k, g.scope_size)
 
     @staticmethod
     def _scan_assembly(scan_groups) -> Tuple[np.ndarray, np.ndarray]:
@@ -303,9 +338,25 @@ class DirectoryVectorDB:
             n=len(self.store), k=k, rescore_k=rescore_k, dim=self.store.dim)
         out_scores = np.full((B, k), -np.inf, np.float32)
         out_ids = np.full((B, k), -1, np.int64)
+        store = self.store
+        fetch0 = store.rescore_fetch_bytes
+        retries0 = store.host_fetch_retries
         launch(groups, out_scores, out_ids, acct)
         acct.ann_ns = time.perf_counter_ns() - t1
-        acct.rows_device_pinned, acct.rows_host = self.store.placement()
+        # resident-store byte terms are *alive-row* bytes: tombstoned rows
+        # still occupy buffer slots but are not part of the serving corpus
+        if any(g.precision == "int8" for g in groups):
+            acct.db_bytes_fp32 = store.alive_nbytes()
+            acct.db_bytes_int8 = store.q_alive_nbytes()
+        if any(g.precision == "pq" for g in groups):
+            acct.db_bytes_fp32 = store.alive_nbytes()
+            acct.db_bytes_pq = store.pq_nbytes()
+        acct.rescore_fetch_bytes = store.rescore_fetch_bytes - fetch0
+        acct.host_fetch_retries = store.host_fetch_retries - retries0
+        acct.tiered = store.tiered_active()
+        if acct.tiered:
+            self._update_hot_pins(namespace, groups)
+        acct.rows_device_pinned, acct.rows_host = store.placement()
 
         plan_of = {}
         for g in groups:
@@ -322,6 +373,39 @@ class DirectoryVectorDB:
                 ann_ns=ann_share, resolve_stats=acct.resolve_stats,
                 plan=g.plan, scope_shared=len(g.request_idx), batch=acct))
         return results
+
+    def _update_hot_pins(self, namespace: str, groups) -> None:
+        """Scope-aware tiered placement: pin the hottest directories' fp32
+        rows. Heat is the planner's cumulative per-scope DSQ request count;
+        the pin budget is whatever device capacity the PQ codes leave free.
+        The ranking runs over every scope seen so far (the per-namespace
+        pool), so a cold batch never unpins rows hotter scopes claimed
+        earlier. Pins are accounting only, as in the reference."""
+        store = self.store
+        budget_rows = (store.device_budget - store.pq_nbytes()
+                       - store.pq_codebook_nbytes()) // (store.dim * 4)
+        if budget_rows <= 0:
+            store.pin_rows(np.empty(0, np.int64))
+            return
+        hot = self._hot_scope_ids.setdefault(namespace, {})
+        for g in groups:
+            if g.plan != "empty":
+                hot[g.key] = np.asarray(g.candidate_ids, np.int64)
+        heat = self.planner(namespace).scope_access
+        ranked = sorted(hot.items(), key=lambda kv: heat.get(kv[0], 0),
+                        reverse=True)
+        pinned: List[np.ndarray] = []
+        total = 0
+        for _, ids in ranked:
+            room = budget_rows - total
+            if room <= 0:
+                break
+            if len(ids) > room:
+                ids = ids[:room]     # partial pin of the coldest scope
+            pinned.append(ids)
+            total += len(ids)
+        store.pin_rows(np.unique(np.concatenate(pinned))
+                       if pinned else np.empty(0, np.int64))
 
     def _dsq_batch_fallback(self, queries, paths, k, recursive, exclude,
                             namespace, executor, precision="fp32",

@@ -1,4 +1,5 @@
-"""Flat (brute-force) masked top-k executor at fp32 — exact oracle + baseline.
+"""Flat (brute-force) masked top-k executor — exact oracle + baseline, at
+fp32, int8 and PQ precision.
 
 Two execution plans, chosen by scope selectivity exactly as selective-filter
 vector databases do (pre- vs post-filter):
@@ -8,13 +9,21 @@ vector databases do (pre- vs post-filter):
 * ``scan``: score all N rows with out-of-scope lanes masked — optimal for
   broad scopes.
 
-Both plans rank through the hand-written ``scoped_topk`` kernel (the gather
-plan with an all-ones mask over its gathered rows), and a batch of scan-plan
-requests through ``multi_scope_topk``. The kernels score every (query, row)
-pair with the same fixed-order fp32 FMA chain, so a request's scores do not
-depend on how many requests share a launch: ``dsq_batch`` stays
-bit-identical to a loop of ``dsq``. (A cuBLAS matmul picks other kernels for
-other batch sizes and could not promise that.)
+Both plans rank through the hand-written scan kernels (the gather plan with
+an all-ones mask over its gathered rows), and a batch of scan-plan requests
+through one ``multi_scope_topk*`` launch. ``precision="int8"`` / ``"pq"``
+run the two-phase plan: the int8 (or PQ/ADC) scan or gather keeps
+``rescore_k >= k`` candidates, and :func:`gather_rescore` ranks exactly
+those in exact fp32, so the final scores are true fp32 scores and the only
+approximation is which candidates survive phase 1.
+
+The kernels score every (query, row) pair with one fixed-order chain (fp32
+FMAs, exact int32 sums, or LUT adds in subspace order), and the rescore
+scores its gathered rows through the same fp32 kernel, so a request's
+scores do not depend on how many requests share a launch: ``dsq_batch``
+stays bit-identical to a loop of ``dsq`` at every precision. (A cuBLAS
+matmul or a torch reduction picks other kernels for other batch sizes and
+could not promise that.)
 
 Sentinels: the kernels return ``finfo(float32).min`` / -1 for empty lanes;
 this executor returns ``-inf`` / -1 like the reference executor.
@@ -31,9 +40,10 @@ from ..kernels.common import unpack_words
 # the hand-set crossover lives in costmodel (re-exported here because this
 # module owns the decision *rule* that consumes it)
 from .costmodel import GATHER_THRESHOLD, model_of
+from .quant import quantize_rows, resolve_rescore_k
 from .store import VectorStore, pack_ids_to_words
 
-_QUANTIZED = ("int8", "pq")
+PRECISIONS = ("fp32", "int8", "pq")
 
 
 def choose_plan(m: int, n: int, k: int,
@@ -68,13 +78,67 @@ def _to_host(vals: torch.Tensor, ids: torch.Tensor
     return vals, ids
 
 
-def _fp32_only(precision: str) -> None:
-    if precision in _QUANTIZED:
-        raise NotImplementedError(
-            f"precision={precision!r} waits for the int8/PQ slice of the "
-            f"port (ROADMAP queue 1 item 4)")
-    if precision != "fp32":
-        raise ValueError(f"precision {precision!r} not in (fp32, int8, pq)")
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+
+
+def _window_words(valid: np.ndarray) -> np.ndarray:
+    """(B, R) bool -> (B, ceil(B*R/32)) packed words in which row b admits
+    exactly its own valid lanes of the concatenated (B*R) candidates."""
+    B, R = valid.shape
+    dense = np.zeros((B, -(-B * R // 32) * 32), dtype=bool)
+    cols = np.arange(B)[:, None] * R + np.arange(R)[None, :]
+    dense[np.repeat(np.arange(B), R), cols.ravel()] = valid.ravel()
+    return np.packbits(dense, axis=1, bitorder="little").view(np.uint32)
+
+
+def gather_rescore(store: VectorStore, queries: np.ndarray,
+                   cand_ids: np.ndarray, k: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact fp32 gather-rescore of approximate-phase candidates — the back
+    half of every two-phase path. ``cand_ids`` is (B, R) int64 store ids
+    with -1 padding; returns (scores, ids) both (B, k), -1/-inf padded.
+
+    The (B, R) windows are gathered as one (B*R, d) block and ranked by one
+    ``multi_scope_topk`` launch in which query b's scope row admits its own
+    R-slice: the fixed-order fp32 kernel scores each (query, row) pair the
+    same whatever B is, so the rescore keeps ``dsq_batch`` bitwise equal to
+    a loop of ``dsq``. In a tiered store the rows come from host RAM, and
+    every valid candidate outside the device-pinned hot set counts as a
+    host->device fetch."""
+    queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+    cand_ids = np.asarray(cand_ids, dtype=np.int64)
+    cand_ids = np.where(cand_ids < len(store), cand_ids, -1)
+    B, R = cand_ids.shape
+    if store.tiered_active():
+        fetch = cand_ids >= 0
+        pm = store.pinned_mask()
+        if pm is not None:
+            fetch = fetch & ~pm[np.maximum(cand_ids, 0)]
+        n_fetch = int(np.count_nonzero(fetch))
+        store.rescore_fetch_rows += n_fetch
+        store.rescore_fetch_bytes += n_fetch * store.dim * 4
+    kk = min(k, R)
+    if kk == 0:
+        return pad_topk(np.zeros((B, 0), np.float32),
+                        np.zeros((B, 0), np.int64), k)
+    flat_ids = np.maximum(cand_ids, 0).reshape(-1)
+    dev = store.device
+    rows = store.device_rows(flat_ids, fetch=True)          # (B*R, d)
+    sq = None
+    if store.metric == "l2":
+        sq = store.device_sq_norms().index_select(
+            0, torch.from_numpy(flat_ids).to(dev))
+    words = torch.from_numpy(
+        _window_words(cand_ids >= 0).view(np.int32)).to(dev)
+    sids = torch.arange(B, dtype=torch.int32, device=dev)
+    vals, loc = kops.multi_scope_topk(
+        torch.from_numpy(queries).to(dev), rows, words, sids, kk,
+        store.metric, sq=sq)
+    vals, loc = _to_host(vals, loc)
+    ids = np.where(loc >= 0, cand_ids.reshape(-1)[np.maximum(loc, 0)], -1)
+    return pad_topk(vals, ids, k)
 
 
 class FlatExecutor:
@@ -88,9 +152,21 @@ class FlatExecutor:
         return (self.store.device_sq_norms()
                 if self.store.metric == "l2" else None)
 
-    def _queries(self, queries: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(queries)).to(
+    def _q_sq(self) -> Optional[torch.Tensor]:
+        """int8-tier counterpart of :meth:`_sq` (dequantized-row norms)."""
+        return (self.store.device_q_sq_norms()
+                if self.store.metric == "l2" else None)
+
+    def _to_dev(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(
             self.store.device)
+
+    def _scope_mask(self, candidate_ids: np.ndarray) -> torch.Tensor:
+        """(n,) int8 device mask of a scope, from its packed words."""
+        n = len(self.store)
+        words = self._to_dev(pack_ids_to_words(candidate_ids, n).view(
+            np.int32))
+        return unpack_words(words, n).to(torch.int8)
 
     def search(self, queries: np.ndarray, k: int,
                candidate_ids: Optional[np.ndarray] = None,
@@ -98,9 +174,11 @@ class FlatExecutor:
                rescore_k: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (scores, ids), both (q, k); ids == -1 past the scope
-        size. Only ``precision="fp32"`` is ported; ``rescore_k`` is read by
-        the quantized plans only."""
-        _fp32_only(precision)
+        size. ``precision="int8"`` / ``"pq"`` run the two-phase plan
+        (``rescore_k`` candidates, exact fp32 rescore); a gather scope the
+        rescore window covers entirely stays exact fp32 (the rule the
+        ``BatchPlanner`` applies per group)."""
+        _check_precision(precision)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         n = len(self.store)
         if candidate_ids is None:
@@ -113,29 +191,66 @@ class FlatExecutor:
         if plan is None:
             plan = choose_plan(
                 m, n, k, model_of(self.store).gather_threshold(n, k))
+        if precision != "fp32":
+            r = resolve_rescore_k(k, rescore_k, m)
+            if not (plan == "gather" and m <= r):
+                cand = self._select(queries, candidate_ids, plan, r,
+                                    precision)
+                return gather_rescore(self.store, queries, cand, k)
         kk = min(k, m)
-        dev = self.store.device
-        q = self._queries(queries)
+        q = self._to_dev(queries)
         if plan == "gather":
-            cand = torch.from_numpy(
-                np.asarray(candidate_ids, dtype=np.int64)).to(dev)
-            rows = self.store.device_vectors().index_select(0, cand)
+            cand_np = np.asarray(candidate_ids, dtype=np.int64)
+            cand = self._to_dev(cand_np)
+            rows = self.store.device_rows(cand_np)
             sq = self._sq()
             if sq is not None:
                 sq = sq.index_select(0, cand)
-            ones = torch.ones(m, dtype=torch.int8, device=dev)
+            ones = torch.ones(m, dtype=torch.int8, device=q.device)
             vals, local = kops.scoped_topk(q, rows, ones, kk,
                                            self.store.metric, sq=sq)
             ids = torch.where(local >= 0, cand[local.long().clamp(min=0)],
                               torch.full_like(cand[:1], -1))
         else:
-            words = torch.from_numpy(
-                pack_ids_to_words(candidate_ids, n).view(np.int32)).to(dev)
-            mask = unpack_words(words, n).to(torch.int8)
             vals, ids = kops.scoped_topk(q, self.store.device_vectors(),
-                                         mask, kk, self.store.metric,
-                                         sq=self._sq())
+                                         self._scope_mask(candidate_ids), kk,
+                                         self.store.metric, sq=self._sq())
         return pad_topk(*_to_host(vals, ids), k)
+
+    def _select(self, queries: np.ndarray, candidate_ids: np.ndarray,
+                plan: str, r: int, precision: str) -> np.ndarray:
+        """Phase 1 of the two-phase plan: (q, r') int64 store ids, -1
+        padded, that the int8 or PQ scan (or gather) keeps."""
+        st = self.store
+        n = len(st)
+        if plan == "gather":
+            cand = self._to_dev(np.asarray(candidate_ids, dtype=np.int64))
+            mask = torch.ones(len(candidate_ids), dtype=torch.int8,
+                              device=cand.device)
+            r_eff = r
+        else:
+            cand = None
+            mask = self._scope_mask(candidate_ids)
+            r_eff = min(r, n)
+
+        def rows_of(t: torch.Tensor) -> torch.Tensor:
+            return t if cand is None else t.index_select(0, cand)
+
+        if precision == "int8":
+            q_i8, q_s = quantize_rows(queries)
+            sq = self._q_sq()
+            _, ids = kops.scoped_topk_i8(
+                self._to_dev(q_i8), self._to_dev(q_s),
+                rows_of(st.device_q_vectors()), rows_of(st.device_q_scales()),
+                None if sq is None else rows_of(sq), mask, r_eff, st.metric)
+        else:
+            _, ids = kops.scoped_topk_pq(
+                self._to_dev(st.pq_lut(queries)),
+                rows_of(st.device_pq_codes()), mask, r_eff)
+        if cand is not None:
+            ids = torch.where(ids >= 0, cand[ids.long().clamp(min=0)],
+                              torch.full_like(cand[:1], -1))
+        return ids.cpu().numpy().astype(np.int64)
 
     def search_multi(self, queries: np.ndarray, mask_words: torch.Tensor,
                      scope_ids: np.ndarray, k: int, precision: str = "fp32",
@@ -144,15 +259,29 @@ class FlatExecutor:
         """One launch for a heterogeneous scan-plan batch: queries (B, d),
         packed masks (n_scopes, ceil(n/32)) as an int32 tensor on the
         store's device, per-query scope row ids (B,). Returns (scores, ids)
-        both (B, k), ids int64, -1 / -inf where the scope had no
-        candidate."""
-        _fp32_only(precision)
+        both (B, k), ids int64, -1 / -inf where the scope had no candidate.
+        ``precision="int8"`` / ``"pq"`` swap the launch for the quantized
+        scan and finish with the shared exact fp32 rescore."""
+        _check_precision(precision)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        dev = self.store.device
-        sids = torch.from_numpy(
-            np.asarray(scope_ids, dtype=np.int32)).to(dev)
-        vals, ids = kops.multi_scope_topk(
-            self._queries(queries), self.store.device_vectors(),
-            kops.as_words(mask_words).to(dev), sids, k, self.store.metric,
-            sq=self._sq())
-        return _to_host(vals, ids)
+        st = self.store
+        words = kops.as_words(mask_words).to(st.device)
+        sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
+        if precision == "fp32":
+            vals, ids = kops.multi_scope_topk(
+                self._to_dev(queries), st.device_vectors(), words, sids, k,
+                st.metric, sq=self._sq())
+            return _to_host(vals, ids)
+        r = resolve_rescore_k(k, rescore_k, len(st))
+        if precision == "int8":
+            q_i8, q_s = quantize_rows(queries)
+            _, cand = kops.multi_scope_topk_i8(
+                self._to_dev(q_i8), self._to_dev(q_s), st.device_q_vectors(),
+                st.device_q_scales(), self._q_sq(), words, sids, r,
+                st.metric)
+        else:
+            _, cand = kops.multi_scope_topk_pq(
+                self._to_dev(st.pq_lut(queries)), st.device_pq_codes(),
+                words, sids, r)
+        return gather_rescore(st, queries, cand.cpu().numpy().astype(
+            np.int64), k)

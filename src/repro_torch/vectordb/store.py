@@ -1,24 +1,34 @@
-"""Vector store: host-resident fp32 rows + an incrementally synced mirror on
-the database's device.
+"""Vector store: host-resident fp32 rows, their int8 and PQ code tiers,
+and incrementally synced mirrors of each on the database's device.
 
 Entry ids are row indices (uint32), the same ids the scope indexes keep in
 their RoaringBitmaps, so the hand-off between the directory layer and the
 executor is a pure id set / packed bitmask (§II-A of the paper).
 
-The device mirror holds the rows and their squared norms. It grows by
-amortised doubling and takes new rows with ``index_copy_`` when a reader
-asks for it, so an ingest never re-uploads the rows already there. The
-int8/PQ/tiered tiers of the reference store arrive with their own slice.
+Each device mirror copies a prefix of a host array and grows by amortised
+doubling: a reader's sync uploads only the rows added since the last one,
+so an ingest never re-uploads the rows already there. The int8 codes and
+scales and the PQ codebook and codes are computed on the host by the numpy
+copied from the reference (``quant.py``), through the same lazy watermarks,
+so both packages hold the same codes.
+
+Tiered storage: with a device byte budget set and the fp32 rows over it,
+the store releases its fp32 device mirror; the fp32 rows stay in host RAM
+and every read of exact rows is a host read (:meth:`device_rows`). The
+squared row norms (4 bytes a row) stay on the device.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..device import resolve_device
 from ..kernels.common import row_sq_norms
+from .quant import PQCodebook, quantize_rows
 
 METRICS = ("ip", "l2", "cos")
 
@@ -50,9 +60,42 @@ def pack_ids_to_words(candidate_ids: Optional[np.ndarray],
     return words
 
 
+class _Mirror:
+    """Device copy of a prefix ``[0, n)`` of a host array: grows by doubling
+    and uploads only the rows past its watermark."""
+
+    def __init__(self) -> None:
+        self.t: Optional[torch.Tensor] = None
+        self.n = 0
+
+    def sync(self, host: np.ndarray, device: torch.device) -> torch.Tensor:
+        n = host.shape[0]
+        cap = 0 if self.t is None else self.t.shape[0]
+        if cap < n:
+            grown = torch.empty((max(n, 2 * cap, 1024), *host.shape[1:]),
+                                dtype=torch.from_numpy(host[:0]).dtype,
+                                device=device)
+            if self.n:
+                grown[: self.n] = self.t[: self.n]
+            self.t = grown
+        if n > self.n:
+            self.t[self.n:n] = torch.from_numpy(
+                np.ascontiguousarray(host[self.n:n])).to(device)
+        self.n = n
+        return self.t[:n]
+
+    def reset(self) -> None:
+        """Rows moved (compaction): re-upload from row 0 on the next sync."""
+        self.n = 0
+
+    def release(self) -> None:
+        self.t = None
+        self.n = 0
+
+
 class VectorStore:
     def __init__(self, dim: int, metric: str = "ip", capacity: int = 1024,
-                 device=None):
+                 device=None, pq_m: Optional[int] = None):
         if metric not in METRICS:
             raise ValueError(f"metric {metric!r} not in {METRICS}")
         self.dim = dim
@@ -64,10 +107,45 @@ class VectorStore:
         self.cost_model = None
         self._rows = np.zeros((capacity, dim), dtype=np.float32)
         self._n = 0
-        # device mirror: rows [0, _dev_n) are uploaded
-        self._dev_rows: Optional[torch.Tensor] = None
+        # device mirrors: fp32 rows, their squared norms (computed on the
+        # device from the uploaded rows, once per row), int8 codes / scales
+        # / dequantized norms, PQ codes
+        self._dev_rows_m = _Mirror()
         self._dev_sq: Optional[torch.Tensor] = None
-        self._dev_n = 0
+        self._sq_n = 0
+        self._dev_q = _Mirror()
+        self._dev_q_scale = _Mirror()
+        self._dev_q_norms = _Mirror()
+        self._dev_pq = _Mirror()
+        # int8 scalar-quantized tier: rows [0, _q_n) are quantized; any
+        # accessor catches the tier up to _n first, so a pure-fp32 workload
+        # never pays the quantization and each ingest batch is quantized
+        # once. Tombstones need no mirror: the packed alive/scope words mask
+        # deleted rows at every precision.
+        self._q_rows: Optional[np.ndarray] = None
+        self._q_scale: Optional[np.ndarray] = None
+        self._q_n = 0
+        self._q_norms_cache: Optional[np.ndarray] = None
+        # PQ/ADC tier: a codebook trained once on the rows present at first
+        # use and then frozen (quant.PQCodebook), so codes of ingested rows
+        # never change; rows [0, _pq_n) are encoded.
+        self._pq_m = pq_m
+        self._pq: Optional[PQCodebook] = None
+        self._pq_codes: Optional[np.ndarray] = None
+        self._pq_n = 0
+        # Tiered storage: past the device byte budget the fp32 rows live in
+        # host RAM only; the device keeps the PQ codes (plus the rows the
+        # planner pins, accounted but not yet held apart) and rescore
+        # windows fetch exact rows on demand. Fetch counters are
+        # cumulative; per-batch accounting takes deltas.
+        self._device_budget: Optional[int] = None
+        self._pinned: Optional[np.ndarray] = None
+        self.rescore_fetch_bytes = 0
+        self.rescore_fetch_rows = 0
+        # transient faults at the ``store.host_fetch`` seam are retried with
+        # exponential backoff (bounded) and counted here
+        self.host_fetch_retries = 0
+        self.host_fetch_failures = 0
         # Tombstones: rows are append-only, so a delete marks the id dead
         # here (scoped searches already drop deleted ids via the directory
         # layer).
@@ -124,6 +202,7 @@ class VectorStore:
         ids = np.arange(self._n, self._n + n_new, dtype=np.uint32)
         self._n += n_new
         self._alive_words = None
+        self._apply_budget()
         return ids
 
     # ----------------------------------------------------------- tombstones
@@ -227,6 +306,26 @@ class VectorStore:
         mapping = np.full(old_n, -1, dtype=np.int64)
         mapping[alive] = np.arange(new_n, dtype=np.int64)
         self._rows[:new_n] = self._rows[:old_n][alive]
+        # code slabs: the encoded prefixes are compacted (codes are copied,
+        # never re-encoded; the frozen codebook is untouched), and each
+        # watermark moves to how many encoded rows survived
+        if self._q_rows is not None:
+            q_n = min(self._q_n, old_n)
+            keep = alive[:q_n]
+            new_q = int(np.count_nonzero(keep))
+            self._q_rows[:new_q] = self._q_rows[:q_n][keep]
+            self._q_scale[:new_q] = self._q_scale[:q_n][keep]
+            self._q_n = new_q
+        if self._pq_codes is not None:
+            pq_n = min(self._pq_n, old_n)
+            keep = alive[:pq_n]
+            new_pq = int(np.count_nonzero(keep))
+            self._pq_codes[:new_pq] = self._pq_codes[:pq_n][keep]
+            self._pq_n = new_pq
+        if self._pinned is not None:
+            pinned = np.zeros(self._pinned.shape[0], dtype=bool)
+            pinned[:new_n] = self.pinned_mask()[:old_n][alive]
+            self._pinned = pinned
         self._n = new_n
         self._deleted[:old_n] = False
         self._n_deleted = 0
@@ -236,59 +335,293 @@ class VectorStore:
         self._deleted_log_base = 0
         for h in self._log_cursors:
             self._log_cursors[h] = 0
-        self._dev_n = 0                   # rows moved: the mirror re-syncs
+        # rows moved: every device mirror re-syncs from row 0
+        for mirror in (self._dev_rows_m, self._dev_q, self._dev_q_scale,
+                       self._dev_q_norms, self._dev_pq):
+            mirror.reset()
+        self._sq_n = 0
+        self._q_norms_cache = None
         self._alive_words = None
+        self._apply_budget()
         self.compact_gen += 1
         return mapping
 
     # --------------------------------------------------------- device mirror
-    def _sync_device(self) -> None:
-        """Upload rows [_dev_n, _n) and their squared norms, doubling the
-        mirror's capacity when it is full."""
-        if self._dev_n == self._n and self._dev_rows is not None:
-            return
-        cap = 0 if self._dev_rows is None else self._dev_rows.shape[0]
-        if cap < self._n:
-            new_cap = max(self._n, 2 * cap, 1024)
-            rows = torch.empty((new_cap, self.dim), dtype=torch.float32,
-                               device=self.device)
-            sq = torch.empty(new_cap, dtype=torch.float32, device=self.device)
-            if self._dev_n:
-                rows[: self._dev_n] = self._dev_rows[: self._dev_n]
-                sq[: self._dev_n] = self._dev_sq[: self._dev_n]
-            self._dev_rows, self._dev_sq = rows, sq
-        lo, hi = self._dev_n, self._n
-        if hi > lo:
-            fresh = torch.from_numpy(self._rows[lo:hi]).to(self.device)
-            idx = torch.arange(lo, hi, device=self.device)
-            self._dev_rows.index_copy_(0, idx, fresh)
-            self._dev_sq.index_copy_(0, idx, row_sq_norms(fresh))
-        self._dev_n = self._n
+    @property
+    def _dev_rows(self) -> Optional[torch.Tensor]:
+        """The fp32 device mirror's buffer (None once released)."""
+        return self._dev_rows_m.t
 
     def device_vectors(self) -> torch.Tensor:
-        """(n, d) fp32 rows on the store's device."""
-        self._sync_device()
-        return self._dev_rows[: self._n]
+        """(n, d) fp32 rows on the store's device. A tiered store has
+        released this mirror; reading it then raises."""
+        if self.tiered_active():
+            raise RuntimeError(
+                "the store is over its device byte budget: its fp32 rows "
+                "live in host RAM (read them through fetch_rows)")
+        return self._dev_rows_m.sync(self.vectors, self.device)
 
     def device_sq_norms(self) -> torch.Tensor:
         """(n,) fp32 squared row norms on the store's device (the l2 term;
-        every executor path reads these same values)."""
-        self._sync_device()
-        return self._dev_sq[: self._n]
+        every executor path reads these same values). Each row's norm is
+        computed once, on the device, from its uploaded fp32 row."""
+        lo, hi = self._sq_n, self._n
+        cap = 0 if self._dev_sq is None else self._dev_sq.shape[0]
+        if cap < hi:
+            grown = torch.empty(max(hi, 2 * cap, 1024), dtype=torch.float32,
+                                device=self.device)
+            if lo:
+                grown[:lo] = self._dev_sq[:lo]
+            self._dev_sq = grown
+        if hi > lo:
+            fresh = (torch.from_numpy(self._rows[lo:hi]).to(self.device)
+                     if self.tiered_active()
+                     else self.device_vectors()[lo:hi])
+            self._dev_sq[lo:hi] = row_sq_norms(fresh)
+            self._sq_n = hi
+        return self._dev_sq[:hi]
+
+    # ----------------------------------------------------- int8 scalar tier
+    def _ensure_quantized(self) -> None:
+        """Catch the int8 mirror up to the current row count: quantizes only
+        the fresh ``[_q_n, _n)`` slice (post-normalization rows, so the
+        codes always mirror exactly what the fp32 scan would score)."""
+        if self._q_n == self._n and self._q_rows is not None:
+            return
+        cap = self._rows.shape[0]
+        if self._q_rows is None or self._q_rows.shape[0] < cap:
+            grown_q = np.zeros((cap, self.dim), dtype=np.int8)
+            grown_s = np.ones(cap, dtype=np.float32)
+            if self._q_rows is not None:
+                grown_q[: self._q_n] = self._q_rows[: self._q_n]
+                grown_s[: self._q_n] = self._q_scale[: self._q_n]
+            self._q_rows, self._q_scale = grown_q, grown_s
+        if self._q_n < self._n:
+            codes, scales = quantize_rows(self._rows[self._q_n: self._n])
+            self._q_rows[self._q_n: self._n] = codes
+            self._q_scale[self._q_n: self._n] = scales
+        self._q_n = self._n
+
+    @property
+    def q_vectors(self) -> np.ndarray:
+        """(n, d) int8 codes (see :mod:`.quant` for the scoring contract)."""
+        self._ensure_quantized()
+        return self._q_rows[: self._n]
+
+    @property
+    def q_scales(self) -> np.ndarray:
+        """(n,) fp32 per-row dequantization scales."""
+        self._ensure_quantized()
+        return self._q_scale[: self._n]
+
+    def q_sq_norms(self) -> np.ndarray:
+        """(n,) fp32 squared norms of the *dequantized* rows — the ``||x||^2``
+        term the int8 l2 scan subtracts, so int8 scores are exact for the
+        quantized operands (scale^2 * sum(codes^2), int32-accumulated)."""
+        if (self._q_norms_cache is None
+                or self._q_norms_cache.shape[0] != self._n):
+            codes = self.q_vectors.astype(np.int32)
+            self._q_norms_cache = (
+                np.einsum("nd,nd->n", codes, codes).astype(np.float32)
+                * self.q_scales * self.q_scales)
+        return self._q_norms_cache
+
+    def device_q_vectors(self) -> torch.Tensor:
+        return self._dev_q.sync(self.q_vectors, self.device)
+
+    def device_q_scales(self) -> torch.Tensor:
+        return self._dev_q_scale.sync(self.q_scales, self.device)
+
+    def device_q_sq_norms(self) -> torch.Tensor:
+        return self._dev_q_norms.sync(self.q_sq_norms(), self.device)
+
+    # ------------------------------------------------------------ PQ tier
+    def _ensure_pq(self) -> None:
+        """Catch the PQ mirror up to the current row count: trains the
+        codebook once (on the rows present at first use), then encodes only
+        the fresh ``[_pq_n, _n)`` slice with the frozen centroids."""
+        if self._pq is None:
+            self._pq = PQCodebook(self.dim, self._pq_m)
+        cap = self._rows.shape[0]
+        if self._pq_codes is None or self._pq_codes.shape[0] < cap:
+            grown = np.zeros((cap, self._pq.m), dtype=np.uint8)
+            if self._pq_codes is not None:
+                grown[: self._pq_n] = self._pq_codes[: self._pq_n]
+            self._pq_codes = grown
+        if self._pq_n < self._n:
+            if not self._pq.trained:
+                self._pq.train(self._rows[: self._n])
+            self._pq_codes[self._pq_n: self._n] = self._pq.encode(
+                self._rows[self._pq_n: self._n])
+            self._pq_n = self._n
+
+    def set_pq_codebook(self, centroids: np.ndarray,
+                        encoded: int = 0) -> None:
+        """Adopt a trained codebook ((M, 256, dsub) centroids) instead of
+        training one: the state carried across from another database. Rows
+        ``[0, encoded)`` are encoded now, later rows lazily, all with these
+        frozen centroids, so the codes equal the source's whatever it
+        ingested after it trained."""
+        cents = np.asarray(centroids, dtype=np.float32)
+        self._pq = PQCodebook(self.dim, cents.shape[0])
+        self._pq.centroids = cents.copy()
+        self._pq_codes = np.zeros((self._rows.shape[0], self._pq.m),
+                                  dtype=np.uint8)
+        self._pq_n = min(int(encoded), self._n)
+        self._pq_codes[: self._pq_n] = self._pq.encode(
+            self._rows[: self._pq_n])
+        self._dev_pq.release()
+
+    @property
+    def pq_codebook(self) -> PQCodebook:
+        self._ensure_pq()
+        return self._pq
+
+    @property
+    def pq_codes(self) -> np.ndarray:
+        """(n, M) uint8 PQ codes (see :class:`.quant.PQCodebook`)."""
+        self._ensure_pq()
+        return self._pq_codes[: self._n]
+
+    def pq_lut(self, queries: np.ndarray) -> np.ndarray:
+        """(nq, M, 256) fp32 per-query ADC tables for this store's metric."""
+        return self.pq_codebook.lut(queries, self.metric)
+
+    def device_pq_codes(self) -> torch.Tensor:
+        return self._dev_pq.sync(self.pq_codes, self.device)
+
+    # ------------------------------------------------------ tiered storage
+    def set_device_budget(self, nbytes: Optional[int]) -> None:
+        """Configure the device byte budget. Once the fp32 rows outgrow it,
+        the store is *tiered*: fp32 rows live in host RAM (the device
+        mirror is released), the device holds PQ codes (plus hot-pinned
+        fp32 rows), and rescore windows fetch host rows on demand."""
+        self._device_budget = None if nbytes is None else int(nbytes)
+        self._apply_budget()
+
+    @property
+    def device_budget(self) -> Optional[int]:
+        return self._device_budget
 
     def tiered_active(self) -> bool:
-        """Tiered storage arrives with the PQ slice: the fp32 rows are
-        always device-resident here."""
-        return False
+        return (self._device_budget is not None
+                and self.nbytes() > self._device_budget)
+
+    def _apply_budget(self) -> None:
+        """Release the fp32 device mirror while the store is tiered."""
+        if self.tiered_active() and self._dev_rows_m.t is not None:
+            self._dev_rows_m.release()
+
+    def pin_rows(self, ids) -> None:
+        """Replace the set of device-pinned fp32 rows (scope-aware hot
+        placement, chosen by the planner's access stats). Pins are
+        accounting only, as in the reference: a pinned row is not fetched
+        in the rescore's byte count, but its read goes the same way."""
+        mask = np.zeros(self._rows.shape[0], dtype=bool)
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+        ids = ids[(ids >= 0) & (ids < self._n)]
+        mask[ids] = True
+        self._pinned = mask
+
+    def pinned_mask(self) -> Optional[np.ndarray]:
+        """(n,) bool mask of device-pinned rows, or None when nothing is
+        pinned. Rows ingested after a pin are unpinned until the next pin
+        refresh, so the mask is padded with False up to the row count."""
+        if self._pinned is None:
+            return None
+        if self._pinned.shape[0] < self._n:
+            grown = np.zeros(self._rows.shape[0], dtype=bool)
+            grown[: self._pinned.shape[0]] = self._pinned
+            self._pinned = grown
+        return self._pinned[: self._n]
+
+    def placement(self) -> Tuple[int, int]:
+        """``(rows_device_pinned, rows_host)`` for alive rows. When the
+        store is not tiered every row is device-resident (the fp32 device
+        mirror), so the host count is 0."""
+        alive = self.alive_count()
+        if not self.tiered_active():
+            return alive, 0
+        pm = self.pinned_mask()
+        if pm is None:
+            return 0, alive
+        pinned = int(np.count_nonzero(pm & ~self._deleted[: self._n]))
+        return pinned, alive - pinned
+
+    #: bounded-retry policy for transient host-fetch faults (a stalled or
+    #: flaky host-RAM/disk read in the tiered store): up to FETCH_RETRIES
+    #: re-attempts with exponential backoff starting at FETCH_BACKOFF_S.
+    FETCH_RETRIES = 3
+    FETCH_BACKOFF_S = 1e-3
+
+    def _with_fetch_retry(self, read):
+        """Run ``read()`` behind the ``store.host_fetch`` fault seam:
+        transient faults are retried with exponential backoff up to
+        :data:`FETCH_RETRIES` times (counted in ``host_fetch_retries``);
+        exhaustion or a non-transient fault escalates to the caller."""
+        attempt = 0
+        while True:
+            try:
+                faults.fire("store.host_fetch")
+                return read()
+            except faults.TransientFault:
+                if attempt >= self.FETCH_RETRIES:
+                    self.host_fetch_failures += 1
+                    raise faults.FaultError(
+                        "store.host_fetch",
+                        f"transient fault persisted past "
+                        f"{self.FETCH_RETRIES} retries") from None
+                time.sleep(self.FETCH_BACKOFF_S * (2 ** attempt))
+                attempt += 1
+                self.host_fetch_retries += 1
+
+    def fetch_rows(self, row_ids: np.ndarray) -> np.ndarray:
+        """Exact fp32 host rows by store id, behind the ``store.host_fetch``
+        seam with bounded retry (the I/O edge of a tiered store)."""
+        return self._with_fetch_retry(lambda: self.vectors[row_ids])
+
+    def device_rows(self, row_ids: np.ndarray,
+                    fetch: bool = False) -> torch.Tensor:
+        """Exact fp32 rows by store id, on the device: gathered from the
+        device mirror, or read from host RAM and uploaded when the store is
+        tiered. ``fetch=True`` (a rescore window) puts the read behind the
+        ``store.host_fetch`` seam with bounded retry, as every rescore of
+        the reference is, so a fault plan trips as often in both packages."""
+        ids = np.asarray(row_ids, dtype=np.int64)
+        if self.tiered_active():
+            host = self.fetch_rows(ids) if fetch else self.vectors[ids]
+            return torch.from_numpy(host).to(self.device)
+        idx = torch.from_numpy(ids).to(self.device)
+
+        def read():
+            return self.device_vectors().index_select(0, idx)
+        return self._with_fetch_retry(read) if fetch else read()
 
     # -------------------------------------------------------------- bytes
     def alive_count(self) -> int:
         return self._n - self._n_deleted
 
-    def placement(self) -> Tuple[int, int]:
-        """``(rows_device_pinned, rows_host)`` for alive rows: every row is
-        device-resident (no tiered storage yet)."""
-        return self.alive_count(), 0
-
     def nbytes(self) -> int:
         return self._n * self.dim * 4
+
+    def q_nbytes(self) -> int:
+        """Device bytes of the int8 tier: codes + one fp32 scale per row."""
+        return self._n * self.dim + self._n * 4
+
+    def alive_nbytes(self) -> int:
+        """fp32 bytes of rows that are actually alive — what accounting
+        reports, so tombstoned rows can't flatter compression ratios."""
+        return self.alive_count() * self.dim * 4
+
+    def q_alive_nbytes(self) -> int:
+        return self.alive_count() * (self.dim + 4)
+
+    def pq_nbytes(self) -> int:
+        """Device bytes of the PQ tier: uint8 codes of alive rows only.
+        The O(1) codebook is reported separately
+        (:meth:`pq_codebook_nbytes`), not amortized into per-row bytes."""
+        self._ensure_pq()
+        return self.alive_count() * self._pq.m
+
+    def pq_codebook_nbytes(self) -> int:
+        return self._pq.nbytes() if self._pq is not None else 0

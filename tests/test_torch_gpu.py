@@ -45,7 +45,7 @@ def _agree(got, want, label):
     (5, 1024, 128, 10, "l2", None, None),
     (8, 2081, 16, 40, "ip", None, None),
     (7, 2081, 13, 17, "l2", 3, 160),          # scalar loads, odd tiles
-    (9, 5000, 64, 256, "ip", 8, 32),          # the largest k
+    (9, 5000, 64, 256, "ip", 8, 32),          # k = 256, one list per lane
 ])
 def test_cuda_kernels_match_plain_versions(q, n, d, k, metric, block_q,
                                            block_n):
@@ -75,4 +75,120 @@ def test_cuda_kernels_match_plain_versions(q, n, d, k, metric, block_q,
     w1, c1 = ops.mask_and_popcount(words[0], words[2])
     w2, c2 = ref.mask_and_popcount_ref(words[0], words[2])
     assert torch.equal(w1, w2) and int(c1) == int(c2)
-    assert all(v == 1 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[name] == 1 for name in (
+        "scoped_topk", "multi_scope_topk", "bitmap_patch",
+        "mask_and_popcount"))
+
+
+def _i8_inputs(g, q, n, d, dev):
+    Q = torch.randn(q, d, generator=g, device=dev)
+    X = torch.randn(n, d, generator=g, device=dev)
+    X[n // 2] = X[n // 3]                                   # a tie
+    qs = Q.abs().amax(1) / 127
+    xs = X.abs().amax(1) / 127
+    q8 = torch.round(Q / qs[:, None]).to(torch.int8)
+    x8 = torch.round(X / xs[:, None]).to(torch.int8)
+    sq = (x8.float() ** 2).sum(1) * xs * xs
+    return q8, qs, x8, xs, sq
+
+
+def _pq_inputs(g, q, n, m, dev):
+    lut = torch.randn(q, m, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    codes[n // 2] = codes[n // 3]                           # a tie
+    return lut, codes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,m,k,metric,block_q,block_n", [
+    (1, 137, 16, 4, 1, "ip", None, None),
+    (5, 1024, 128, 32, 40, "l2", None, None),
+    (16, 2081, 13, 13, 17, "l2", 3, 160),     # scalar loads, odd tiles
+    (9, 5000, 64, 16, 320, "ip", 8, 32),      # a rescore window past 256
+])
+def test_quantized_kernels_match_plain_versions(q, n, d, m, k, metric,
+                                                block_q, block_n):
+    """int8 scores are exact integer sums and PQ scores add in subspace
+    order in both versions, so ids and values are bit-for-bit equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(q * 11 + n)
+    q8, qs, x8, xs, sq = _i8_inputs(g, q, n, d, dev)
+    lut, codes = _pq_inputs(g, q, n, m, dev)
+    dense = torch.rand(3, n, generator=g, device=dev) < 0.4
+    dense[1] = False                                        # empty scope
+    sid = torch.randint(0, 3, (q,), generator=g, device=dev,
+                        dtype=torch.int32)
+    mask, words = dense[0].to(torch.int8), _words(dense)
+    ops.reset_launch_counts()
+    pairs = [
+        (ops.scoped_topk_i8(q8, qs, x8, xs, sq, mask, k, metric, block_q,
+                            block_n),
+         ref.scoped_topk_i8_ref(q8, qs, x8, xs, sq, mask, k, metric)),
+        (ops.multi_scope_topk_i8(q8, qs, x8, xs, sq, words, sid, k, metric,
+                                 block_q, block_n),
+         ref.multi_scope_topk_i8_ref(q8, qs, x8, xs, sq, words, sid, k,
+                                     metric)),
+        (ops.scoped_topk_pq(lut, codes, mask, k, block_q, block_n),
+         ref.scoped_topk_pq_ref(lut, codes, mask, k)),
+        (ops.multi_scope_topk_pq(lut, codes, words, sid, k, block_q,
+                                 block_n),
+         ref.multi_scope_topk_pq_ref(lut, codes, words, sid, k)),
+    ]
+    for i, (got, want) in enumerate(pairs):
+        assert torch.equal(got[1], want[1]), i
+        assert torch.equal(got[0], want[0]), i
+    counts = ops.launch_counts()
+    assert all(counts[name] == 1 for name in (
+        "scoped_topk_i8", "multi_scope_topk_i8", "scoped_topk_pq",
+        "multi_scope_topk_pq"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,q,n,depth,k", [
+    ("f32", 3, 3000, 64, 257),
+    ("f32", 5, 6000, 32, 4096),               # lists: qt shrinks
+    ("f32", 2, 20000, 16, 10000),             # lists in device memory
+    ("f32", 8, 3000, 8192, 10),               # d sliced
+    ("i8", 8, 2000, 32768, 10),               # d sliced
+    ("pq", 8, 3000, 256, 10),                 # one LUT > shared memory
+    ("pq", 4, 5000, 32, 320),
+])
+def test_lifted_k_and_depth_limits(kind, q, n, depth, k):
+    """Any k and any depth launch the kernel (no fallback) and equal the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n + depth + k)
+    dense = torch.rand(2, n, generator=g, device=dev) < 0.6
+    mask, words = dense[0].to(torch.int8), _words(dense)
+    sid = (torch.arange(q, device=dev) % 2).to(torch.int32)
+    if kind == "f32":
+        Q = torch.randn(q, depth, generator=g, device=dev)
+        X = torch.randn(n, depth, generator=g, device=dev)
+        sq = ref.row_sq_norms(X)
+        _agree(ops.scoped_topk(Q, X, mask, k, "l2", sq),
+               ref.scoped_topk_ref(Q, X, mask, k, "l2", sq), "scoped")
+        _agree(ops.multi_scope_topk(Q, X, words, sid, k, "ip"),
+               ref.multi_scope_topk_ref(Q, X, words, sid, k, "ip"), "multi")
+        return
+    if kind == "i8":
+        q8, qs, x8, xs, sq = _i8_inputs(g, q, n, depth, dev)
+        pairs = [(ops.scoped_topk_i8(q8, qs, x8, xs, sq, mask, k, "l2"),
+                  ref.scoped_topk_i8_ref(q8, qs, x8, xs, sq, mask, k, "l2")),
+                 (ops.multi_scope_topk_i8(q8, qs, x8, xs, None, words, sid,
+                                          k),
+                  ref.multi_scope_topk_i8_ref(q8, qs, x8, xs, None, words,
+                                              sid, k))]
+    else:
+        lut, codes = _pq_inputs(g, q, n, depth, dev)
+        pairs = [(ops.scoped_topk_pq(lut, codes, mask, k),
+                  ref.scoped_topk_pq_ref(lut, codes, mask, k)),
+                 (ops.multi_scope_topk_pq(lut, codes, words, sid, k),
+                  ref.multi_scope_topk_pq_ref(lut, codes, words, sid, k))]
+    for got, want in pairs:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])

@@ -213,3 +213,213 @@ def test_align_block_n_and_block_registry():
         assert _blocks("multi_scope_topk", None, None) == (8, None)
     finally:
         ops.set_block_overrides({})
+
+
+# ------------------------------------------------------ int8 and PQ scans
+from repro.vectordb import flat as jflat  # noqa: E402
+from repro_torch.vectordb.quant import PQCodebook, quantize_rows  # noqa: E402
+
+# every q and n, k cycling and the metric alternating
+QSWEEP = [(q, n, (1, 10, 40)[(i + j) % 3], "l2" if (i + j) % 2 else "ip")
+          for i, q in enumerate((1, 5, 16))
+          for j, n in enumerate((137, 2081))]
+
+
+def _i8_case(q, n, d, seed):
+    """int8 codes through the port's copy of the quantizer (Q, X keep
+    duplicated rows, so exact ties occur)."""
+    Q, X = _integer_case(q, n, d, seed)
+    X = X + np.random.default_rng(seed).normal(size=X.shape).astype(
+        np.float32) * 0.1
+    X[n // 2] = X[3]
+    qi, qs = quantize_rows(Q)
+    xi, xs = quantize_rows(X)
+    codes = xi.astype(np.int32)
+    sq = np.einsum("nd,nd->n", codes, codes).astype(np.float32) * xs * xs
+    return qi, qs, xi, xs, sq
+
+
+def _pq_case(q, n, d, m, seed, metric="ip"):
+    """A trained codebook (few centroids per subspace for n rows: many
+    rows share codes, so ADC scores tie exactly)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    cb = PQCodebook(d, m, seed=seed)
+    cb.train(X)
+    return cb.lut(Q, metric), cb.encode(X)
+
+
+def _assert_tie_aware(port, other, label):
+    """PQ: the Pallas kernel's ``.sum(axis=2)`` and numpy's pairwise sum
+    may round differently from the sequential sum over M: ids are equal
+    except inside tie groups, values to rtol = atol = 1e-5."""
+    pv, pi = (np.asarray(a) for a in port)
+    ov, oi = (np.asarray(a) for a in other)
+    oi = np.where(np.isfinite(ov) & (ov > NEG_INF), oi, -1)
+    err = ref.topk_disagreement(pi, pv, oi, ov, TOL)
+    assert err is None, f"{label}: {err}"
+
+
+def _dense_case(n, seed, density=0.4):
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((3, n), bool)
+    dense[0] = rng.random(n) < density
+    dense[1] = rng.random(n) < 0.2
+    dense[2, n - 20:] = True               # only the ragged last tile
+    return dense
+
+
+@pytest.mark.parametrize("q,n,k,metric", QSWEEP)
+def test_i8_kernels_match_jax(q, n, k, metric):
+    """int8 scores are exact integer dots times the scales in both
+    packages: ids are equal, values agree to 1e-5."""
+    qi, qs, xi, xs, sq = _i8_case(q, n, 16, seed=q * 100 + n)
+    dense = _dense_case(n, seed=n + k)
+    sid = (np.arange(q) % 3).astype(np.int32)
+    mask = dense[0]
+    label = f"i8 q{q} n{n} k{k} {metric}"
+    port = ops.scoped_topk_i8(_t(qi), _t(qs), _t(xi), _t(xs), _t(sq),
+                              _t(mask.astype(np.int8)), k, metric)
+    _assert_same(port, jops.scoped_topk_i8(qi, qs, xi, xs, sq, mask, k=k,
+                                           metric=metric), label + " pallas")
+    _assert_same(port, jref.scoped_topk_i8_ref(qi, qs, xi, xs, sq, mask, k,
+                                               metric), label + " numpy")
+    words = _pack(dense)
+    port = ops.multi_scope_topk_i8(_t(qi), _t(qs), _t(xi), _t(xs), _t(sq),
+                                   _t(words.view(np.int32)), _t(sid), k,
+                                   metric)
+    _assert_same(port, jops.multi_scope_topk_i8(qi, qs, xi, xs, sq, words,
+                                                sid, k=k, metric=metric),
+                 label + " multi pallas")
+    _assert_same(port, jref.multi_scope_topk_i8_ref(qi, qs, xi, xs, sq,
+                                                    words, sid, k, metric),
+                 label + " multi numpy")
+
+
+@pytest.mark.parametrize("q,n,k,metric", QSWEEP)
+def test_pq_kernels_match_jax(q, n, k, metric):
+    lut, codes = _pq_case(q, n, 16, 4, seed=q * 100 + n, metric=metric)
+    dense = _dense_case(n, seed=n + k)
+    sid = (np.arange(q) % 3).astype(np.int32)
+    mask = dense[0]
+    words = _pack(dense)
+    label = f"pq q{q} n{n} k{k} {metric}"
+    port = ops.scoped_topk_pq(_t(lut), _t(codes), _t(mask.astype(np.int8)),
+                              k)
+    _assert_tie_aware(port, jops.scoped_topk_pq(lut, codes, mask, k=k),
+                      label + " pallas")
+    _assert_tie_aware(port, jref.scoped_topk_pq_ref(lut, codes, mask, k),
+                      label + " numpy")
+    twin = jflat._scan_topk_pq(jnp.asarray(lut), jnp.asarray(codes),
+                               jnp.asarray(_pack(mask[None])[0]), k)
+    _assert_tie_aware(port, twin, label + " jnp twin")
+    # the twin adds over M in the same order: its filled lanes are bitwise
+    filled = np.isfinite(np.asarray(twin[0]))
+    np.testing.assert_array_equal(port[1].numpy()[filled],
+                                  np.asarray(twin[1])[filled])
+    np.testing.assert_array_equal(port[0].numpy()[filled],
+                                  np.asarray(twin[0])[filled])
+    port = ops.multi_scope_topk_pq(_t(lut), _t(codes),
+                                   _t(words.view(np.int32)), _t(sid), k)
+    _assert_tie_aware(port, jops.multi_scope_topk_pq(lut, codes, words, sid,
+                                                     k=k),
+                      label + " multi pallas")
+    _assert_tie_aware(port, jref.multi_scope_topk_pq_ref(lut, codes, words,
+                                                         sid, k),
+                      label + " multi numpy")
+    _assert_tie_aware(port, jflat._multi_scan_topk_pq(
+        jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(words),
+        jnp.asarray(sid), k), label + " multi jnp twin")
+
+
+@pytest.mark.parametrize("case", ["empty_scope", "k_over_scope",
+                                  "all_masked_tiles"])
+@pytest.mark.parametrize("tier", ["i8_ip", "i8_l2", "pq"])
+def test_quantized_edge_cases_match_jax(case, tier):
+    q, n, k = 5, 2081, 40
+    rng = np.random.default_rng(9)
+    dense = np.zeros((3, n), bool)
+    if case == "k_over_scope":
+        dense[0, rng.choice(n, 13, replace=False)] = True   # 13 < k
+    elif case == "all_masked_tiles":
+        dense[0, n - 20:] = True
+    dense[1] = rng.random(n) < 0.3
+    dense[2] = True
+    sid = np.array([0, 0, 1, 2, 0], np.int32)
+    mask, words = dense[0], _pack(dense)
+    if tier == "pq":
+        lut, codes = _pq_case(q, n, 16, 4, seed=11)
+        port = ops.multi_scope_topk_pq(_t(lut), _t(codes),
+                                       _t(words.view(np.int32)), _t(sid), k)
+        _assert_tie_aware(port, jops.multi_scope_topk_pq(lut, codes, words,
+                                                         sid, k=k),
+                          f"{case} pq multi")
+        port = ops.scoped_topk_pq(_t(lut), _t(codes),
+                                  _t(mask.astype(np.int8)), k)
+        _assert_tie_aware(port, jops.scoped_topk_pq(lut, codes, mask, k=k),
+                          f"{case} pq scoped")
+    else:
+        metric = tier[3:]
+        qi, qs, xi, xs, sq = _i8_case(q, n, 16, seed=12)
+        port = ops.multi_scope_topk_i8(_t(qi), _t(qs), _t(xi), _t(xs),
+                                       _t(sq), _t(words.view(np.int32)),
+                                       _t(sid), k, metric)
+        _assert_same(port, jops.multi_scope_topk_i8(
+            qi, qs, xi, xs, sq, words, sid, k=k, metric=metric),
+            f"{case} {tier} multi")
+        port = ops.scoped_topk_i8(_t(qi), _t(qs), _t(xi), _t(xs), _t(sq),
+                                  _t(mask.astype(np.int8)), k, metric)
+        _assert_same(port, jops.scoped_topk_i8(qi, qs, xi, xs, sq, mask,
+                                               k=k, metric=metric),
+                     f"{case} {tier} scoped")
+    if case == "empty_scope":
+        assert np.all(np.asarray(port[1]) == -1)
+    if case == "k_over_scope":
+        assert np.all(np.asarray(port[1])[:, 13:] == -1)
+
+
+@pytest.mark.parametrize("tier", ["f32", "i8", "pq"])
+def test_windows_past_256_match_numpy(tier):
+    """A rescore window past the old kernel limit of 256 (bench_pq's 320,
+    and one past n), through the plain versions."""
+    q, n = 3, 700
+    rng = np.random.default_rng(5)
+    dense = rng.random((2, n)) < 0.7
+    mask, words = dense[0], _pack(dense)
+    sid = np.array([0, 1, 0], np.int32)
+    for k in (320, 800):
+        kk = min(k, n)                  # the oracles take k <= n only
+        if tier == "f32":
+            Q, X = _integer_case(q, n, 16, seed=6)
+            port = ops.multi_scope_topk(_t(Q), _t(X),
+                                        _t(words.view(np.int32)), _t(sid), k)
+            want = jref.multi_scope_topk_ref(
+                jnp.asarray(Q), jnp.asarray(X), jnp.asarray(words),
+                jnp.asarray(sid), k=kk)
+        elif tier == "i8":
+            qi, qs, xi, xs, sq = _i8_case(q, n, 16, seed=7)
+            port = ops.multi_scope_topk_i8(_t(qi), _t(qs), _t(xi), _t(xs),
+                                           None, _t(words.view(np.int32)),
+                                           _t(sid), k)
+            want = jref.multi_scope_topk_i8_ref(qi, qs, xi, xs, sq, words,
+                                                sid, kk)
+        else:
+            lut, codes = _pq_case(q, n, 16, 4, seed=8)
+            port = ops.multi_scope_topk_pq(_t(lut), _t(codes),
+                                           _t(words.view(np.int32)), _t(sid),
+                                           k)
+            want = jref.multi_scope_topk_pq_ref(lut, codes, words, sid, kk)
+        want = [np.pad(np.asarray(a), ((0, 0), (0, max(0, k - a.shape[1]))),
+                       constant_values=(NEG_INF if a.dtype.kind == "f"
+                                        else -1)) for a in want]
+        _assert_tie_aware(port, want, f"{tier} k{k}")
+        assert port[1].shape == (q, k)
+        assert np.all(port[1].numpy()[:, dense[sid].sum(1).max():] == -1)
+
+
+def test_i8_l2_needs_the_dequantized_norms():
+    qi = torch.zeros(1, 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="sq"):
+        ops.scoped_topk_i8(qi, torch.ones(1), qi, torch.ones(1), None,
+                           torch.ones(1, dtype=torch.int8), 1, "l2")

@@ -266,14 +266,20 @@ def test_crash_replay_is_bitwise(kill, tmp_path):
 
 
 def test_quantized_precisions_and_other_executors_raise():
+    """int8 and pq are served now (tests/test_torch_quantized.py); the
+    executors of later slices and unknown precisions still raise."""
     db = _port_db(_wiki())
-    with pytest.raises(NotImplementedError, match="int8"):
-        db.dsq(db.store.vectors[0], "/", precision="int8")
     for kind in ("ivf", "pg", "sharded"):
         with pytest.raises(NotImplementedError):
             db.build_ann(kind)
-    with pytest.raises(ValueError):
-        db.dsq(db.store.vectors[0], "/", precision="fp16")
+    q = db.store.vectors[0]
+    for precision in ("fp16", "int4"):
+        with pytest.raises(ValueError, match="precision"):
+            db.dsq(q, "/", precision=precision)
+        with pytest.raises(ValueError, match="precision"):
+            db.dsq_batch(q[None, :], ["/"], precision=precision)
+        with pytest.raises(ValueError, match="precision"):
+            db.executors["flat"].search(q, 10, precision=precision)
 
 
 def test_store_tombstones_log_compact_and_device_mirror():
