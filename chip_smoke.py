@@ -7,13 +7,16 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
-   the build of the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+   the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together);
 1. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, at the CPU tests' edge shapes and at shapes that take the
    kernels' slow paths (k up to 10,000, d = 8192 and 32768, PQ LUTs past
    shared memory), with its median time, its bound, the plain version's
-   time and a library yardstick;
+   time and a library yardstick; the IVF kernel 9 and its int8 / PQ modes
+   at a synthetic layout of the main path's rows (64 lists, 8 probed), and
+   again after phase 5 on the inputs phase 5 gave them (the real k-means
+   layout), whose times the kernels line reports;
 2. the main path: WIKI-Dir ingested into ``DirectoryVectorDB(device="cuda")``
    with TrieHI and the flat executor, a 64-request ``dsq_batch`` mix held
    bitwise against a loop of ``dsq``, and recall@10 against a brute force;
@@ -23,7 +26,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    both, recall@10 against fp32, then a device byte budget of a third of
    the fp32 rows: the fp32 device mirror is released, fp32 batches are
    served by the PQ plan equal to an explicit PQ batch, and hot scopes'
-   pins cut the rescore's host fetch.
+   pins cut the rescore's host fetch;
+5. the IVF executor on the same database, phase 4's budget lifted first:
+   ``build_ann("ivf", n_lists=64)`` twice (bitwise equal centers), the
+   64-request mix at nprobe 8 with batch == loop bitwise at fp32, int8 and
+   PQ (one kernel-9 launch per precision), every list probed == flat,
+   recall@10 against flat (printed at nprobe 8, gated at 48), deletes,
+   an ingest routed by ``ivf.add``, ``repartition``, and under a byte
+   budget an fp32 IVF batch == an explicit PQ IVF batch (its small scopes
+   ranked from host rows).
 
 The last lines are the kernels' summary, then
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -31,6 +42,7 @@ The last lines are the kernels' summary, then
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -63,6 +75,9 @@ REPLACES = {
     "multi_scope_topk_i8": f"{_ST}:170",
     "scoped_topk_pq": f"{_ST}:228",
     "multi_scope_topk_pq": f"{_ST}:256",
+    "ivf_gather_topk": f"{_ST}:290",
+    "ivf_gather_topk_i8": "src/repro/vectordb/ivf.py:136",
+    "ivf_gather_topk_pq": "src/repro/vectordb/ivf.py:170",
 }
 _SCAN_CU = "src/repro_torch/kernels/csrc/scoped_topk.cu"
 SOURCES = {name: _SCAN_CU for name in REPLACES}
@@ -103,18 +118,41 @@ def median_ms(torch, fn, runs: int) -> float:
 def device_ms(torch, fn, runs: int, names=None):
     """Mean device time of one ``fn`` call from ``torch.profiler``: the
     kernels whose name contains one of ``names`` (every kernel when None).
-    None when the profiler saw no device time."""
+    Late in a long run the profiler has dropped kernel events (it saw 8 of
+    20 calls), so a session counts only when it saw every launch: one
+    ``scan_pass1`` and one ``scan_pass2`` per scan launch that the wrappers
+    counted, and a multiple of ``runs`` of every other kernel it matched.
+    A session that missed some is repeated, twice at most. None when no
+    session saw every launch, or none saw device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    def scan_launches() -> int:
+        return sum(v for key, v in ops.launch_counts().items()
+                   if key not in ("bitmap_patch", "mask_and_popcount"))
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
-        if names is None or any(n in e.key for n in names))
-    return total_us / runs / 1e3 if total_us > 0 else None
+    for _ in range(3):
+        before = scan_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        launched = scan_launches() - before
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_time_total", 0.0) > 0]
+        scan = sum(e.count for e in events if "scan_pass" in e.key)
+        seen = [e for e in events
+                if names is None or any(n in e.key for n in names)]
+        if seen and scan == 2 * launched and all(
+                e.count % runs == 0 for e in seen if "scan_pass" not in e.key):
+            return sum(e.device_time_total for e in seen) / runs / 1e3
+        emit({"device_ms_rejected": {"runs": runs, "scan_launches": launched,
+                                     "counts": {e.key[:60]: e.count
+                                                for e in seen}}})
+    return None
 
 
 def timed(torch, fn, runs: int, names=None) -> dict:
@@ -335,6 +373,7 @@ def phase1(torch, ops, ref, peaks) -> dict:
     edge += phase1_limits(torch, ops, ref, peaks, g, out)
     edge += phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                          sid)
+    edge += phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid)
     emit({"phase": 1, "edge_cases": edge, "kernels": out})
     return out
 
@@ -577,6 +616,203 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                  f"admitted_pairs={admitted}; "
                  f"shared-memory LUT lookups {admitted * M}"}
     return cases
+
+
+IVF_LISTS = 64     # benchmarks/bench_ivf_batch.py: min(64, n / 64) lists
+IVF_NPROBE = 8     # ... probed per query
+
+
+def synthetic_cand(torch, g, n, B, dev):
+    """(B, IVF_NPROBE * max_aligned) int32 candidate ids of a synthetic
+    padded-CSR layout: the n rows split at random into IVF_LISTS lists of
+    ascending ids, each padded with -1 to the widest (a multiple of 32),
+    and IVF_NPROBE distinct lists per query."""
+    perm = torch.randperm(n, generator=g, device=dev)
+    parts = [p.sort().values for p in torch.tensor_split(perm, IVF_LISTS)]
+    width = -(-max(len(p) for p in parts) // 32) * 32
+    table = torch.full((IVF_LISTS, width), -1, dtype=torch.int32,
+                       device=dev)
+    for i, p in enumerate(parts):
+        table[i, :len(p)] = p.to(torch.int32)
+    probe = torch.stack([
+        torch.randperm(IVF_LISTS, generator=g, device=dev)[:IVF_NPROBE]
+        for _ in range(B)])
+    return table[probe].reshape(B, -1)
+
+
+def phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid) -> int:
+    """Kernel 9 and its int8 / PQ modes: edge shapes (all padding, k past
+    the admitted candidates, C = 1, C not a multiple of 256, d = 3 and
+    8192, position ties, ip and l2, short words, a scope id out of range),
+    then the main shape: B = 64 over a synthetic layout of the main path's
+    rows (64 lists, 8 probed: C = 242,688), k = 10 and 80, timed
+    (phase5_kernels repeats the main shape on the real layout)."""
+    dev = torch.device("cuda")
+    cases = 0
+    for b, c, n, d, m, k, pad, short in (
+            (3, 96, 400, 16, 4, 5, 1.0, False),        # all padding
+            (5, 37, 300, 16, 4, 40, 0.5, False),       # k > admitted
+            (2, 1, 64, 8, 4, 3, 0.0, False),           # C = 1
+            (4, 300, 2000, 3, 3, 10, 0.2, False),      # d = 3, C % 256
+            (3, 700, 5000, 8192, 64, 10, 0.1, False),  # d = 8192, sliced
+            (6, 513, 3000, 32, 8, 17, 0.2, True)):     # short words
+        Q = torch.randn(b, d, generator=g, device=dev)
+        Xe = torch.randn(n, d, generator=g, device=dev)
+        Xe[n - 2] = Xe[n - 1]                      # equal rows ...
+        cand = torch.stack([torch.randperm(n, generator=g, device=dev)[:c]
+                            for _ in range(b)]).to(torch.int32)
+        cand[torch.rand(b, c, generator=g, device=dev) < pad] = -1
+        if c >= 4 and pad < 1.0:                   # ... at positions 1, 3
+            cand[0, 1], cand[0, 3] = n - 1, n - 2
+        dn = torch.rand(3, n, generator=g, device=dev) < 0.6
+        dn[:, n - 2:] = True
+        dn[1] = False                              # an empty scope
+        W = words_of(torch, dn)
+        s1 = torch.randint(0, 3, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+        if b > 2:
+            s1[-1] = 3                             # a scope out of range
+        if short:                                  # rows past them: out
+            W = W[:, : W.shape[1] // 2]
+        Wk = W
+        W = torch.nn.functional.pad(W, (0, (n + 31) // 32 - W.shape[1]))
+        q8, qs = quantize(torch, Q)
+        x8, xs = quantize(torch, Xe)
+        sq8 = (x8.float() ** 2).sum(1) * xs * xs
+        lut, codes = pq_case(torch, g, b, n, m, dev)
+        codes[n - 2] = codes[n - 1]
+        sq = ref.row_sq_norms(Xe)
+        label = f"b{b} C{c} n{n} d{d} k{k} pad{pad}" + (" short" if short
+                                                        else "")
+        for metric in ("ip", "l2"):
+            topk_case(ref, f"ivf_gather_topk {label} {metric}",
+                      ops.ivf_gather_topk(Q, Xe, cand, Wk, s1, k, metric,
+                                          sq),
+                      ref.ivf_gather_topk_ref(Q, Xe, cand, W, s1, k, metric,
+                                              sq))
+            exact_case(torch, f"ivf_gather_topk_i8 {label} {metric}",
+                       ops.ivf_gather_topk_i8(q8, qs, x8, xs, sq8, cand, Wk,
+                                              s1, k, metric),
+                       ref.ivf_gather_topk_i8_ref(q8, qs, x8, xs, sq8, cand,
+                                                  W, s1, k, metric))
+            cases += 2
+        exact_case(torch, f"ivf_gather_topk_pq {label}",
+                   ops.ivf_gather_topk_pq(lut, codes, cand, Wk, s1, k),
+                   ref.ivf_gather_topk_pq_ref(lut, codes, cand, W, s1, k))
+        cases += 1
+
+    # main shape: WIKI-Dir's rows and the phase-1 scopes, 8 of 64 lists
+    n, d, M, B = X.shape[0], X.shape[1], 32, sid.shape[0]
+    cand = synthetic_cand(torch, g, n, B, dev)
+    QB = torch.randn(B, d, generator=g, device=dev)
+    qb, sb = quantize(torch, QB)
+    x8, xs = quantize(torch, X)
+    lut = torch.randn(B, M, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    note = f" (synthetic: n={n}, {IVF_LISTS} lists, {IVF_NPROBE} probed)"
+    rec = ivf_record(torch, ops, ref, peaks, "ivf_gather_topk",
+                     (QB, X, cand, words, sid, 10), {})
+    rec["k80"] = ivf_record(torch, ops, ref, peaks, "ivf_gather_topk",
+                            (QB, X, cand, words, sid, 80), {}, runs=10)
+    rec["library_ms"], lib = library_bmm(torch, X, cand, QB)
+    rec["shape"] += f"{note}; library: {lib}"
+    out["ivf_gather_topk"] = rec
+    exact_case(torch, "ivf_gather_topk_i8 main k=80",
+               ops.ivf_gather_topk_i8(qb, sb, x8, xs, None, cand, words,
+                                      sid, 80),
+               ref.ivf_gather_topk_i8_ref(qb, sb, x8, xs, None, cand, words,
+                                          sid, 80))
+    for name, args in (
+            ("ivf_gather_topk_i8", (qb, sb, x8, xs, None, cand, words, sid,
+                                    40)),
+            ("ivf_gather_topk_pq", (lut, codes, cand, words, sid, 80))):
+        out[name] = ivf_record(torch, ops, ref, peaks, name, args, {})
+        out[name]["shape"] += note
+    return cases + 5
+
+
+IVF_KERNELS = ("ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq")
+# positions of (queries or LUT, rows or codes, cand_ids, mask_words,
+# scope_ids, k, metric) in each wrapper's arguments (PQ has no metric)
+_IVF_ARGS = {"ivf_gather_topk": (0, 1, 2, 3, 4, 5, 6),
+             "ivf_gather_topk_i8": (0, 2, 5, 6, 7, 8, 9),
+             "ivf_gather_topk_pq": (0, 1, 2, 3, 4, 5, None)}
+
+
+def ivf_admitted(torch, cand, words, sids):
+    """(admitted (query, candidate) pairs, distinct admitted rows): the
+    work kernel 9 must do on these inputs."""
+    S = words.shape[0]
+    ok = (sids >= 0) & (sids < S)
+    qwords = words[sids.long().clamp(0, S - 1)]
+    safe = cand.clamp(min=0).long()
+    bit = (torch.gather(qwords, 1, safe >> 5).long() >> (safe & 31)) & 1
+    adm = (cand >= 0) & (bit != 0) & ok[:, None]
+    return int(adm.sum()), int(torch.unique(cand[adm]).numel())
+
+
+def ivf_record(torch, ops, ref, peaks, name, args, kw, runs=20) -> dict:
+    """Kernel 9 (or its int8 / PQ mode) ``name`` on the wrapper arguments
+    ``args`` / ``kw``: held against its plain version on the same inputs
+    (fp32 within TOL up to ties, int8 and PQ bit for bit), timed, and
+    bounded by the bytes of the candidate ids, the scope words, each
+    distinct admitted row once and the queries and results, and by the
+    operations of every admitted (query, candidate) pair."""
+    iq, ir, ic, iw, isid, ik, im = _IVF_ARGS[name]
+    rows, cand, words, sids, k = (args[i] for i in (ir, ic, iw, isid, ik))
+    metric = args[im] if im is not None and len(args) > im else "ip"
+    B, C = cand.shape
+    S, n_words = words.shape
+    kernel = getattr(ops, name)
+    plain = getattr(ref, name + "_ref")
+    plain_kw = {key: v for key, v in kw.items() if key != "check_ids"}
+    pairs, uniq = ivf_admitted(torch, cand, words, sids)
+    shape = f"B={B} C={C} k={k} admitted_pairs={pairs} unique_rows={uniq}"
+    got, want = kernel(*args, **kw), plain(*args, **plain_kw)
+    if name == "ivf_gather_topk":
+        err = topk_case(ref, f"{name} {shape}", got, want)
+    else:
+        err = exact_case(torch, f"{name} {shape}", got, want)
+    del got, want
+    head = B * C * 4 + S * n_words * 4 + B * k * 8
+    depth = rows.shape[1]
+    if name == "ivf_gather_topk_pq":     # codes, LUTs; one add per byte
+        row_bytes, nbytes = depth, B * depth * 256 * 4
+        ops_, kind = 1.0 * pairs * depth, "fp32"
+    elif name == "ivf_gather_topk_i8":   # codes + scale; int8 dots
+        row_bytes, nbytes = depth + 4, B * (depth + 4)
+        ops_, kind = 2.0 * pairs * depth, "int8"
+    else:
+        row_bytes, nbytes = depth * 4, B * depth * 4
+        ops_, kind = 2.0 * pairs * depth, "fp32"
+    if metric == "l2":
+        row_bytes += 4                   # the row's squared norm
+    return {"max_abs_err": err,
+            **timed(torch, lambda: kernel(*args, **kw), runs,
+                    ("scan_pass1", "scan_pass2")),
+            "plain_ms": median_ms(torch, lambda: plain(*args, **plain_kw), 3),
+            "library_ms": None,
+            **bound(head + nbytes + uniq * row_bytes, ops_, peaks, kind),
+            "pair_bytes": pairs * row_bytes,
+            "shape": f"{shape} depth={depth} {metric}"}
+
+
+def library_bmm(torch, rows, cand, queries):
+    """The library yardstick of kernel 9: scores only, over a pre-gathered
+    (B, C, d) block (the reference's shape, which the port never builds),
+    on as many queries as fit in free device memory."""
+    B, C = cand.shape
+    d = rows.shape[1]
+    free = torch.cuda.mem_get_info(rows.device)[0]
+    bl = B
+    while bl > 1 and bl * C * d * 4 * 1.5 > free:
+        bl //= 2
+    block = rows[cand[:bl].clamp(min=0).long()]
+    qcol = queries[:bl, :, None].float()
+    ms = median_ms(torch, lambda: torch.bmm(block, qcol), 10)
+    del block
+    return ms, f"torch.bmm ({bl},{C},{d})x({bl},{d},1), no mask, no top-k"
 
 
 # --------------------------------------------------------------- phase 2
@@ -889,6 +1125,249 @@ def phase4(torch, ops, ds, db, batched) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 5
+IVF_RECALL = 0.6           # tests/test_ivf_batch.py's floor at 12 of 16
+IVF_RECALL_NPROBE = 48     # ... lists probed: 48 of 64 here
+IVF_INGEST = 1000
+
+
+@contextlib.contextmanager
+def first_calls(ops, names, into: dict):
+    """While open, ``ops``' wrappers ``names`` record the arguments of
+    their first call into ``into`` (name -> (args, kwargs)) and launch as
+    usual: the inputs the main path gives each kernel."""
+    saved = {name: getattr(ops, name) for name in names}
+
+    def recorder(name):
+        def call(*args, **kw):
+            into.setdefault(name, (args, kw))
+            return saved[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(ops, name, recorder(name))
+    try:
+        yield into
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def phase5(torch, ops, ref, ds, db):
+    """The IVF executor on the phase-2 database (after phases 3 and 4; the
+    phase-4 byte budget is lifted first). Every failed check is collected
+    and reported at once. Returns the phase's launch counts and the
+    arguments of the first kernel-9 launch of each precision in the
+    nprobe-8 mix."""
+    from repro_torch.vectordb import IVFIndex
+    _, paths, rec = requests(ds)
+    queries = requests(ds)[0]
+    k, B = 10, len(paths)
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    def sync_s(t0: float) -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    store = db.store
+    store.set_device_budget(None)
+    store.device_vectors()
+    gate(not store.tiered_active(), "budget lifted but still tiered")
+    ops.reset_launch_counts()
+    info = {"phase": 5, "budget_lifted": True, "entries": len(store)}
+
+    # 1-2: build (timed), twice: k-means repeats bit for bit
+    t0 = time.perf_counter()
+    db.build_ann("ivf", n_lists=IVF_LISTS, seed=0)
+    info["build_s"] = sync_s(t0)
+    ivf = db.executors["ivf"]
+    t0 = time.perf_counter()
+    twin = IVFIndex(store, n_lists=IVF_LISTS, seed=0)
+    info["rebuild_s"] = sync_s(t0)
+    gate(np.array_equal(ivf.centers, twin.centers)
+         and all(np.array_equal(a, b) for a, b in zip(ivf.lists,
+                                                      twin.lists)),
+         "two k-means builds differ")
+    del twin
+    t0 = time.perf_counter()
+    ivf.layout()
+    info["layout_s"] = sync_s(t0)
+    info["partition_stats"] = ivf.partition_stats()
+
+    # 3: the 64-request mix at nprobe 8, batch == loop at every precision
+    fp = db.dsq_batch(queries, paths, k=k, recursive=rec)     # flat fp32
+    results, captured = {}, {}
+    for prec, rk in (("fp32", None), ("int8", None), ("pq", PQ_RESCORE_K)):
+        kw = dict(k=k, executor="ivf", nprobe=IVF_NPROBE, precision=prec,
+                  rescore_k=rk)
+        before = ops.launch_counts()
+        ta = time.perf_counter()
+        with first_calls(ops, IVF_KERNELS, captured):
+            b = db.dsq_batch(queries, paths, recursive=rec, **kw)
+        tb = time.perf_counter()
+        after = ops.launch_counts()
+        loop = [db.dsq(queries[i], paths[i], recursive=rec[i], **kw)
+                for i in range(B)]
+        tc = time.perf_counter()
+        db.dsq_batch(queries, paths, recursive=rec, **kw)
+        td = time.perf_counter()
+        gate(same_results(b, loop), f"ivf {prec}: dsq_batch != loop of dsq")
+        acct = b[0].batch
+        per_kernel = {key: after[key] - before[key] for key in after
+                      if key.startswith("ivf_gather_topk")
+                      and after[key] > before[key]}
+        gate(acct.launches == len(acct.precision_groups)
+             and all(v == 1 for v in per_kernel.values()),
+             f"ivf {prec}: not one launch per precision: {acct.launches} "
+             f"{acct.precision_groups} {per_kernel}")
+        gate({r.plan for r in b} <= {"ivf", "empty"},
+             f"ivf {prec}: plans {sorted({r.plan for r in b})}")
+        results[prec] = b
+        info[prec] = {"batch_first_ms": (tb - ta) * 1e3,
+                      "loop_ms": (tc - tb) * 1e3,
+                      "batch_warm_ms": (td - tc) * 1e3,
+                      "launches": acct.launches,
+                      "kernel_launches": per_kernel,
+                      "precision_groups": acct.precision_groups,
+                      "rescore_candidates": acct.rescore_candidates,
+                      "recall_at_10_vs_flat": set_recall(fp, b)}
+
+    # 4: probing every list is an exact scoped search
+    sub = slice(0, 8)
+    full = db.dsq_batch(queries[sub], paths[sub], k=k, recursive=rec[sub],
+                        executor="ivf", nprobe=IVF_LISTS)
+    for i, (a, f) in enumerate(zip(full, fp[sub])):
+        err = ref.topk_disagreement(a.ids, a.scores, f.ids, f.scores, TOL)
+        gate(err is None and a.scope_size == f.scope_size,
+             f"nprobe={IVF_LISTS} request {i} != flat: {err}")
+
+    # 5: recall@10 against flat fp32 (printed at 8, gated at 48)
+    wide = db.dsq_batch(queries, paths, k=k, recursive=rec, executor="ivf",
+                        nprobe=IVF_RECALL_NPROBE)
+    info["recall_at_10"] = {str(IVF_NPROBE): set_recall(fp, results["fp32"]),
+                            str(IVF_RECALL_NPROBE): set_recall(fp, wide)}
+    gate(info["recall_at_10"][str(IVF_RECALL_NPROBE)] >= IVF_RECALL,
+         f"recall@10 at nprobe {IVF_RECALL_NPROBE} "
+         f"{info['recall_at_10'][str(IVF_RECALL_NPROBE)]} < {IVF_RECALL}")
+
+    # 10: device time of the fp32 launch at B = 64 beside the flat batch's
+    names = ("scan_pass1", "scan_pass2")
+
+    def ivf_batch():
+        return db.dsq_batch(queries, paths, k=k, recursive=rec,
+                            executor="ivf", nprobe=IVF_NPROBE)
+
+    def flat_batch():
+        return db.dsq_batch(queries, paths, k=k, recursive=rec)
+
+    info["device_ms"] = {"ivf_batch": device_ms(torch, ivf_batch, 5, names),
+                         "flat_batch": device_ms(torch, flat_batch, 5,
+                                                 names)}
+    warm = {"flat": [], "ivf": []}
+    for label in ("flat", "ivf", "ivf", "flat"):    # in turns
+        t0 = time.perf_counter()
+        (flat_batch if label == "flat" else ivf_batch)()
+        warm[label].append(sync_s(t0) * 1e3)
+    info["batch_warm_ms"] = warm
+
+    # 6: deleted ids never come back
+    victims = sorted({int(r.ids[0][0]) for r in results["fp32"][:16]
+                      if r.ids[0][0] >= 0})[:5]
+    for v in victims:
+        db.delete(v)
+    for prec, rk in (("fp32", None), ("int8", None), ("pq", PQ_RESCORE_K)):
+        got = db.dsq_batch(queries, paths, k=k, recursive=rec,
+                           executor="ivf", nprobe=IVF_NPROBE, precision=prec,
+                           rescore_k=rk)
+        seen = {int(x) for r in got for x in r.ids[0] if x >= 0}
+        gate(not (seen & set(victims)), f"ivf {prec}: deleted ids returned")
+    info["deleted"] = victims
+
+    # 7: ingest; ivf.add routes the rows, the layout follows the store
+    rng = np.random.default_rng(5)
+    pick = rng.integers(0, len(ds.vectors), size=IVF_INGEST)
+    new = ds.vectors[pick] + rng.normal(
+        size=(IVF_INGEST, store.dim)).astype(np.float32) * 0.01
+    t0 = time.perf_counter()
+    ids = db.ingest(new.astype(np.float32),
+                    [ds.entry_paths[i] for i in pick])
+    info["ingest_s"] = sync_s(t0)
+    members = np.concatenate(ivf.lists)
+    gate(len(members) == len(store) and np.isin(ids, members).all(),
+         f"ivf.add: {len(members)} members for {len(store)} rows")
+    gate(ivf.layout().n == len(store), "layout does not follow the store")
+    gate(same_results(ivf_batch(), [
+        db.dsq(queries[i], paths[i], k=k, recursive=rec[i], executor="ivf",
+               nprobe=IVF_NPROBE) for i in range(B)]),
+         "after ingest: ivf dsq_batch != loop")
+
+    # 8: repartition, then batch == loop again
+    t0 = time.perf_counter()
+    info["repartition"] = ivf.repartition(seed=0)
+    info["repartition_s"] = sync_s(t0)
+    info["partition_stats_after"] = ivf.partition_stats()
+    gate(same_results(ivf_batch(), [
+        db.dsq(queries[i], paths[i], k=k, recursive=rec[i], executor="ivf",
+               nprobe=IVF_NPROBE) for i in range(B)]),
+         "after repartition: ivf dsq_batch != loop")
+
+    # 9: under a device budget fp32 IVF batches take the PQ plan; scopes
+    # within the rescore window stay fp32 and rank their admitted
+    # candidates' host rows (the tiered fork of search_multi), equal to
+    # kernel 9's fp32 result in the explicit batch
+    kw = dict(k=k, recursive=rec, executor="ivf", nprobe=IVF_NPROBE,
+              rescore_k=PQ_RESCORE_K)
+    explicit = db.dsq_batch(queries, paths, precision="pq", **kw)
+    store.set_device_budget(store.alive_nbytes() // 3)
+    gate(store.tiered_active(), "budget set but the store is not tiered")
+    before = ops.launch_counts()
+    tiered = db.dsq_batch(queries, paths, **kw)
+    after = ops.launch_counts()
+    gate(same_results(tiered, explicit),
+         "tiered ivf batch != explicit PQ ivf batch (bitwise)")
+    groups = tiered[0].batch.precision_groups
+    info["tiered"] = {
+        "precision_groups": groups,
+        "explicit_precision_groups": explicit[0].batch.precision_groups,
+        "kernel_launches": {key: after[key] - before[key] for key in after
+                            if after[key] > before[key]}}
+    gate(tiered[0].batch.tiered and groups.get("pq", 0) > 0
+         and groups.get("fp32", 0) > 0
+         and info["tiered"]["kernel_launches"].get("ivf_gather_topk", 0) == 0,
+         f"tiered ivf batch took no host-row fp32 group: {info['tiered']}")
+    counts = ops.launch_counts()
+    info["launches_phase"] = counts
+    info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return counts, captured
+
+
+def phase5_kernels(torch, ops, ref, peaks, captured, measured) -> None:
+    """Kernel 9 and its int8 / PQ modes on the inputs phase 5's main path
+    gave them (the real k-means layout: C = 8 * max_aligned, padding and
+    all), held against their plain versions and timed. These records take
+    the place of phase 1's synthetic-layout ones, which stay beside them
+    under "synthetic". Launches here are not the main path's."""
+    real = {}
+    for name in IVF_KERNELS:
+        check(name in captured, f"{name}: phase 5 recorded no launch")
+        args, kw = captured[name]
+        rec = ivf_record(torch, ops, ref, peaks, name, args, kw)
+        if name == "ivf_gather_topk":
+            rec["library_ms"], lib = library_bmm(torch, args[1], args[2],
+                                                 args[0])
+            rec["shape"] += f"; library: {lib}"
+        real[name] = rec
+        measured[name] = {**rec, "synthetic": measured[name]}
+    emit({"phase": "5-kernels", **real})
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -934,7 +1413,10 @@ def main() -> int:
                                               str(Path(tmp) / "dsm.journal"))
         c3 = phase3(torch, ops, ds, db, batched, looped)
         c4 = phase4(torch, ops, ds, db, batched)
-    launches = {key: c2[key] + c3[key] + c4[key] for key in c2}
+        c5, captured = phase5(torch, ops, ref, ds, db)
+        phase5_kernels(torch, ops, ref, peaks, captured, measured)
+        del captured
+    launches = {key: c2[key] + c3[key] + c4[key] + c5[key] for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

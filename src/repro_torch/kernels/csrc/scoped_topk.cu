@@ -1,10 +1,13 @@
-// Masked scan + top-k for Hopper (sm_90a): the fp32, int8 and PQ scans.
+// Masked scan + top-k for Hopper (sm_90a): the fp32, int8 and PQ scans, and
+// the IVF executor's gathered scans.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/scoped_topk.py:
 //   scoped_topk (_kernel + _merge_topk)   multi_scope_topk (_multi_kernel)
 //   scoped_topk_i8 (_kernel_i8)           multi_scope_topk_i8 (_multi_kernel_i8)
 //   scoped_topk_pq (_kernel_pq)           multi_scope_topk_pq (_multi_kernel_pq)
-// (the PQ pair with _adc_tile_scores).
+//   ivf_gather_topk (_ivf_kernel)
+// (the PQ pair with _adc_tile_scores), and the IVF executor's int8 and PQ
+// jnp twins of src/repro/vectordb/ivf.py (_ivf_batch_i8, _ivf_batch_pq).
 //
 // What it computes: for every query q and every row r that the query's mask
 // admits, a score, and the k best per query ranked by (score descending, id
@@ -47,6 +50,21 @@
 //          continues across slices in the same order, so its bits do not
 //          change. The wrapper prefers shrinking qt for PQ (a LUT slice per
 //          256 rows would cost more bytes than the codes).
+// Gathered mode (the IVF executor): query b sweeps candidate positions
+// c in [0, C) of its own row of a (B, C) int32 candidate-id matrix and
+// scores store row cand[b, c] (-1, CSR padding, admits nothing), read in
+// place from the (n, depth) store: the reference's (B, C, d) gathered block
+// is never built (8 GB of fp32 at WIKI-Dir scale 1.0, nprobe 8 of 64 lists,
+// B = 64). The query tile is one query (each query has its own
+// candidates); admission reads bit id & 31 of the query's scope row
+// words[sids[b]]; the top-k lists hold positions, so ties fall to the lower
+// position (probe rank, then list order), as jax.lax.top_k over the (B, C)
+// axis does, and pass 2 maps the winners back to store ids. Bound: every
+// admitted (query, candidate) pair reads its row (d * 4 bytes fp32, d + 4
+// int8, M PQ), so B * C_admitted row reads; the unique-bytes floor is each
+// distinct admitted row once plus the B * C * 4 bytes of candidate ids.
+// Overlapping probed lists are re-read from device memory (or L2) once per
+// query; sharing them across a query tile is left for a later change.
 // The result is the exact top-k under a total order, and no atomics are
 // used: runs are bit-for-bit repeatable. Rows are read per thread (one row
 // per thread, 16-byte loads where the layout allows); making the scans
@@ -67,6 +85,10 @@ constexpr int kPass2SmemList = 6144;      // pass 2 keeps lists of k <= this
                                           // in shared memory (48 KB)
 
 enum Kind { kF32 = 0, kI8 = 1, kPQ = 2 };
+// how a query admits a row: one dense mask shared by every query, packed
+// per-query scope words over rows [0, n), or packed scope words over the
+// query's own gathered candidates
+enum Mode { kDense = 0, kScoped = 1, kGathered = 2 };
 
 struct Scan {
   const void* q;           // f32 (nq, depth) | i8 (nq, depth) | LUT f32 (nq, depth, 256)
@@ -77,8 +99,9 @@ struct Scan {
   const int8_t* mask;      // dense (n,) mask, or the packed words below
   const uint32_t* words;   // (n_scopes, n_words)
   const int* sids;         // (nq,) scope row per query
+  const int* cand;         // gathered: (nq, n) store row ids, -1 = padding
   int n_scopes, n_words;
-  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists;
+  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists;  // gathered: n = C
   float* part_v;
   int* part_i;
 };
@@ -308,7 +331,7 @@ size_t pass1_smem(int kind, int qt, int slice, int k, int smem_lists) {
          (smem_lists ? static_cast<size_t>(qt) * k * 8 : 0);
 }
 
-template <int kKind, bool kWords, bool kL2, bool kVec>
+template <int kKind, int kMode, bool kL2, bool kVec>
 __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
   using S = Scorer<kKind>;
   using Acc = typename S::Acc;
@@ -344,7 +367,11 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
       p.part_i[list_off(j) + s] = -1;
     }
   }
-  if (kWords && threadIdx.x < nqt) tile_sid[threadIdx.x] = p.sids[q0 + threadIdx.x];
+  if (kMode != kDense && threadIdx.x < nqt)
+    tile_sid[threadIdx.x] = p.sids[q0 + threadIdx.x];
+  // gathered: the tile is query q0 alone, sweeping its candidate row
+  const int* cand =
+      kMode == kGathered ? p.cand + static_cast<size_t>(q0) * p.n : nullptr;
   const bool one_slice = p.slice >= p.depth;
   if (one_slice) S::stage(qs, p, q0, nqt, 0, p.depth);
   __syncthreads();
@@ -353,10 +380,19 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
   int* wi = p.smem_lists ? li_s + warp * k : p.part_i + list_off(warp);
 
   for (int base = r_begin; base < r_end; base += kThreads) {
-    const int r = base + threadIdx.x;
+    const int c = base + threadIdx.x;        // sweep position
+    int r = c;                               // the row it reads
     unsigned admit = 0;                      // bit j: query j admits row r
-    if (r < r_end) {
-      if (kWords) {
+    if (c < r_end) {
+      if (kMode == kGathered) {
+        r = cand[c];
+        const int s = tile_sid[0];
+        if (r >= 0 && s >= 0 && s < p.n_scopes) {
+          const uint32_t w =
+              p.words[static_cast<size_t>(s) * p.n_words + (r >> 5)];
+          admit = (w >> (r & 31)) & 1u;
+        }
+      } else if (kMode == kScoped) {
         for (int j = 0; j < nqt; ++j) {
           const int s = tile_sid[j];
           if (s >= 0 && s < p.n_scopes) {
@@ -418,10 +454,12 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
 
 // One warp per query: merge the (n_chunks, k) partial lists. The list
 // lives in shared memory for k <= kPass2SmemList, else in the output row.
+// Gathered mode (``cand`` non-null) ranks positions and writes the store
+// ids at them, cand[qi, pos].
 __global__ void __launch_bounds__(32)
 scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
-           int n_chunks, int k, float* __restrict__ out_v,
-           int* __restrict__ out_i) {
+           int n_chunks, int k, const int* __restrict__ cand, int n_cand,
+           float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ float smem2[];
   const int lane = threadIdx.x;
   const size_t qi = blockIdx.x;
@@ -443,18 +481,19 @@ scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
     warp_offer(lv, li, k, v, id, in && id >= 0);
   }
   __syncwarp();
-  if (in_smem) {
-    for (int j = lane; j < k; j += 32) {
-      out_v[qi * k + j] = lv[j];
-      out_i[qi * k + j] = li[j];
-    }
+  for (int j = lane; j < k; j += 32) {      // each lane its own entries
+    const float v = lv[j];
+    int id = li[j];
+    if (cand != nullptr && id >= 0) id = cand[qi * n_cand + id];
+    out_v[qi * k + j] = v;
+    out_i[qi * k + j] = id;
   }
 }
 
-template <int kKind, bool kWords, bool kL2, bool kVec>
+template <int kKind, int kMode, bool kL2, bool kVec>
 cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t stream,
                          const Scan& p) {
-  auto kern = scan_pass1<kKind, kWords, kL2, kVec>;
+  auto kern = scan_pass1<kKind, kMode, kL2, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -463,43 +502,49 @@ cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <int kKind, bool kWords>
+template <int kKind, int kMode>
 cudaError_t dispatch_pass1(bool l2, bool vec, dim3 grid, size_t smem,
                            cudaStream_t stream, const Scan& p) {
   if constexpr (kKind == kPQ) {              // metric-free: no l2 variant
-    if (vec) return launch_pass1<kKind, kWords, false, true>(grid, smem, stream, p);
-    return launch_pass1<kKind, kWords, false, false>(grid, smem, stream, p);
+    if (vec) return launch_pass1<kKind, kMode, false, true>(grid, smem, stream, p);
+    return launch_pass1<kKind, kMode, false, false>(grid, smem, stream, p);
   } else {
     if (l2) {
-      if (vec) return launch_pass1<kKind, kWords, true, true>(grid, smem, stream, p);
-      return launch_pass1<kKind, kWords, true, false>(grid, smem, stream, p);
+      if (vec) return launch_pass1<kKind, kMode, true, true>(grid, smem, stream, p);
+      return launch_pass1<kKind, kMode, true, false>(grid, smem, stream, p);
     }
-    if (vec) return launch_pass1<kKind, kWords, false, true>(grid, smem, stream, p);
-    return launch_pass1<kKind, kWords, false, false>(grid, smem, stream, p);
+    if (vec) return launch_pass1<kKind, kMode, false, true>(grid, smem, stream, p);
+    return launch_pass1<kKind, kMode, false, false>(grid, smem, stream, p);
   }
 }
 
 template <int kKind>
-cudaError_t dispatch_words(bool words, bool l2, bool vec, dim3 grid,
-                           size_t smem, cudaStream_t stream, const Scan& p) {
-  if (words) return dispatch_pass1<kKind, true>(l2, vec, grid, smem, stream, p);
-  return dispatch_pass1<kKind, false>(l2, vec, grid, smem, stream, p);
+cudaError_t dispatch_mode(int mode, bool l2, bool vec, dim3 grid,
+                          size_t smem, cudaStream_t stream, const Scan& p) {
+  if (mode == kGathered)
+    return dispatch_pass1<kKind, kGathered>(l2, vec, grid, smem, stream, p);
+  if (mode == kScoped)
+    return dispatch_pass1<kKind, kScoped>(l2, vec, grid, smem, stream, p);
+  return dispatch_pass1<kKind, kDense>(l2, vec, grid, smem, stream, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One entry point for the six scans. kind: 0 fp32, 1 int8, 2 PQ. Exactly
+// One entry point for the nine scans. kind: 0 fp32, 1 int8, 2 PQ. Exactly
 // one of ``mask`` (dense (n,) int8, shared by every query) and ``words``
 // (packed (n_scopes, n_words) masks, row sids[i] for query i) is non-null.
+// A non-null ``cand`` (nq, n) selects gathered mode: n is then the
+// candidate count C per query, ``words`` is required and qt must be 1.
 // ``slice`` is the depth staged at once (depth = d, or M for PQ), ``qt``
 // the query tile, ``smem_lists`` whether the tile's lists fit in shared
 // memory; the partials are (nq, n_chunks, k).
 int repro_scan_topk(int kind, const void* q, const float* q_scale,
                     const void* rows, const float* row_scale, const float* sq,
                     const int8_t* mask, const uint32_t* words,
-                    const int* sids, int n_scopes, int n_words, int nq, int n,
+                    const int* sids, const int* cand, int n_scopes,
+                    int n_words, int nq, int n,
                     int depth, int slice, int k, int l2, int qt,
                     int chunk_rows, int n_chunks, int smem_lists,
                     float* part_v, int* part_i, float* out_v, int* out_i,
@@ -507,10 +552,12 @@ int repro_scan_topk(int kind, const void* q, const float* q_scale,
   if (nq <= 0) return cudaSuccess;
   if (kind < kF32 || kind > kPQ || k < 1 || qt < 1 || qt > kWarps ||
       depth < 1 || slice < 1 || slice > depth || chunk_rows < 1 ||
-      n_chunks < 1 || n_chunks > 65535 || (mask == nullptr) == (words == nullptr))
+      n_chunks < 1 || n_chunks > 65535 ||
+      (mask == nullptr) == (words == nullptr) ||
+      (cand != nullptr && (words == nullptr || qt != 1 || n < 1)))
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Scan p{q, q_scale, rows, row_scale, sq, mask, words, sids, n_scopes,
+  Scan p{q, q_scale, rows, row_scale, sq, mask, words, sids, cand, n_scopes,
          n_words, nq, n, depth, slice, k, qt, chunk_rows, smem_lists,
          part_v, part_i};
   const uintptr_t base = reinterpret_cast<uintptr_t>(rows);
@@ -519,15 +566,16 @@ int repro_scan_topk(int kind, const void* q, const float* q_scale,
                    base % (kind == kPQ ? 4 : 16) == 0;
   const size_t smem1 = pass1_smem(kind, qt, slice, k, smem_lists);
   const dim3 grid1((nq + qt - 1) / qt, n_chunks);
-  const bool w = words != nullptr;
+  const int mode = cand != nullptr ? kGathered
+                   : words != nullptr ? kScoped : kDense;
   cudaError_t err =
-      kind == kF32 ? dispatch_words<kF32>(w, l2, vec, grid1, smem1, stream, p)
-      : kind == kI8 ? dispatch_words<kI8>(w, l2, vec, grid1, smem1, stream, p)
-                    : dispatch_words<kPQ>(w, false, vec, grid1, smem1, stream, p);
+      kind == kF32 ? dispatch_mode<kF32>(mode, l2, vec, grid1, smem1, stream, p)
+      : kind == kI8 ? dispatch_mode<kI8>(mode, l2, vec, grid1, smem1, stream, p)
+                    : dispatch_mode<kPQ>(mode, false, vec, grid1, smem1, stream, p);
   if (err != cudaSuccess) return err;
   const size_t smem2 = k <= kPass2SmemList ? sizeof(float) * 2 * k : 0;
-  scan_pass2<<<nq, 32, smem2, stream>>>(part_v, part_i, n_chunks, k, out_v,
-                                        out_i);
+  scan_pass2<<<nq, 32, smem2, stream>>>(part_v, part_i, n_chunks, k, cand, n,
+                                        out_v, out_i);
   return cudaGetLastError();
 }
 

@@ -253,6 +253,75 @@ def multi_scope_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
                                    block_q, block_n)
 
 
+def ivf_gather_topk(queries: torch.Tensor, rows: torch.Tensor,
+                    cand_ids: torch.Tensor, mask_words: torch.Tensor,
+                    scope_ids: torch.Tensor, k: int = 10, metric: str = "ip",
+                    sq: Optional[torch.Tensor] = None, check_ids: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The IVF executor's scoring launch: query b ranks the store rows
+    ``cand_ids[b]`` ((B, C) int32, -1 = CSR padding) that its scope row
+    ``mask_words[scope_ids[b]]`` admits, reading them from ``rows`` (n, d)
+    in place. Returns (vals (B, k) f32, ids (B, k) int32 store ids), ties
+    ranked by the lower candidate position; ``finfo.min`` / -1 when
+    empty. The kernel checks that every id lies in [-1, n) unless
+    ``check_ids`` is False (ids from an already checked table)."""
+    mask_words = _pad_words(mask_words, rows.shape[0])
+    dev = _device_of(queries, rows, cand_ids, mask_words, scope_ids, sq)
+    if metric == "l2" and sq is None:
+        sq = row_sq_norms(rows)
+    if dev.type == "cpu":
+        return ref.ivf_gather_topk_ref(queries, rows, cand_ids, mask_words,
+                                       scope_ids, k, metric, sq)
+    return _st.ivf_gather_topk(queries.float().contiguous(), rows,
+                               cand_ids.to(torch.int32).contiguous(),
+                               mask_words.contiguous(),
+                               scope_ids.to(torch.int32).contiguous(), k,
+                               metric, sq, check_ids)
+
+
+def ivf_gather_topk_i8(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                       rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                       sq: Optional[torch.Tensor], cand_ids: torch.Tensor,
+                       mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                       k: int = 10, metric: str = "ip",
+                       check_ids: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`ivf_gather_topk` (the phase-1 scan of the IVF
+    int8 plan; scores as :func:`scoped_topk_i8`)."""
+    mask_words = _pad_words(mask_words, rows_i8.shape[0])
+    dev = _device_of(q_i8, q_scale, rows_i8, row_scale, sq, cand_ids,
+                     mask_words, scope_ids)
+    _i8_sq(metric, sq)
+    if dev.type == "cpu":
+        return ref.ivf_gather_topk_i8_ref(q_i8, q_scale, rows_i8, row_scale,
+                                          sq, cand_ids, mask_words,
+                                          scope_ids, k, metric)
+    return _st.ivf_gather_topk_i8(
+        q_i8.to(torch.int8).contiguous(), q_scale.float().contiguous(),
+        rows_i8, row_scale, sq, cand_ids.to(torch.int32).contiguous(),
+        mask_words.contiguous(), scope_ids.to(torch.int32).contiguous(), k,
+        metric, check_ids)
+
+
+def ivf_gather_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
+                       cand_ids: torch.Tensor, mask_words: torch.Tensor,
+                       scope_ids: torch.Tensor, k: int = 10,
+                       check_ids: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PQ/ADC twin of :func:`ivf_gather_topk` (the phase-1 scan of the IVF
+    PQ plan; scores as :func:`scoped_topk_pq`)."""
+    mask_words = _pad_words(mask_words, codes.shape[0])
+    dev = _device_of(lut, codes, cand_ids, mask_words, scope_ids)
+    if dev.type == "cpu":
+        return ref.ivf_gather_topk_pq_ref(lut, codes, cand_ids, mask_words,
+                                          scope_ids, k)
+    return _st.ivf_gather_topk_pq(lut.float().contiguous(), codes,
+                                  cand_ids.to(torch.int32).contiguous(),
+                                  mask_words.contiguous(),
+                                  scope_ids.to(torch.int32).contiguous(), k,
+                                  check_ids)
+
+
 def bitmap_patch(masks, delta, op_signs) -> torch.Tensor:
     """Batched packed-mask patch: rows with op +1 get ``| delta``, -1 get
     ``& ~delta``, 0 pass through. Words are int32 views of uint32 bits."""
@@ -282,6 +351,7 @@ def mask_and_popcount(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
 
 __all__ = ["scoped_topk", "multi_scope_topk", "scoped_topk_i8",
            "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq",
+           "ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq",
            "bitmap_patch",
            "mask_and_popcount", "set_block_overrides", "get_block_overrides",
            "launch_counts", "reset_launch_counts", "as_words", "ref"]

@@ -39,7 +39,9 @@ __all__ = ["NEG_INF", "stable_topk", "row_sq_norms", "row_scores",
            "i8_scores", "pq_scores", "unpack_words", "scoped_topk_ref",
            "multi_scope_topk_ref", "scoped_topk_i8_ref",
            "multi_scope_topk_i8_ref", "scoped_topk_pq_ref",
-           "multi_scope_topk_pq_ref", "bitmap_patch_ref", "popcount32",
+           "multi_scope_topk_pq_ref", "ivf_gather_topk_ref",
+           "ivf_gather_topk_i8_ref", "ivf_gather_topk_pq_ref",
+           "bitmap_patch_ref", "popcount32",
            "mask_and_popcount_ref", "topk_disagreement"]
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -184,6 +186,78 @@ def multi_scope_topk_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
     return _masked_topk(pq_scores(lut, codes),
                         _scope_valid(mask_words, scope_ids, codes.shape[0]),
                         k)
+
+
+def _gathered_topk(cand_ids: torch.Tensor, mask_words: torch.Tensor,
+                   scope_ids: torch.Tensor, k: int, score_of
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gathered (IVF) contract shared by the three plain versions, one
+    query at a time (the (B, C, d) gathered block is never built): query b
+    scores its candidates ``score_of(b, rows)`` -> (1, C), admits those
+    that are not padding (id >= 0) and whose bit is set in its scope row
+    ``mask_words[scope_ids[b]]`` (a scope id out of range admits nothing),
+    ranks them by (score descending, candidate position ascending) -- the
+    tie rule of ``jax.lax.top_k`` over the (B, C) axis -- and returns the
+    winners' store ids."""
+    B, C = cand_ids.shape
+    dev = cand_ids.device
+    vals = torch.full((B, k), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    for b in range(B):
+        cand = cand_ids[b].long()
+        safe = cand.clamp(min=0)
+        s = int(scope_ids[b])
+        if not 0 <= s < mask_words.shape[0]:
+            continue
+        bit = (mask_words[s][safe >> 5].long() >> (safe & 31)) & 1
+        v, pos = _masked_topk(score_of(b, safe), ((cand >= 0) & (bit != 0))
+                              [None, :], k)
+        vals[b] = v[0]
+        ids[b] = torch.where(pos[0] >= 0, cand[pos[0].long().clamp(min=0)],
+                             torch.full_like(cand[:1], -1)).to(torch.int32)
+    return vals, ids
+
+
+def ivf_gather_topk_ref(queries: torch.Tensor, rows: torch.Tensor,
+                        cand_ids: torch.Tensor, mask_words: torch.Tensor,
+                        scope_ids: torch.Tensor, k: int = 10,
+                        metric: str = "ip", sq: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gathered fp32 top-k of the IVF executor: query b ranks the store
+    rows ``cand_ids[b]`` (B, C) int32, -1 = CSR padding, that its scope row
+    admits; ``sq`` (n,) is read for l2 (computed from the gathered rows
+    when omitted)."""
+    def score(b, safe):
+        return row_scores(queries[b:b + 1], rows[safe], metric,
+                          None if sq is None else sq[safe])
+    return _gathered_topk(cand_ids, mask_words, scope_ids, k, score)
+
+
+def ivf_gather_topk_i8_ref(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                           rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                           sq: Optional[torch.Tensor],
+                           cand_ids: torch.Tensor, mask_words: torch.Tensor,
+                           scope_ids: torch.Tensor, k: int = 10,
+                           metric: str = "ip"
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`ivf_gather_topk_ref` (the reference's jnp
+    ``_ivf_batch_i8``): scores as :func:`i8_scores`."""
+    def score(b, safe):
+        return i8_scores(q_i8[b:b + 1], q_scale[b:b + 1], rows_i8[safe],
+                         row_scale[safe], metric,
+                         None if sq is None else sq[safe])
+    return _gathered_topk(cand_ids, mask_words, scope_ids, k, score)
+
+
+def ivf_gather_topk_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
+                           cand_ids: torch.Tensor, mask_words: torch.Tensor,
+                           scope_ids: torch.Tensor, k: int = 10
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PQ/ADC twin of :func:`ivf_gather_topk_ref` (the reference's jnp
+    ``_ivf_batch_pq``): scores as :func:`pq_scores`."""
+    def score(b, safe):
+        return pq_scores(lut[b:b + 1], codes[safe])
+    return _gathered_topk(cand_ids, mask_words, scope_ids, k, score)
 
 
 def bitmap_patch_ref(masks: torch.Tensor, delta: torch.Tensor,

@@ -1,7 +1,8 @@
 """ctypes launch wrappers of the masked scan + top-k kernels
 (``csrc/scoped_topk.cu``): the fp32, int8 and PQ scans, each with one dense
-mask (``scoped_topk*``) or packed per-query scope masks
-(``multi_scope_topk*``).
+mask (``scoped_topk*``), packed per-query scope masks
+(``multi_scope_topk*``), or packed scope masks over each query's own
+gathered IVF candidates (``ivf_gather_topk*``).
 
 They take CUDA tensors only (``ops.py`` routes CPU tensors to ``ref.py``),
 check what the kernel cannot take, allocate outputs and scratch with
@@ -35,7 +36,8 @@ _DEPTH_UNIT = {"f32": 4, "i8": 16, "pq": 4}
 
 launches = {name: 0 for name in (
     "scoped_topk", "multi_scope_topk", "scoped_topk_i8",
-    "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq")}
+    "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq",
+    "ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq")}
 _count_lock = threading.Lock()     # DSM worker threads launch kernels too
 
 
@@ -122,12 +124,34 @@ def geometry(kind: str, nq: int, n: int, depth: int, k: int, block_q: int,
                     max(1, _ceil(n, block_n)))
 
 
+def _check_cand(cand: torch.Tensor, nq: int, n: int,
+                device: torch.device, check_ids: bool) -> int:
+    """Gathered mode's (nq, C) int32 candidate ids: C >= 1 and, with
+    ``check_ids``, every id in [-1, n) (a reduction over the ids and a
+    device-to-host read; a caller whose ids come from an already checked
+    table passes False). Returns C."""
+    _check(cand, "cand_ids", torch.int32, 2, device)
+    if cand.shape[0] != nq:
+        raise ValueError(f"{cand.shape[0]} candidate rows for {nq} queries")
+    if cand.shape[1] < 1:
+        raise ValueError("cand_ids has no candidate column (C = 0)")
+    if check_ids and cand.numel():
+        lo, hi = (int(v) for v in torch.aminmax(cand))
+        if lo < -1 or hi >= n:
+            raise ValueError(f"cand_ids in [{lo}, {hi}], outside [-1, {n})")
+    return cand.shape[1]
+
+
 def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
             row_scale, sq, mask, words, sids, depth: int, k: int, l2: bool,
-            block_q: int, block_n: Optional[int]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            block_q: int, block_n: Optional[int], cand=None,
+            check_ids: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared launch of every scan. With ``cand`` (gathered mode) the sweep
+    runs over each query's C candidate positions instead of the n rows,
+    one query per block (``block_q`` 1)."""
     dev = q.device
     nq, n = q.shape[0], rows.shape[0]
+    sweep = n if cand is None else _check_cand(cand, nq, n, dev, check_ids)
     if l2:
         _check(sq, "sq", torch.float32, 1, dev)
         if sq.shape[0] < n:
@@ -147,7 +171,7 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
             raise ValueError(f"mask has {mask.shape[0]} lanes for {n} rows")
         n_scopes = n_words = 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    geo = geometry(kind, nq, n, depth, k, block_q, block_n, sms)
+    geo = geometry(kind, nq, sweep, depth, k, block_q, block_n, sms)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
@@ -162,9 +186,10 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
         rc = lib.repro_scan_topk(
             KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows), _ptr(row_scale),
             _ptr(sq if l2 else None), _ptr(mask), _ptr(words), _ptr(sids),
-            n_scopes, n_words, nq, n, depth, geo.slice, k, int(l2), geo.qt,
-            geo.chunk_rows, geo.n_chunks, int(geo.smem_lists), _ptr(part_v),
-            _ptr(part_i), _ptr(out_v), _ptr(out_i), ctypes.c_void_p(stream))
+            _ptr(cand), n_scopes, n_words, nq, sweep, depth, geo.slice, k,
+            int(l2), geo.qt, geo.chunk_rows, geo.n_chunks,
+            int(geo.smem_lists), _ptr(part_v), _ptr(part_i), _ptr(out_v),
+            _ptr(out_i), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
     count_launch(launches, name)
@@ -269,3 +294,38 @@ def multi_scope_topk_pq(lut, codes, mask_words, scope_ids, k, block_q=8,
     return _launch("multi_scope_topk_pq", "pq", lut, None, codes, None, None,
                    None, mask_words, scope_ids, m, k, False, block_q,
                    block_n)
+
+
+def ivf_gather_topk(queries, rows, cand_ids, mask_words, scope_ids, k,
+                    metric="ip", sq=None, check_ids=True):
+    """Gathered fp32 scan of the IVF executor: query b scores store rows
+    ``cand_ids[b, c]`` (cand_ids (B, C) int32, -1 = padding) of rows (n, d)
+    f32 that bit r%32 of ``mask_words[scope_ids[b], r // 32]`` admits.
+    Returns (vals (B, k) f32, ids (B, k) int32 store ids), ties ranked by
+    the lower candidate position. ``check_ids=False`` skips the range check
+    of the ids (the IVF executor's come from its checked CSR layout)."""
+    d = _f32(queries, rows)
+    return _launch("ivf_gather_topk", "f32", queries, None, rows, None, sq,
+                   None, mask_words, scope_ids, d, k, _metric_l2(metric), 1,
+                   None, cand=cand_ids, check_ids=check_ids)
+
+
+def ivf_gather_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, cand_ids,
+                       mask_words, scope_ids, k, metric="ip", check_ids=True):
+    """int8 twin of :func:`ivf_gather_topk` (scores as
+    :func:`scoped_topk_i8`)."""
+    d = _i8(q_i8, q_scale, rows_i8, row_scale)
+    return _launch("ivf_gather_topk_i8", "i8", q_i8, q_scale, rows_i8,
+                   row_scale, sq, None, mask_words, scope_ids, d, k,
+                   _metric_l2(metric), 1, None, cand=cand_ids,
+                   check_ids=check_ids)
+
+
+def ivf_gather_topk_pq(lut, codes, cand_ids, mask_words, scope_ids, k,
+                       check_ids=True):
+    """PQ/ADC twin of :func:`ivf_gather_topk` (scores as
+    :func:`scoped_topk_pq`)."""
+    m = _pq(lut, codes)
+    return _launch("ivf_gather_topk_pq", "pq", lut, None, codes, None, None,
+                   None, mask_words, scope_ids, m, k, False, 1, None,
+                   cand=cand_ids, check_ids=check_ids)

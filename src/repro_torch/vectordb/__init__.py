@@ -1,14 +1,16 @@
-from .convert import from_state
+from .convert import from_state, ivf_from_state
 from .costmodel import (HEURISTIC, CalibrationArtifact, CostModel, model_of,
                         resolve_calibration)
 from .database import DSQResult, DirectoryVectorDB
 from .flat import FlatExecutor
+from .ivf import IVFIndex
 from .planner import (BatchAccounting, BatchPlanner, PlanGroup, ScopeKey,
                       ScopeMaskCache, device_popcount)
 from .store import VectorStore, pack_ids_to_words
 
-__all__ = ["DirectoryVectorDB", "DSQResult", "FlatExecutor", "VectorStore",
+__all__ = ["DirectoryVectorDB", "DSQResult", "FlatExecutor", "IVFIndex",
+           "VectorStore",
            "BatchAccounting", "BatchPlanner", "PlanGroup", "ScopeKey",
            "ScopeMaskCache", "device_popcount", "pack_ids_to_words",
            "CalibrationArtifact", "CostModel", "HEURISTIC", "model_of",
-           "resolve_calibration", "from_state"]
+           "resolve_calibration", "from_state", "ivf_from_state"]

@@ -3,9 +3,10 @@ plain arrays and path strings a reference database holds.
 
 The state of a directory-scoped vector database is its store rows, its
 tombstones, per namespace its directories and the directory each live entry
-sits in, and, once the PQ tier has been used, its frozen PQ codebook. Those
-are plain numpy arrays and strings, so the port takes them as they are and
-never a ``repro`` object.
+sits in, once the PQ tier has been used its frozen PQ codebook, and once an
+IVF index is built its centers and member lists. Those are plain numpy
+arrays and strings, so the port takes them as they are and never a
+``repro`` object.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from .database import DirectoryVectorDB
+from .ivf import IVFIndex
 
 
 def from_state(vectors: np.ndarray,
@@ -52,3 +54,16 @@ def from_state(vectors: np.ndarray,
         db.store.set_pq_codebook(pq_centroids, pq_encoded)
     db.build_ann("flat")
     return db
+
+
+def ivf_from_state(db: DirectoryVectorDB, centers: np.ndarray,
+                   lists: Sequence[np.ndarray],
+                   repartition_gen: int = 0) -> IVFIndex:
+    """Attach an IVF index with the given ``centers`` (n_lists, d) and member
+    ``lists`` (one id array per list, in list order) to ``db`` as its
+    ``"ivf"`` executor, without training: torch and XLA round k-means
+    differently, so a port index trained on the same rows would not probe
+    the same partitions as the source's."""
+    ivf = IVFIndex.from_lists(db.store, centers, lists, repartition_gen)
+    db.executors["ivf"] = ivf
+    return ivf

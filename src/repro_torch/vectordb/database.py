@@ -4,14 +4,14 @@ torch device.
 Composes (1) one or more *namespaces* (independent directory hierarchies,
 e.g. ARXIV-Dir's subject + temporal trees), each backed by a pluggable
 ScopeIndex strategy, with (2) a vector store mirrored on the database's
-device and the flat executor at fp32, int8 or PQ precision, with tiered
-storage past a device byte budget. DSQ runs scope resolution first, then
-ranks inside the resolved candidate set; DSM goes through the journaled,
-region-locked executor (§IV-A consistency ordering), and its delta events
-patch the planner's device-resident scope masks.
+device and the flat and IVF executors at fp32, int8 or PQ precision, with
+tiered storage past a device byte budget. DSQ runs scope resolution first,
+then ranks inside the resolved candidate set; DSM goes through the
+journaled, region-locked executor (§IV-A consistency ordering), and its
+delta events patch the planner's device-resident scope masks.
 
-The IVF, proximity-graph and sharded executors and online maintenance raise
-``NotImplementedError`` until their slices land.
+Only the proximity-graph and sharded executors and online maintenance still
+raise ``NotImplementedError``, until their slices land.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from ..core.interface import normalize_batch
 from ..device import resolve_device
 from .costmodel import install_kernel_tuning, model_of, resolve_calibration
 from .flat import PRECISIONS, FlatExecutor
+from .ivf import IVFIndex
 from .planner import BatchAccounting, BatchPlanner, ScopeMaskCache
 from .quant import resolve_rescore_k
 from .store import VectorStore
@@ -43,7 +44,7 @@ class DSQResult:
     directory_ns: int                # directory-only latency (candidate set gen)
     ann_ns: int                      # executor latency
     resolve_stats: ResolveStats = field(default_factory=ResolveStats)
-    plan: str = ""                   # "gather" | "scan" | "empty" (batch path)
+    plan: str = ""                   # "gather" | "scan" | "ivf" | "empty"
     scope_shared: int = 1            # requests sharing this scope in the batch
     batch: Optional[BatchAccounting] = None   # shared-resolution accounting
 
@@ -84,7 +85,7 @@ class DirectoryVectorDB:
             install_kernel_tuning(self.store.cost_model)
         self.scope_strategy = scope_strategy
         self.namespaces: Dict[str, ScopeIndex] = {}
-        self.executors: Dict[str, FlatExecutor] = {}
+        self.executors: Dict[str, object] = {}
         self._dsm: Dict[str, DSMExecutor] = {}
         self._planners: Dict[str, BatchPlanner] = {}
         self._journal_path = journal_path
@@ -107,7 +108,9 @@ class DirectoryVectorDB:
     def build_ann(self, kind: str, **params) -> None:
         if kind == "flat":
             self.executors["flat"] = FlatExecutor(self.store)
-        elif kind in ("ivf", "pg", "sharded"):
+        elif kind == "ivf":
+            self.executors["ivf"] = IVFIndex(self.store, **params)
+        elif kind in ("pg", "sharded"):
             raise NotImplementedError(
                 f"the {kind!r} executor is not ported yet (ROADMAP queue 1)")
         else:
@@ -125,6 +128,9 @@ class DirectoryVectorDB:
         if namespaces:
             ns_paths.update(namespaces)
         self._bind(ids, ns_paths)
+        ivf = self.executors.get("ivf")
+        if ivf is not None:
+            ivf.add(ids)
         return ids
 
     def _bind(self, ids: np.ndarray,
@@ -146,11 +152,12 @@ class DirectoryVectorDB:
             if idx.catalog.get(entry_id) is not None:
                 idx.delete(entry_id)
         # Store rows are append-only: deleted ids leave every scope AND get a
-        # store-level tombstone.
+        # store-level tombstone, so unscoped IVF probes (whose partition
+        # lists still reference the row) mask them out too.
         self.store.mark_deleted(entry_id)
 
     # ------------------------------------------------------------------ DSQ
-    def _executor(self, executor: str) -> FlatExecutor:
+    def _executor(self, executor: str):
         ex = self.executors.get(executor)
         if ex is None:
             raise ValueError(f"executor {executor!r} not built "
@@ -226,10 +233,13 @@ class DirectoryVectorDB:
         """Batched multi-scope DSQ: one request per row of ``queries`` with
         its own anchor (and optionally its own ``recursive`` flag and
         ``exclude`` list). Repeated scopes across the batch resolve once;
-        scan-plan scopes share a single ``multi_scope_topk`` launch; each
-        gather-plan scope is one ``scoped_topk`` launch over its candidate
-        rows. Results are bit-identical to calling :meth:`dsq` per request,
-        but the directory and kernel work is amortized (see
+        on the flat executor scan-plan scopes share a single
+        ``multi_scope_topk`` launch and each gather-plan scope is one
+        ``scoped_topk`` launch over its candidate rows; on the IVF executor
+        every request sharing an ``nprobe`` and a precision rides one
+        ``ivf_gather_topk*`` launch (``nprobe`` may be one value or one per
+        request). Results are bit-identical to calling :meth:`dsq` per
+        request, but the directory and kernel work is amortized (see
         ``DSQResult.batch``). Executor params the planner cannot plan (e.g. a
         forced ``plan="scan"``) take the per-request fallback loop.
 
@@ -250,6 +260,13 @@ class DirectoryVectorDB:
         if namespace not in self.namespaces:
             raise KeyError(namespace)
         ex = self._executor(executor)
+        if isinstance(ex, IVFIndex) and set(executor_params) <= {"nprobe"}:
+            nprobe = executor_params.get("nprobe")
+            if nprobe is None:
+                nprobe = model_of(self.store).default_nprobe(ex.n_lists)
+            return self._dsq_batch_ivf(ex, queries, paths, k, recursive,
+                                       exclude, namespace, nprobe, precision,
+                                       rescore_k)
         if executor_params:
             return self._dsq_batch_fallback(queries, paths, k, recursive,
                                             exclude, namespace, executor,
@@ -313,13 +330,70 @@ class DirectoryVectorDB:
             sids.extend([si] * len(g.request_idx))
         return np.asarray(rows), np.asarray(sids, np.int32)
 
+    def _dsq_batch_ivf(self, ex: IVFIndex, queries, paths, k, recursive,
+                       exclude, namespace, nprobe, precision="fp32",
+                       rescore_k=None) -> List[DSQResult]:
+        """Batched IVF DSQ: unique scopes resolve once through the
+        epoch-validated mask cache, their packed words stack into one mask
+        matrix, and all requests sharing an ``nprobe`` and a precision ride
+        ONE probe -> ``ivf_gather_topk*`` launch (one launch per distinct
+        per-request ``nprobe`` when a sequence is passed)."""
+        B = queries.shape[0]
+        # clamp to the effective range up front so values the executor
+        # would clamp anyway don't split into extra launches
+        def clamp(v):
+            return max(1, min(int(v), ex.n_lists))
+        if np.ndim(nprobe) == 0:
+            npr = [clamp(nprobe)] * B
+        else:
+            npr = [clamp(x) for x in nprobe]
+            if len(npr) != B:
+                raise ValueError(f"{len(npr)} nprobe values for {B} requests")
+
+        def launch_ivf(groups, out_scores, out_ids, acct):
+            live = [g for g in groups if g.plan != "empty"]
+            if not live:
+                return
+            words = torch.stack([g.words for g in live])
+            req = [(i, si, g.precision) for si, g in enumerate(live)
+                   for i in g.request_idx]
+            for val in sorted({npr[i] for i, _, _ in req}):
+                for prec in PRECISIONS:
+                    sel = [(i, si) for i, si, p in req
+                           if npr[i] == val and p == prec]
+                    if not sel:
+                        continue
+                    rows = np.asarray([i for i, _ in sel])
+                    sids = np.asarray([si for _, si in sel], np.int32)
+                    s, i = ex.search_multi(queries[rows], words, sids, k,
+                                           nprobe=val, precision=prec,
+                                           rescore_k=rescore_k)
+                    out_scores[rows] = s
+                    out_ids[rows] = i
+                    acct.launches += 1
+                    if prec != "fp32":
+                        # the approximate phase is capped at the probed
+                        # window
+                        window = val * ex.layout().max_aligned
+                        acct.rescore_candidates += len(rows) * min(
+                            resolve_rescore_k(k, rescore_k, len(self.store)),
+                            window)
+
+        return self._dsq_batch_planned(queries, paths, k, recursive, exclude,
+                                       namespace, launch_ivf, label="ivf",
+                                       precision=precision,
+                                       rescore_k=rescore_k)
+
     def _dsq_batch_planned(self, queries, paths, k, recursive, exclude,
-                           namespace, launch, precision: str = "fp32",
+                           namespace, launch, label: Optional[str] = None,
+                           precision: str = "fp32",
                            rescore_k: Optional[int] = None
                            ) -> List[DSQResult]:
         """Shared batch path: normalize → plan (cache-first) → timed executor
         launches via ``launch(groups, out_scores, out_ids, acct)`` →
-        per-request result assembly."""
+        per-request result assembly. ``label`` names the plan of every
+        non-empty request (``"ivf"``); ``None`` keeps each group's gather /
+        scan plan."""
         B = queries.shape[0]
         idx = self.namespaces[namespace]
         acct = BatchAccounting()
@@ -367,11 +441,12 @@ class DirectoryVectorDB:
         results = []
         for i in range(B):
             g = plan_of[i]
+            plan = g.plan if label is None or g.plan == "empty" else label
             results.append(DSQResult(
                 ids=out_ids[i:i + 1], scores=out_scores[i:i + 1],
                 scope_size=g.scope_size, directory_ns=dir_share,
                 ann_ns=ann_share, resolve_stats=acct.resolve_stats,
-                plan=g.plan, scope_shared=len(g.request_idx), batch=acct))
+                plan=plan, scope_shared=len(g.request_idx), batch=acct))
         return results
 
     def _update_hot_pins(self, namespace: str, groups) -> None:

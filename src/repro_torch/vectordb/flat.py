@@ -94,7 +94,7 @@ def _window_words(valid: np.ndarray) -> np.ndarray:
 
 
 def gather_rescore(store: VectorStore, queries: np.ndarray,
-                   cand_ids: np.ndarray, k: int
+                   cand_ids: np.ndarray, k: int, fetch: bool = True
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact fp32 gather-rescore of approximate-phase candidates — the back
     half of every two-phase path. ``cand_ids`` is (B, R) int64 store ids
@@ -106,17 +106,20 @@ def gather_rescore(store: VectorStore, queries: np.ndarray,
     same whatever B is, so the rescore keeps ``dsq_batch`` bitwise equal to
     a loop of ``dsq``. In a tiered store the rows come from host RAM, and
     every valid candidate outside the device-pinned hot set counts as a
-    host->device fetch."""
+    host->device fetch. ``fetch=False`` ranks rows that are not a rescore
+    window (the IVF executor's exact fp32 candidates in a tiered store):
+    they are read as the flat gather plan reads its rows, neither counted
+    as fetched nor behind the ``store.host_fetch`` seam."""
     queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
     cand_ids = np.asarray(cand_ids, dtype=np.int64)
     cand_ids = np.where(cand_ids < len(store), cand_ids, -1)
     B, R = cand_ids.shape
-    if store.tiered_active():
-        fetch = cand_ids >= 0
+    if fetch and store.tiered_active():
+        fetched = cand_ids >= 0
         pm = store.pinned_mask()
         if pm is not None:
-            fetch = fetch & ~pm[np.maximum(cand_ids, 0)]
-        n_fetch = int(np.count_nonzero(fetch))
+            fetched = fetched & ~pm[np.maximum(cand_ids, 0)]
+        n_fetch = int(np.count_nonzero(fetched))
         store.rescore_fetch_rows += n_fetch
         store.rescore_fetch_bytes += n_fetch * store.dim * 4
     kk = min(k, R)
@@ -125,7 +128,7 @@ def gather_rescore(store: VectorStore, queries: np.ndarray,
                         np.zeros((B, 0), np.int64), k)
     flat_ids = np.maximum(cand_ids, 0).reshape(-1)
     dev = store.device
-    rows = store.device_rows(flat_ids, fetch=True)          # (B*R, d)
+    rows = store.device_rows(flat_ids, fetch=fetch)         # (B*R, d)
     sq = None
     if store.metric == "l2":
         sq = store.device_sq_norms().index_select(

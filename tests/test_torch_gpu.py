@@ -192,3 +192,66 @@ def test_lifted_k_and_depth_limits(kind, q, n, depth, k):
                   ref.multi_scope_topk_pq_ref(lut, codes, words, sid, k))]
     for got, want in pairs:
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def _gathered_inputs(g, b, c, n, dev, pad=0.2):
+    """(b, c) candidate ids, each query's drawn without repeats, -1 for
+    padding, and a position tie in query 0 (positions 1 and 3 hold equal
+    rows, the later one with the lower id)."""
+    cand = torch.stack([torch.randperm(n, generator=g, device=dev)[:c]
+                        for _ in range(b)]).to(torch.int32)
+    cand[torch.rand(b, c, generator=g, device=dev) < pad] = -1
+    if c >= 4:
+        cand[0, 1], cand[0, 3] = n - 1, n - 2
+    return cand
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,n,d,m,k,metric,pad", [
+    (1, 1, 64, 16, 4, 3, "ip", 0.0),          # C = 1
+    (3, 300, 2000, 13, 13, 10, "l2", 0.2),    # scalar loads, C % 256 != 0
+    (5, 2048, 9000, 128, 32, 40, "ip", 0.5),  # k > some queries' admitted
+    (2, 700, 1000, 64, 16, 700, "l2", 0.1),   # k > C
+    (4, 512, 3000, 32, 8, 10, "ip", 1.0),     # all padding
+    (2, 900, 3000, 8192, 64, 10, "ip", 0.1),  # d sliced
+])
+def test_ivf_gather_topk_matches_plain_versions(b, c, n, d, m, k, metric,
+                                                pad):
+    """Kernel 9 and its int8 / PQ modes against their plain versions: fp32
+    within the tolerance above, int8 and PQ bit for bit; one launch each;
+    a scope id out of range admits nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(b * 13 + c)
+    Q = torch.randn(b, d, generator=g, device=dev)
+    X = torch.randn(n, d, generator=g, device=dev)
+    X[n - 2] = X[n - 1]                                     # a tie
+    sq = ref.row_sq_norms(X)
+    q8, qs, x8, xs, sq8 = _i8_inputs(g, b, n, d, dev)
+    lut, codes = _pq_inputs(g, b, n, m, dev)
+    codes[n - 2] = codes[n - 1]
+    cand = _gathered_inputs(g, b, c, n, dev, pad)
+    dense = torch.rand(2, n, generator=g, device=dev) < 0.6
+    dense[:, n - 2:] = True
+    words = _words(dense)
+    sid = (torch.arange(b, device=dev) % 2).to(torch.int32)
+    sid[-1] = 7 if b > 1 else 0                             # out of range
+    ops.reset_launch_counts()
+    got = ops.ivf_gather_topk(Q, X, cand, words, sid, k, metric, sq)
+    want = ref.ivf_gather_topk_ref(Q, X, cand, words, sid, k, metric, sq)
+    _agree(got, want, "ivf_gather_topk")
+    if b > 1:
+        assert torch.all(got[1][-1] == -1)
+    pairs = [(ops.ivf_gather_topk_i8(q8, qs, x8, xs, sq8, cand, words, sid,
+                                     k, metric),
+              ref.ivf_gather_topk_i8_ref(q8, qs, x8, xs, sq8, cand, words,
+                                         sid, k, metric)),
+             (ops.ivf_gather_topk_pq(lut, codes, cand, words, sid, k),
+              ref.ivf_gather_topk_pq_ref(lut, codes, cand, words, sid, k))]
+    for i, (a, w) in enumerate(pairs):
+        assert torch.equal(a[1], w[1]), i
+        assert torch.equal(a[0], w[0]), i
+    counts = ops.launch_counts()
+    assert all(counts[name] == 1 for name in (
+        "ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq"))

@@ -266,10 +266,13 @@ def test_crash_replay_is_bitwise(kill, tmp_path):
 
 
 def test_quantized_precisions_and_other_executors_raise():
-    """int8 and pq are served now (tests/test_torch_quantized.py); the
-    executors of later slices and unknown precisions still raise."""
+    """int8 and pq are served now (tests/test_torch_quantized.py), and so is
+    the IVF executor (tests/test_torch_ivf.py); the executors of later
+    slices and unknown precisions still raise."""
     db = _port_db(_wiki())
-    for kind in ("ivf", "pg", "sharded"):
+    db.build_ann("ivf", n_lists=8)
+    assert db.dsq(db.store.vectors[0], "/", executor="ivf").ids[0, 0] >= 0
+    for kind in ("pg", "sharded"):
         with pytest.raises(NotImplementedError):
             db.build_ann(kind)
     q = db.store.vectors[0]
