@@ -34,7 +34,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    recall@10 against flat (printed at nprobe 8, gated at 48), deletes,
    an ingest routed by ``ivf.add``, ``repartition``, and under a byte
    budget an fp32 IVF batch == an explicit PQ IVF batch (its small scopes
-   ranked from host rows).
+   ranked from host rows);
+6. the RAG decode path, after the phase-2 database is freed: the full-width
+   ``qwen3-0.6b`` in bf16 (random weights from ``torch.Generator`` seed 0)
+   behind a ``ContextDatabase`` holding WIKI-Dir at scale 0.04 (entries
+   added one by one through ``add_context``; the deployment's 0.1 is cut
+   to fit the time limit, and the cut is printed), and
+   ``RAGServer.answer`` on the 64-request mix (k = 10, a 512-token budget,
+   one 4-token prompt, 16 new tokens), a DSM merge, and a second answer:
+   448 launches of kernel 10 (``flash_decode``) per answer, finite logits,
+   stats equal to a direct ``retrieve_batch``, prefill + decode against the
+   full forward (bf16, tie-aware top-1), and kernel 10 against its plain
+   version on the arguments of every layer's call at steps 1 and 16.
+
+Phase 1 also holds kernel 10 against its plain version at the reference's
+sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
+cache.
 
 The last lines are the kernels' summary, then
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -43,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -59,11 +75,11 @@ TOL = 1e-5
 MAIN_ROWS = 1_940_000      # WIKI-Dir's rows at scale 1.0: the main shapes'
 WIDE_ROWS = 100_000        # rows at d = 8192
 
-# data-sheet peaks (NVIDIA): HBM bytes/s, non-tensor fp32 FLOP/s and dense
-# int8 tensor-core OP/s
-CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12),
-              "H100 NVL": (3.9e12, 60e12, 1671e12),
-              "H100": (3.35e12, 67e12, 1979e12)}
+# data-sheet peaks (NVIDIA): HBM bytes/s, non-tensor fp32 FLOP/s, dense
+# int8 tensor-core OP/s and dense bf16 tensor-core FLOP/s
+CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12, 756e12),
+              "H100 NVL": (3.9e12, 60e12, 1671e12, 835e12),
+              "H100": (3.35e12, 67e12, 1979e12, 989e12)}
 
 _ST = "src/repro/kernels/scoped_topk.py"
 REPLACES = {
@@ -78,11 +94,13 @@ REPLACES = {
     "ivf_gather_topk": f"{_ST}:290",
     "ivf_gather_topk_i8": "src/repro/vectordb/ivf.py:136",
     "ivf_gather_topk_pq": "src/repro/vectordb/ivf.py:170",
+    "flash_decode": "src/repro/kernels/flash_decode.py:26",
 }
 _SCAN_CU = "src/repro_torch/kernels/csrc/scoped_topk.cu"
 SOURCES = {name: _SCAN_CU for name in REPLACES}
 SOURCES["bitmap_patch"] = SOURCES["mask_and_popcount"] = \
     "src/repro_torch/kernels/csrc/bitmap_ops.cu"
+SOURCES["flash_decode"] = "src/repro_torch/kernels/csrc/flash_decode.cu"
 
 
 def emit(obj) -> None:
@@ -130,7 +148,8 @@ def device_ms(torch, fn, runs: int, names=None):
 
     def scan_launches() -> int:
         return sum(v for key, v in ops.launch_counts().items()
-                   if key not in ("bitmap_patch", "mask_and_popcount"))
+                   if key not in ("bitmap_patch", "mask_and_popcount",
+                                  "flash_decode"))
 
     fn()
     torch.cuda.synchronize()
@@ -166,8 +185,8 @@ def timed(torch, fn, runs: int, names=None) -> dict:
 
 def bound(nbytes: float, ops: float, peaks, kind: str = "fp32") -> dict:
     """The larger of bytes over HBM bandwidth and operations over the
-    peak rate of their type (non-tensor fp32, or int8 tensor-core)."""
-    bw, rate = peaks[0], peaks[1] if kind == "fp32" else peaks[2]
+    peak rate of their type (non-tensor fp32, int8 or bf16 tensor-core)."""
+    bw, rate = peaks[0], peaks[{"fp32": 1, "int8": 2, "bf16": 3}[kind]]
     t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -374,6 +393,7 @@ def phase1(torch, ops, ref, peaks) -> dict:
     edge += phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                          sid)
     edge += phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid)
+    edge += phase1_flash(torch, ops, ref, peaks, g, out)
     emit({"phase": 1, "edge_cases": edge, "kernels": out})
     return out
 
@@ -815,6 +835,121 @@ def library_bmm(torch, rows, cand, queries):
     return ms, f"torch.bmm ({bl},{C},{d})x({bl},{d},1), no mask, no top-k"
 
 
+# kernel 10 against its plain version. fp32: tests/test_kernels.py's
+# rtol = atol form, |got - want| <= 3e-4 (1 + |want|) (sums in another
+# order). bf16: the kernel rounds each weight p to bf16 before the PV
+# product (relative error <= 2^-9), which moves an output by at most
+# 2^-9 A, A = sum p |v| / l (the plain version on |v|); both round their
+# outputs to bf16, one ulp <= 2^-7 |value|. So |got - want| <= 2^-7
+# (|want| + A), which also holds an empty row (A = 0) to exact zeros.
+FLASH_TOL_F32 = 3e-4
+FLASH_REL_BF16 = 2.0 ** -7
+RAG_SHAPE = (64, 16, 8, 532, 128)   # b, h, kv, cache positions, d
+LONG_S = 32_768                     # configs/__init__.py's decode_32k
+
+
+def flash_case(torch, ops, ref, label, q, k, v, mask):
+    """Kernel 10 vs its plain version on the same inputs, within
+    FLASH_TOL_F32 / FLASH_REL_BF16; a row that admits nothing must give
+    zeros. Returns the largest absolute difference and the plain value
+    where it occurs."""
+    got = ops.flash_decode(q, k, v, mask)
+    want = ref.flash_decode_ref(q, k, v, mask)
+    check(got.dtype == q.dtype and bool(torch.isfinite(got.float()).all()),
+          f"{label}: dtype or non-finite output")
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    if q.dtype == torch.bfloat16:
+        spread = ref.flash_decode_ref(q.float(), k.float(), v.float().abs(),
+                                      mask)
+        limit = FLASH_REL_BF16 * (mag + spread)
+    else:
+        limit = FLASH_TOL_F32 * (1 + mag)
+    err = float(diff.max()) if got.numel() else 0.0
+    at = float(want.float().flatten()[diff.argmax()]) if got.numel() \
+        else 0.0
+    check(bool((diff <= limit).all()),
+          f"{label}: beyond tolerance, max abs err {err} at value {at}")
+    empty = mask.sum(1) == 0
+    check(bool((got[empty] == 0).all()), f"{label}: empty row not zero")
+    return err, at
+
+
+def flash_inputs(torch, g, b, h, kv, s, d, dtype, lo=1):
+    """Random q, k, v and a ragged (b, s) int8 mask (lengths in [lo, s])."""
+    dev = g.device
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
+    lens = torch.randint(lo, s + 1, (b,), generator=g, device=dev)
+    mask = (torch.arange(s, device=dev)[None] < lens[:, None]).to(torch.int8)
+    return q, k, v, mask
+
+
+def flash_record(torch, ops, ref, peaks, q, k, v, mask, runs=30) -> dict:
+    """Kernel 10 on (q, k, v, mask): held against its plain version, timed
+    beside it and beside one ``scaled_dot_product_attention`` call on the
+    same inputs (a yardstick the port never calls), and bounded by the
+    bytes it must move (q, the mask, K and V rows at admitted positions,
+    the output) and its 4 h d operations per admitted position."""
+    import torch.nn.functional as F
+    b, h, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    label = f"flash_decode b={b} h={h} kv={kv} s={s} d={d} {q.dtype}"
+    err, at = flash_case(torch, ops, ref, label, q, k, v, mask)
+    admitted = int(mask.sum())
+    elem = q.element_size()
+    nbytes = 2 * q.numel() * elem + mask.numel() + 2 * admitted * kv * d * elem
+    attn_mask = mask.bool()[:, None, None, :]
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    return {"max_abs_err": err, "err_at_value": at,
+            **timed(torch, lambda: ops.flash_decode(q, k, v, mask), runs,
+                    ("flash_decode_kernel",)),
+            "plain_ms": median_ms(
+                torch, lambda: ref.flash_decode_ref(q, k, v, mask), 10),
+            "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=attn_mask, enable_gqa=True),
+                runs),
+            **bound(nbytes, 4.0 * h * d * admitted, peaks, kind),
+            "shape": f"{label} admitted={admitted}; library: "
+                     "scaled_dot_product_attention(bool mask, enable_gqa)"}
+
+
+def phase1_flash(torch, ops, ref, peaks, g, out) -> int:
+    """Kernel 10 against its plain version: the reference sweep
+    (tests/test_kernels.py:340-346), the CPU tests' edge cases (s = 1, a
+    ragged tail at s = 532, groups 1 / 3 / 8, d = 256, an odd d, holes,
+    rows that admit nothing), then timed at the RAG decode shape and at a
+    32,768-position cache."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = 0
+    for b, h, kv, s, d, dt in (
+            (2, 8, 2, 1000, 64, f32), (1, 4, 4, 512, 128, f32),
+            (3, 16, 8, 700, 32, f32), (2, 8, 8, 256, 64, f32),
+            (2, 8, 2, 512, 64, bf16), (2, 4, 2, 1, 32, f32),
+            (3, 16, 8, 532, 128, f32), (3, 16, 8, 532, 128, bf16),
+            (2, 4, 4, 200, 64, bf16), (2, 6, 2, 257, 48, f32),
+            (2, 16, 2, 130, 64, bf16), (2, 8, 1, 300, 256, f32),
+            (3, 4, 2, 99, 13, bf16), (3, 4, 2, 99, 13, f32)):
+        q, k, v, mask = flash_inputs(torch, g, b, h, kv, s, d, dt)
+        if b > 2:
+            mask[0] &= (torch.arange(s, device=g.device) % 7 < 5).to(
+                torch.int8)                                   # holes
+            mask[-1] = 0                                      # admits nothing
+        flash_case(torch, ops, ref, f"flash_decode edge {b, h, kv, s, d} {dt}",
+                   q, k, v, mask)
+        cases += 1
+    b, h, kv, s, d = RAG_SHAPE
+    q, k, v, mask = flash_inputs(torch, g, b, h, kv, s, d, bf16, lo=s - 15)
+    rec = flash_record(torch, ops, ref, peaks, q, k, v, mask)
+    del q, k, v, mask
+    q, k, v, mask = flash_inputs(torch, g, 1, h, kv, LONG_S, d, bf16,
+                                 lo=LONG_S)
+    rec["long"] = flash_record(torch, ops, ref, peaks, q, k, v, mask, 10)
+    out["flash_decode"] = rec
+    return cases + 2
+
+
 # --------------------------------------------------------------- phase 2
 def requests(ds, B=64, n_unique=8):
     """The dsq_batch benchmark mix: B requests over 8 anchors incl. "/"."""
@@ -1118,7 +1253,8 @@ def phase4(torch, ops, ds, db, batched) -> dict:
         "rows_device_pinned": a2.rows_device_pinned,
         "rows_host": a2.rows_host, "batch_first_ms": (tb - ta) * 1e3,
         "batch_second_ms": (tc - tb) * 1e3, "recall_at_10": tiered_recall}
-    info["launches_phase"] = counts
+    info["launches_main_path"] = counts
+    info["launches_phase"] = ops.launch_counts()
     info["failed"] = failed
     emit(info)
     check(not failed, "; ".join(failed))
@@ -1340,7 +1476,8 @@ def phase5(torch, ops, ref, ds, db):
          and info["tiered"]["kernel_launches"].get("ivf_gather_topk", 0) == 0,
          f"tiered ivf batch took no host-row fp32 group: {info['tiered']}")
     counts = ops.launch_counts()
-    info["launches_phase"] = counts
+    info["launches_main_path"] = counts
+    info["launches_phase"] = ops.launch_counts()
     info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     info["failed"] = failed
     emit(info)
@@ -1366,6 +1503,326 @@ def phase5_kernels(torch, ops, ref, peaks, captured, measured) -> None:
         real[name] = rec
         measured[name] = {**rec, "synthetic": measured[name]}
     emit({"phase": "5-kernels", **real})
+
+
+# --------------------------------------------------------------- phase 6
+# WIKI-Dir at a tenth (194,000 context entries) is the deployment's scale;
+# ``add_context`` one entry at a time takes ~1.4 ms on the H100 host, so
+# that ingest would take ~270 s and the scale is cut to 0.04 (77,600
+# entries, ~110 s), fixed so that every run serves the same database
+RAG_SCALE_PLANNED = 0.1
+RAG_SCALE = 0.04
+RAG_STEPS = 16             # max_new_tokens
+RAG_PROMPT = 4
+# bf16 logits of two independent paths over 28 layers (full-sequence
+# prefill GEMMs against one-token decode GEMVs and kernel 10): each layer's
+# activations round to bf16 (2^-8 relative) on each path, and logits up to
+# ~3.3 are bf16 themselves (ulp 2^-6 at 2-4). Gated: the largest difference,
+# the mean difference, and each path's top-1 token within LOGIT_TOL of the
+# other path's best.
+LOGIT_TOL = 0.25
+LOGIT_MEAN_TOL = 0.05
+_TIMING_KEYS = ("directory_us", "ann_us", "predicted_ann_us")
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str, keep, into: list):
+    """While open, ``module.name`` records ``(index, args, kwargs)`` of the
+    calls whose running index is in ``keep`` and calls through."""
+    saved = getattr(module, name)
+    count = [0]
+
+    def call(*args, **kw):
+        if count[0] in keep:
+            into.append((count[0], args, kw))
+        count[0] += 1
+        return saved(*args, **kw)
+
+    setattr(module, name, call)
+    try:
+        yield into
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def finite_logits(torch, rag, into: list):
+    """While open, the RAG server's ``prefill`` / ``decode_step`` append a
+    device flag "every logit finite" per call to ``into`` (no sync)."""
+    saved = {n: getattr(rag, n) for n in ("prefill", "decode_step")}
+
+    def wrap(fn):
+        def call(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            into.append(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    for n, fn in saved.items():
+        setattr(rag, n, wrap(fn))
+    try:
+        yield into
+    finally:
+        for n, fn in saved.items():
+            setattr(rag, n, fn)
+
+
+def trace(torch, fn, kernel: str, want: int) -> dict:
+    """One ``fn`` call under ``torch.profiler`` (device activity only):
+    wall time (synced, profiler on), summed kernel device time, kernel
+    count, the share of ``kernel``, and the device's idle share of the
+    wall time. None for the device numbers when the session did not see
+    ``want`` launches of ``kernel`` (it lost events)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0.0) > 0]
+    mine = [e for e in events if kernel in e.key]
+    if sum(e.count for e in mine) != want:
+        return {"wall_ms": wall, "device_ms": None,
+                "seen": sum(e.count for e in mine), "want": want}
+    dev = sum(e.device_time_total for e in events) / 1e3
+    return {"wall_ms": wall, "device_ms": dev,
+            "kernels": sum(e.count for e in events),
+            f"{kernel}_ms": sum(e.device_time_total for e in mine) / 1e3,
+            "idle_share": max(0.0, 1.0 - dev / wall)}
+
+
+def rag_ingest(ds, ctx, vocab: int, scale: float) -> dict:
+    """All of the dataset's entries through ``add_context`` one at a time
+    (tiers ``i % 3``, 64 (1 + i % 3) payload tokens from a seeded
+    generator); the record names the scale cut (RAG_SCALE_PLANNED to
+    ``scale``) and the per-entry time."""
+    from repro_torch.serving.rag import TIERS
+    rng = np.random.default_rng(0)
+    n = len(ds.vectors)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ctx.add_context(ds.vectors[i], ds.entry_paths[i], TIERS[i % 3],
+                        rng.integers(0, vocab, size=64 * (1 + i % 3),
+                                     dtype=np.int32))
+    dt = time.perf_counter() - t0
+    return {"scale_planned": RAG_SCALE_PLANNED, "scale": scale,
+            "cut": scale < RAG_SCALE_PLANNED, "entries": n, "ingest_s": dt,
+            "per_entry_us": dt / max(n, 1) * 1e6}
+
+
+def phase6(torch, ops, args, cfg=None, device="cuda"):
+    """The RAG decode path on the card (module docstring, phase 6) with the
+    LM ``cfg`` (full-width ``qwen3-0.6b`` when None). Every failed check is
+    collected and reported at once. Returns the launch counts of the two
+    answers and the recorded kernel-10 calls. ``cfg`` and ``device`` exist
+    for the CPU rehearsal (a smoke config, ``device="cpu"``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.datasets import make_wiki_dir
+    from repro_torch.models import (Transformer, decode_step, forward,
+                                    init_params, logits_from_hidden,
+                                    model_schema, prefill)
+    from repro_torch.serving import ContextDatabase, RAGConfig, RAGServer
+    from repro_torch.serving import rag
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    def sync_s(t0: float) -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    cfg = cfg or get_arch("qwen3-0.6b")
+    info = {"phase": 6, "model": cfg.name, "dtype": cfg.dtype,
+            "params": cfg.param_count()}
+    t0 = time.perf_counter()
+    scale = RAG_SCALE * args.scale
+    ds = make_wiki_dir(scale=scale, dim=128, n_queries=64, seed=0)
+    info["gen_s"] = time.perf_counter() - t0
+    ctx = ContextDatabase(dim=128, device=device)
+    info["ingest"] = rag_ingest(ds, ctx, cfg.vocab_size, scale)
+    emit({"phase": "6-ingest", **info["ingest"]})
+    ctx.build("flat")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = Transformer(cfg, init_params(model_schema(cfg), gen,
+                                         cfg.param_dtype(), device),
+                        device=device)
+    info["lm_init_s"] = sync_s(t0)
+    info["lm_params_held"] = sum(p.numel() for p in model.parameters())
+    rcfg = RAGConfig(k=10, token_budget=512)
+    server = RAGServer(ctx, model, cfg, rcfg)
+    queries, paths, rec = requests(ds)
+    B = len(paths)
+    prompt = [np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=RAG_PROMPT).astype(np.int32)]
+    per_answer = cfg.n_layers * RAG_STEPS
+    keep = set(range(cfg.n_layers)) | set(range(per_answer - cfg.n_layers,
+                                                 per_answer))
+    captured, flags, answers = [], [], []
+    main_path = dict.fromkeys(ops.launch_counts(), 0)
+
+    @contextlib.contextmanager
+    def counted():
+        """Adds the launches made inside to ``main_path``; the checks'
+        own launches (``direct`` below) stay outside."""
+        before = ops.launch_counts()
+        yield
+        after = ops.launch_counts()
+        for key in main_path:
+            main_path[key] += after[key] - before[key]
+
+    def one_answer(label, record):
+        direct = ctx.retrieve_batch(queries, paths, rcfg, recursive=rec)
+        before = ops.launch_counts()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(finite_logits(torch, rag, flags))
+            if record:
+                stack.enter_context(recorded_calls(
+                    ops, "flash_decode", keep, captured))
+            stack.enter_context(counted())
+            t = time.perf_counter()
+            out = server.answer(queries, paths, prompt,
+                                max_new_tokens=RAG_STEPS, recursive=rec)
+            wall = sync_s(t)
+        after = ops.launch_counts()
+        n_fd = after["flash_decode"] - before["flash_decode"]
+        toks = out["tokens"]
+        gate(toks.shape == (B, RAG_STEPS) and toks.dtype == np.int32
+             and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+             f"{label}: tokens {toks.shape} {toks.dtype}")
+        gate(n_fd == per_answer,
+             f"{label}: flash_decode launched {n_fd}, want {per_answer}")
+        strip = [{key: v for key, v in st.items() if key not in _TIMING_KEYS}
+                 for st in out["retrieval_stats"]]
+        want = [{key: v for key, v in st.items() if key not in _TIMING_KEYS}
+                for _, st in direct]
+        gate(strip == want, f"{label}: retrieval_stats != retrieve_batch")
+        answers.append(toks)
+        return {"wall_s": wall, "retrieve_s": out["retrieve_s"],
+                "decode_s": out["decode_s"],
+                "tokens_per_s": B * RAG_STEPS / wall,
+                "flash_decode_launches": n_fd,
+                "scope_sizes": [st["scope_size"] for st in strip],
+                "plans": sorted({st["plan"] for st in strip})}
+
+    ops.reset_launch_counts()
+    info["answer_1"] = one_answer("answer 1", record=True)
+    merged = None
+    for src, dst in ds.merges:
+        try:
+            with counted():
+                ctx.reorganize("merge", src, dst)
+        except (KeyError, ValueError):
+            continue
+        merged = (src, dst)
+        break
+    gate(merged is not None, "no DSM merge of the dataset applied")
+    ctx.db.check_invariants()
+    info["merge"] = merged
+    info["answer_2"] = one_answer("answer 2", record=False)
+    counts = dict(main_path)
+    gate(all(bool(f) for f in flags) and len(flags) == 2 * (1 + RAG_STEPS),
+         f"non-finite logits in {sum(not bool(f) for f in flags)} of "
+         f"{len(flags)} calls")
+    info["launches_main_path"] = counts
+    info["launches_phase"] = ops.launch_counts()
+    gate(len(captured) == len(keep),
+         f"recorded {len(captured)} kernel-10 calls, want {len(keep)}")
+
+    # the answer's contexts, padded as _decode_batch pads them
+    contexts = [server.assemble_with_prompt(h, prompt[0]) for h, _ in
+                ctx.retrieve_batch(queries, paths, rcfg, recursive=rec)]
+    S = max(len(c) for c in contexts)
+    toks = np.zeros((B, S), np.int32)
+    for i, c in enumerate(contexts):
+        toks[i, :len(c)] = c
+    tk = torch.from_numpy(toks).to(device)
+    cache_seq = S + RAG_STEPS
+    info["context_lengths"] = [min(len(c) for c in contexts), S]
+    # timings: prefill, then RAG_STEPS greedy steps, each ended by a sync
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, {"tokens": tk}, cfg, cache_seq)
+        t_pre = sync_s(t0)
+        cur = torch.argmax(logits[:, -1], -1)[:, None]
+        t0 = time.perf_counter()
+        for _ in range(RAG_STEPS):
+            logits, cache = decode_step(model, cache, cur, cfg)
+            cur = torch.argmax(logits[:, -1], -1)[:, None]
+        t_dec = sync_s(t0)
+        info[f"timing_{label}"] = {
+            "prefill_s": t_pre, "decode_step_ms": t_dec / RAG_STEPS * 1e3,
+            "decode_tokens_per_s": B * RAG_STEPS / t_dec,
+            "tokens_per_s": B * RAG_STEPS / (t_pre + t_dec)}
+        del logits, cache
+    # one profiled prefill, then the last of RAG_STEPS steps profiled (the
+    # cache holds exactly RAG_STEPS new tokens)
+    box = {}
+
+    def run_prefill():
+        box["logits"], box["cache"] = prefill(model, {"tokens": tk}, cfg,
+                                              cache_seq)
+
+    def run_step():
+        cur = torch.argmax(box["logits"][:, -1], -1)[:, None]
+        box["logits"], box["cache"] = decode_step(model, box["cache"], cur,
+                                                  cfg)
+
+    info["trace_prefill"] = trace(torch, run_prefill, "flash_decode_kernel",
+                                  0)
+    for _ in range(RAG_STEPS - 1):
+        run_step()
+    info["trace_decode_step"] = trace(torch, run_step, "flash_decode_kernel",
+                                      cfg.n_layers)
+    box.clear()
+    # kernel path (prefill ctx[:-1], decode ctx[-1]) against the forward
+    _, cache = prefill(model, {"tokens": tk[:, :-1]}, cfg, S)
+    dec, cache = decode_step(model, cache, tk[:, -1:], cfg)
+    del cache
+    h, _ = forward(model, tk, cfg)
+    full = logits_from_hidden(model, h[:, -1:], cfg)[:, 0]
+    dec = dec[:, 0]
+    diff = (dec - full).abs()
+    a_dec, a_full = dec.argmax(-1), full.argmax(-1)
+    gap_full = (full.max(-1).values - full.gather(1, a_dec[:, None])[:, 0])
+    gap_dec = (dec.max(-1).values - dec.gather(1, a_full[:, None])[:, 0])
+    info["decode_vs_forward"] = {
+        "max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+        "max_abs_logit": float(full.abs().max()),
+        "top1_equal": float((a_dec == a_full).float().mean()),
+        "top1_cross_gap": float(torch.maximum(gap_full, gap_dec).max()),
+        "tol": LOGIT_TOL, "mean_tol": LOGIT_MEAN_TOL}
+    dv = info["decode_vs_forward"]
+    gate(dv["max_abs"] <= LOGIT_TOL and dv["mean_abs"] <= LOGIT_MEAN_TOL
+         and dv["top1_cross_gap"] <= LOGIT_TOL,
+         f"decode vs forward logits: {dv}")
+    info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return counts, captured
+
+
+def phase6_kernels(torch, ops, ref, peaks, captured, measured) -> None:
+    """Kernel 10 on the arguments every layer's call had at decode steps 1
+    and 16 of phase 6's first answer, held against its plain version; the
+    last layer's step-16 call is timed, and its record takes the place of
+    phase 1's synthetic main shape (kept beside it as "synthetic")."""
+    check(len(captured) > 0, "phase 6 recorded no kernel-10 call")
+    errs = []
+    for idx, args, kw in captured:
+        errs.append(flash_case(torch, ops, ref, f"flash_decode call {idx}",
+                               *args, **kw))
+    _, args, _ = captured[-1]
+    real = flash_record(torch, ops, ref, peaks, *args)
+    real["max_abs_err"], real["err_at_value"] = max(errs)
+    real["calls_checked"] = len(errs)
+    measured["flash_decode"] = {**real, "synthetic": measured["flash_decode"]}
+    emit({"phase": "6-kernels", "flash_decode": real})
 
 
 # ------------------------------------------------------------------ main
@@ -1402,7 +1859,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "nvcc_s": _build.build_seconds, "ptxas": regs,
           "peaks": {"hbm_bytes_per_s": peaks[0], "fp32_flops": peaks[1],
-                    "int8_ops": peaks[2]},
+                    "int8_ops": peaks[2], "bf16_flops": peaks[3]},
           "kernel_names": list(REPLACES)})
 
     measured = phase1(torch, ops, ref, peaks)
@@ -1415,8 +1872,14 @@ def main() -> int:
         c4 = phase4(torch, ops, ds, db, batched)
         c5, captured = phase5(torch, ops, ref, ds, db)
         phase5_kernels(torch, ops, ref, peaks, captured, measured)
-        del captured
-    launches = {key: c2[key] + c3[key] + c4[key] + c5[key] for key in c2}
+        del captured, ds, db, batched, looped
+    gc.collect()
+    torch.cuda.empty_cache()
+    c6, captured = phase6(torch, ops, args)
+    phase6_kernels(torch, ops, ref, peaks, captured, measured)
+    del captured
+    launches = {key: c2[key] + c3[key] + c4[key] + c5[key] + c6[key]
+                for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

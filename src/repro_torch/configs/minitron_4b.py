@@ -1,0 +1,13 @@
+"""minitron-4b — pruned Nemotron with squared-ReLU MLP [arXiv:2407.14679; hf].
+
+32L d_model=3072 24H (GQA kv=8) d_ff=9216 vocab=256000.
+"""
+from ..models.common import ArchConfig
+
+
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="minitron-4b", family="dense",
+        n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8,
+        d_ff=9216, vocab_size=256000, act="relu2",
+    )

@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("scoped_topk.cu", "bitmap_ops.cu")
+SOURCES = ("scoped_topk.cu", "bitmap_ops.cu", "flash_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -37,6 +37,7 @@ SIGNATURES = {
                         _P],
     "repro_bitmap_patch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_mask_and_popcount": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

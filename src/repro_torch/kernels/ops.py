@@ -2,9 +2,10 @@
 registry.
 
 Each wrapper dispatches on the device of its tensors: CUDA tensors launch the
-hand-written Hopper kernel (``scoped_topk.py`` / ``bitmap_ops.py``), CPU
-tensors run the plain PyTorch version in ``ref.py``, and any other device
-raises. There is no fallback: a kernel that fails to build or launch raises.
+hand-written Hopper kernel (``scoped_topk.py`` / ``bitmap_ops.py`` /
+``flash_decode.py``), CPU tensors run the plain PyTorch version in
+``ref.py``, and any other device raises. There is no fallback: a kernel that
+fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from . import bitmap_ops as _bm
+from . import flash_decode as _fd
 from . import ref
 from . import scoped_topk as _st
 from .common import row_sq_norms
@@ -63,11 +65,11 @@ def _align_block_n(block_n: int, n_rows: int, floor: int = 128) -> int:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**_st.launches, **_bm.launches}
+    return {**_st.launches, **_bm.launches, **_fd.launches}
 
 
 def reset_launch_counts() -> None:
-    for table in (_st.launches, _bm.launches):
+    for table in (_st.launches, _bm.launches, _fd.launches):
         for name in table:
             table[name] = 0
 
@@ -349,9 +351,25 @@ def mask_and_popcount(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return _bm.mask_and_popcount(a.contiguous(), b.contiguous())
 
 
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA decode attention for one query token: q (b, h, d); k, v
+    (b, kv_h, s, d); length_mask (b, s), non-zero = admitted (all admitted
+    when None) -> (b, h, d) in q's type. Any s: the ragged tail is masked,
+    never padded."""
+    if length_mask is None:
+        length_mask = torch.ones(k.shape[0], k.shape[2], dtype=torch.int8,
+                                 device=k.device)
+    dev = _device_of(q, k, v, length_mask)
+    if dev.type == "cpu":
+        return ref.flash_decode_ref(q, k, v, length_mask)
+    return _fd.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
+                            length_mask.to(torch.int8).contiguous())
+
+
 __all__ = ["scoped_topk", "multi_scope_topk", "scoped_topk_i8",
            "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq",
            "ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq",
-           "bitmap_patch",
-           "mask_and_popcount", "set_block_overrides", "get_block_overrides",
+           "bitmap_patch", "mask_and_popcount", "flash_decode",
+           "set_block_overrides", "get_block_overrides",
            "launch_counts", "reset_launch_counts", "as_words", "ref"]

@@ -42,7 +42,7 @@ __all__ = ["NEG_INF", "stable_topk", "row_sq_norms", "row_scores",
            "multi_scope_topk_pq_ref", "ivf_gather_topk_ref",
            "ivf_gather_topk_i8_ref", "ivf_gather_topk_pq_ref",
            "bitmap_patch_ref", "popcount32",
-           "mask_and_popcount_ref", "topk_disagreement"]
+           "mask_and_popcount_ref", "flash_decode_ref", "topk_disagreement"]
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -284,6 +284,26 @@ def mask_and_popcount_ref(a: torch.Tensor, b: torch.Tensor
     """``a & b`` and its total popcount (int32 0-d tensor)."""
     words = a & b
     return words, popcount32(words).sum().to(torch.int32)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length_mask: torch.Tensor) -> torch.Tensor:
+    """Plain GQA attention for one query token (no flash blocking), the
+    PyTorch form of ``repro/kernels/ref.py::flash_decode_ref``: q (b, h, d),
+    k, v (b, kv_h, s, d), length_mask (b, s) -> (b, h, d) in q's type. fp32
+    einsums and softmax; masked scores are ``NEG_INF`` and masked weights 0,
+    so a row with no admitted position gives zeros."""
+    b, h, d = q.shape
+    kv_h = k.shape[1]
+    qg = q.reshape(b, kv_h, h // kv_h, d).float()
+    scale = 1.0 / float(np.sqrt(d))
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    valid = length_mask.bool()[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def topk_disagreement(ids: np.ndarray, vals: np.ndarray,

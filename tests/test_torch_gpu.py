@@ -255,3 +255,62 @@ def test_ivf_gather_topk_matches_plain_versions(b, c, n, d, m, k, metric,
     counts = ops.launch_counts()
     assert all(counts[name] == 1 for name in (
         "ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,s,d,dtype", [
+    (2, 8, 2, 1000, 64, torch.float32),       # the reference sweep
+    (3, 16, 8, 700, 32, torch.float32),
+    (2, 8, 2, 512, 64, torch.bfloat16),
+    (4, 16, 8, 532, 128, torch.bfloat16),     # the RAG decode shape
+    (2, 4, 4, 1, 128, torch.float32),         # s = 1, group 1
+    (2, 6, 2, 257, 48, torch.bfloat16),       # group 3
+    (2, 8, 1, 130, 256, torch.float32),       # group 8, d = 256
+    (2, 4, 2, 99, 13, torch.bfloat16),        # odd d: scalar staging
+])
+def test_flash_decode_kernel_matches_plain_version(b, h, kv, s, d, dtype):
+    """Kernel 10 against its plain version on the same inputs, ragged
+    lengths, a window-and-chunk hole pattern in one row and a row that
+    admits nothing (zeros, no NaN). Tolerances are the CPU tests': 3e-4 at
+    fp32 (online vs one-pass softmax), 3e-2 at bf16 (p rounded to bf16
+    before the PV product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + s + d)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] < lens[:, None]).to(torch.int8)
+    mask[0] &= ((pos % 7) < 5).to(torch.int8)               # holes
+    if b > 2:
+        mask[-1] = 0                                        # admits nothing
+    ops.reset_launch_counts()
+    got = ops.flash_decode(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_decode"] == 1
+    want = ref.flash_decode_ref(q, k, v, mask)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if b > 2:
+        assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.gpu
+def test_flash_decode_refuses_a_group_beyond_shared_memory():
+    """A group whose queries and accumulators do not fit one block's
+    shared memory is refused by the C entry, and the wrapper raises; no
+    launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    q = torch.zeros(1, 128, 256, device=dev)
+    kv = torch.zeros(1, 1, 8, 256, device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ops.flash_decode(q, kv, kv, torch.ones(1, 8, dtype=torch.int8,
+                                               device=dev))
+    assert ops.launch_counts()["flash_decode"] == 0
