@@ -13,20 +13,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
    path's shapes, at the CPU tests' edge shapes and at shapes that take the
    kernels' slow paths (k up to 10,000, d = 8192 and 32768, PQ LUTs past
    shared memory), with its median time, its bound, the plain version's
-   time and a library yardstick; the IVF kernel 9 and its int8 / PQ modes
+   time and a library yardstick; at the main shapes the batched scans
+   (kernels 2 and 6) also bit for bit against the dense-mask scans
+   (kernels 1 and 5) query by query; the IVF kernel 9 and its int8 / PQ modes
    at a synthetic layout of the main path's rows (64 lists, 8 probed), and
    again after phase 5 on the inputs phase 5 gave them (the real k-means
    layout), whose times the kernels line reports;
 2. the main path: WIKI-Dir ingested into ``DirectoryVectorDB(device="cuda")``
    with TrieHI and the flat executor, a 64-request ``dsq_batch`` mix held
    bitwise against a loop of ``dsq``, and recall@10 against a brute force;
+   then kernel 2 on the arguments the batch gave it (the real scope masks),
+   against kernel 1 query by query and its plain version, timed;
 3. DSM: 21 structural ops through ``dsm_batch`` with a journal, patching the
    cached device scope masks, then batch == loop == uncached batch again;
 4. the int8 and PQ tiers on the same database: batch == loop bitwise at
    both, recall@10 against fp32, then a device byte budget of a third of
    the fp32 rows: the fp32 device mirror is released, fp32 batches are
    served by the PQ plan equal to an explicit PQ batch, and hot scopes'
-   pins cut the rescore's host fetch;
+   pins cut the rescore's host fetch; then kernel 6 on the int8 batch's
+   arguments and kernel 2 on the widest of its exact rescore's launches
+   (``gather_rescore``'s block-diagonal masks), held and timed as in 2;
 5. the IVF executor on the same database, phase 4's budget lifted first:
    ``build_ann("ivf", n_lists=64)`` twice (bitwise equal centers), the
    64-request mix at nprobe 8 with batch == loop bitwise at fp32, int8 and
@@ -49,7 +55,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 Phase 1 also holds kernel 10 against its plain version at the reference's
 sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
-cache.
+cache, and kernel 2 at ``gather_rescore``'s shapes.
+
+The kernels line's launch counts are the main path's: in phases 2-6, the
+launches made around the entry points each phase drives (``MainPath``),
+not those of its checks (loops held against a batch, reference batches,
+warm-ups, timings, profiler sessions, the kernel records).
 
 The last lines are the kernels' summary, then
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -216,6 +227,113 @@ def exact_case(torch, label, got, want) -> float:
     return 0.0
 
 
+def same_as_dense(torch, label, got, one, dense, sid) -> None:
+    """Kernel 2 (6) against kernel 1 (5) query by query: ``one(i, mask)``
+    runs the dense-mask scan of query i on its unpacked scope row; ids and
+    values must be bit-for-bit equal (dsq_batch == a loop of dsq)."""
+    S = dense.shape[0]
+    for i in range(sid.shape[0]):
+        s = int(sid[i])
+        mask = (dense[s] if 0 <= s < S else torch.zeros_like(dense[0])).to(
+            torch.int8)
+        v, ids = one(i, mask)
+        check(torch.equal(ids, got[1][i:i + 1]), f"{label}: query {i} ids "
+              f"differ from the dense-mask scan's")
+        check(torch.equal(v, got[0][i:i + 1]), f"{label}: query {i} values "
+              f"differ from the dense-mask scan's")
+
+
+def library_int_mm(torch, q8, x8):
+    """Median time of ``torch._int_mm`` of the int8 queries by the int8 rows
+    (the product alone, no top-k), or None where it cannot take them."""
+    x8t = x8.t()
+    try:
+        torch._int_mm(q8, x8t)
+    except RuntimeError as exc:                # a yardstick only
+        print(f"chip_smoke: torch._int_mm unavailable: {exc}",
+              file=sys.stderr)
+        return None
+    return median_ms(torch, lambda: torch._int_mm(q8, x8t), 20)
+
+
+def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
+    """Kernel 2 or 6 (``name``) on the arguments of one call: held against
+    kernel 1 or 5 query by query (bitwise) and against its plain version,
+    timed, and bounded by the rows its queries admit (each such row read
+    once, with the scope words and the query side); ``library_ms`` is one
+    product of the same queries by the same rows (``torch.matmul`` at fp32,
+    ``torch._int_mm`` at int8), without the top-k."""
+    import inspect
+
+    from repro_torch.kernels.common import unpack_words
+    call = inspect.signature(getattr(ops, name)).bind(*args, **kw)
+    call.apply_defaults()
+    a = call.arguments
+    i8 = name == "multi_scope_topk_i8"
+    queries, rows = (a["q_i8"], a["rows_i8"]) if i8 else (a["queries"],
+                                                          a["rows"])
+    sids, k, metric, sq = (a[key] for key in ("scope_ids", "k", "metric",
+                                              "sq"))
+    n, d = rows.shape
+    words = ops.as_words(a["mask_words"])
+    S, n_words = words.shape
+    dense = unpack_words(words, n)
+    if dense.shape[1] < n:
+        dense = torch.nn.functional.pad(dense, (0, n - dense.shape[1]))
+    B = queries.shape[0]
+    if i8:
+        qs, xs = a["q_scale"], a["row_scale"]
+
+        def fn():
+            return ops.multi_scope_topk_i8(queries, qs, rows, xs, sq, words,
+                                           sids, k, metric)
+
+        def plain():
+            return ref.multi_scope_topk_i8_ref(queries, qs, rows, xs, sq,
+                                               words, sids, k, metric)
+
+        def one(i, m):
+            return ops.scoped_topk_i8(queries[i:i + 1], qs[i:i + 1], rows,
+                                      xs, sq, m, k, metric)
+    else:
+        def fn():
+            return ops.multi_scope_topk(queries, rows, words, sids, k,
+                                        metric, sq)
+
+        def plain():
+            return ref.multi_scope_topk_ref(queries, rows, words, sids, k,
+                                            metric, sq)
+
+        def one(i, m):
+            return ops.scoped_topk(queries[i:i + 1], rows, m, k, metric, sq)
+
+    got = fn()
+    err = (exact_case(torch, label, got, plain()) if i8
+           else topk_case(ref, label, got, plain()))
+    same_as_dense(torch, f"{label} vs the dense-mask scan", got, one, dense,
+                  sids)
+    del got
+    ok = (sids >= 0) & (sids < S)
+    live = sids[ok].long()
+    pairs = int(dense.sum(1)[live].sum())
+    union = int(dense[live.unique()].any(0).sum()) if len(live) else 0
+    norm = 4 if metric == "l2" else 0
+    row_bytes = (d + 4 if i8 else d * 4) + norm
+    q_bytes = (d + 8 if i8 else d * 4 + 4) + k * 8
+    lib = "torch._int_mm" if i8 else "torch.matmul"
+    return {"max_abs_err": err,
+            **timed(torch, fn, 10, ("scan_pass1", "scan_pass2")),
+            "plain_ms": median_ms(torch, plain, 5),
+            "library_ms": (library_int_mm(torch, queries, rows) if i8 else
+                           median_ms(torch, lambda: torch.matmul(
+                               queries, rows.T), 30)),
+            **bound(union * row_bytes + S * n_words * 4 + B * q_bytes,
+                    2.0 * pairs * d, peaks, "int8" if i8 else "fp32"),
+            "shape": f"q={B} n={n} d={d} k={k} {metric} scopes={S} "
+                     f"admitted_pairs={pairs} union_rows={union}; "
+                     f"library: {lib} ({B},{d})x({d},{n})"}
+
+
 def words_of(torch, dense):              # (S, n) bool -> (S, ceil(n/32)) i32
     n = dense.shape[1]
     pad = (-n) % 32
@@ -339,9 +457,13 @@ def phase1(torch, ops, ref, peaks) -> dict:
         **bound(n * d * 4 + n + d * 4 + k * 8, 2.0 * n * d, peaks),
         "shape": f"q=1 n={n} d={d} k={k} all rows admitted"}
 
-    err = topk_case(ref, "multi_scope_topk main",
-                    ops.multi_scope_topk(QB, X, words, sid, k),
+    got = ops.multi_scope_topk(QB, X, words, sid, k)
+    err = topk_case(ref, "multi_scope_topk main", got,
                     ref.multi_scope_topk_ref(QB, X, words, sid, k))
+    same_as_dense(torch, "multi_scope_topk main vs scoped_topk", got,
+                  lambda i, m: ops.scoped_topk(QB[i:i + 1], X, m, k), dense,
+                  sid)
+    del got
     admitted = dense.sum(1)[sid.long()].sum().item()
     union = dense.any(0).sum().item()
     out["multi_scope_topk"] = {
@@ -356,6 +478,20 @@ def phase1(torch, ops, ref, peaks) -> dict:
                 2.0 * admitted * d, peaks),
         "shape": f"q={B} n={n} d={d} k={k} scopes={S} "
                  f"admitted_pairs={admitted}"}
+    # gather_rescore's launches (the int8 / PQ plans' exact rescore): query
+    # b admits only its own PQ_RESCORE_K candidates of the B * R gathered
+    # rows, at B = 64 (one scan group) and B = 1 (one gather group)
+    R = PQ_RESCORE_K
+    for b in (B, 1):
+        cand = torch.randperm(n, generator=g, device=dev)[:b * R]
+        block = torch.zeros(b, b * R, dtype=torch.bool, device=dev)
+        block[torch.arange(b * R, device=dev) // R,
+              torch.arange(b * R, device=dev)] = True
+        out["multi_scope_topk"][f"rescore_q{b}_synthetic"] = batch_record(
+            torch, ops, ref, peaks, "multi_scope_topk",
+            (QB[:b], X[cand].contiguous(), words_of(torch, block),
+             torch.arange(b, dtype=torch.int32, device=dev), k), {},
+            f"multi_scope_topk rescore q={b} (synthetic)")
 
     R = 16
     masks = words_of(torch, torch.rand(R, n, generator=g, device=dev) < 0.5)
@@ -569,11 +705,17 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                    ops.scoped_topk_i8(q1, s1, x8, xs, sq, ones, k1, metric),
                    ref.scoped_topk_i8_ref(q1, s1, x8, xs, sq, ones, k1,
                                           metric))
-        exact_case(torch, f"multi_scope_topk_i8 main {metric}",
-                   ops.multi_scope_topk_i8(qb, sb, x8, xs, sq, words, sid,
-                                           kb, metric),
+        got = ops.multi_scope_topk_i8(qb, sb, x8, xs, sq, words, sid, kb,
+                                      metric)
+        exact_case(torch, f"multi_scope_topk_i8 main {metric}", got,
                    ref.multi_scope_topk_i8_ref(qb, sb, x8, xs, sq, words,
                                                sid, kb, metric))
+        same_as_dense(torch, f"multi_scope_topk_i8 main {metric} vs "
+                      f"scoped_topk_i8", got,
+                      lambda i, m: ops.scoped_topk_i8(
+                          qb[i:i + 1], sb[i:i + 1], x8, xs, sq, m, kb,
+                          metric), dense, sid)
+        del got
         exact_case(torch, f"scoped_topk_pq main k={k1}",
                    ops.scoped_topk_pq(lut1, codes, ones, k1),
                    ref.scoped_topk_pq_ref(lut1, codes, ones, k1))
@@ -581,16 +723,6 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                    ops.multi_scope_topk_pq(lutb, codes, words, sid, kb),
                    ref.multi_scope_topk_pq_ref(lutb, codes, words, sid, kb))
         cases += 4
-
-    def library_int_mm():
-        try:
-            x8t = x8.t()
-            torch._int_mm(qb, x8t)
-        except RuntimeError as exc:            # a yardstick only
-            print(f"chip_smoke: torch._int_mm unavailable: {exc}",
-                  file=sys.stderr)
-            return None
-        return median_ms(torch, lambda: torch._int_mm(qb, x8t), 20)
 
     out["scoped_topk_i8"] = {
         "max_abs_err": 0.0,
@@ -608,7 +740,7 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
             qb, sb, x8, xs, None, words, sid, 80), 30, names),
         "plain_ms": median_ms(torch, lambda: ref.multi_scope_topk_i8_ref(
             qb, sb, x8, xs, None, words, sid, 80), 5),
-        "library_ms": library_int_mm(),
+        "library_ms": library_int_mm(torch, qb, x8),
         **bound(union * (d + 4) + S * n_words * 4 + B * (d + 8 + 80 * 8),
                 2.0 * admitted * d, peaks, "int8"),
         "shape": f"q={B} n={n} d={d} k=80 ip scopes={S} "
@@ -1036,10 +1168,13 @@ def phase2(torch, args, ops, journal):
                 for i in range(len(paths))]
 
     ops.reset_launch_counts()
+    path = MainPath(ops)
+    captured = {}
     ta = time.perf_counter()
-    batch = batched()
+    with path.counted(), first_calls(ops, ("multi_scope_topk",), captured):
+        batch = batched()
     tb = time.perf_counter()
-    per_batch = ops.launch_counts()
+    per_batch = dict(path.counts)
     loop = looped()
     tc = time.perf_counter()
     check(same_results(batch, loop), "dsq_batch != loop of dsq (bitwise)")
@@ -1052,9 +1187,11 @@ def phase2(torch, args, ops, journal):
     scan_groups, _ = db.planner().resolve_scopes(
         db.namespaces["fs"], len(db.store), scan_keys)
     for key, ent in scan_groups.items():
-        check(device_popcount(ent.words) == ent.scope_size,
+        with path.counted():               # the selectivity entry point
+            size = device_popcount(ent.words)
+        check(size == ent.scope_size,
               f"device_popcount != scope_size for {key}")
-    counts = ops.launch_counts()
+    counts = dict(path.counts)
     check(counts["multi_scope_topk"] > 0 and counts["scoped_topk"] > 0,
           f"scan kernels not launched on the main path: {counts}")
 
@@ -1072,14 +1209,29 @@ def phase2(torch, args, ops, journal):
     emit({"phase": 2, "scale": args.scale, "entries": len(db.store),
           "dirs": len(ds.dirs), "gen_s": t1 - t0, "ingest_s": t2 - t1,
           "plans": acct.plan_groups, "unique_scopes": acct.unique_scopes,
-          "launches_per_batch": per_batch, "launches_phase": counts,
+          "launches_per_batch": per_batch, "launches_main_path": counts,
+          "launches_phase": ops.launch_counts(),
           "batch_first_ms": (tb - ta) * 1e3, "loop_first_ms": (tc - tb) * 1e3,
           "batch_warm_ms": (te - td) * 1e3, "loop_warm_ms": (tf - te) * 1e3,
           "directory_ns": acct.directory_ns, "ann_ns": acct.ann_ns,
           "scan_groups_popcount_checked": len(scan_groups),
           "recall_at_10": rec_k,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
-    return ds, db, batched, looped, counts
+    return ds, db, batched, looped, counts, captured
+
+
+def phase2_kernels(torch, ops, ref, peaks, captured, measured) -> None:
+    """Kernel 2 on the arguments phase 2's flat batch gave it (the scan
+    plan's group on WIKI-Dir's real scope masks), by :func:`batch_record`.
+    Recorded beside phase 1's main shape under "flat_batch"; launches here
+    are not the main path's."""
+    check("multi_scope_topk" in captured,
+          "phase 2 recorded no multi_scope_topk launch")
+    args, kw = captured["multi_scope_topk"]
+    rec = batch_record(torch, ops, ref, peaks, "multi_scope_topk", args, kw,
+                       "multi_scope_topk flat batch")
+    measured["multi_scope_topk"]["flat_batch"] = rec
+    emit({"phase": "2-kernels", "multi_scope_topk": rec})
 
 
 # --------------------------------------------------------------- phase 3
@@ -1106,12 +1258,14 @@ def phase3(torch, ops, ds, db, batched, looped):
                  + [("merge", s, d) for s, d in ds.merges[:10]])
     before = cache.stats()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    db.move(*target)
-    result = db.dsm_batch(templates)
-    t1 = time.perf_counter()
-    after_batch = batched()
-    counts = ops.launch_counts()
+    path = MainPath(ops)
+    with path.counted():
+        t0 = time.perf_counter()
+        db.move(*target)
+        result = db.dsm_batch(templates)
+        t1 = time.perf_counter()
+        after_batch = batched()             # patches the cached masks
+    counts = dict(path.counts)
     stats = cache.stats()
     check(counts["bitmap_patch"] > 0, f"bitmap_patch not launched: {counts}")
     check(stats["patched"] > before["patched"], f"nothing patched: {stats}")
@@ -1121,11 +1275,11 @@ def phase3(torch, ops, ds, db, batched, looped):
     check(same_results(after_batch, batched()),
           "after DSM: patched-cache batch != uncached batch (bitwise)")
     db.check_invariants()
-    counts = ops.launch_counts()
     emit({"phase": 3, "dsm_ops": 1 + len(templates),
           "dsm_rejected": sum(e is not None for e in result.errors),
           "dsm_ms": (t1 - t0) * 1e3, "cache": stats,
-          "launches_phase": counts, "targeted_op": target})
+          "launches_main_path": counts, "launches_phase": ops.launch_counts(),
+          "targeted_op": target})
     return counts
 
 
@@ -1148,9 +1302,12 @@ def set_recall(base, other) -> float:
     return hits / max(total, 1)
 
 
-def phase4(torch, ops, ds, db, batched) -> dict:
+def phase4(torch, ops, ds, db, batched):
     """int8 and PQ on the phase-2 database (after phase 3's DSM), then
-    tiered storage. Every failed check is collected and reported at once."""
+    tiered storage. Every failed check is collected and reported at once.
+    Returns the main path's launch counts, the arguments of the int8
+    batch's kernel-6 launch and of every kernel-2 launch its exact rescore
+    (``gather_rescore``) made."""
     _, paths, rec = requests(ds)
     queries = requests(ds)[0]
     k = 10
@@ -1170,15 +1327,23 @@ def phase4(torch, ops, ds, db, batched) -> dict:
     store.device_pq_codes()
     t2 = time.perf_counter()
     ops.reset_launch_counts()
+    path = MainPath(ops)
     info = {"phase": 4, "int8_setup_s": t1 - t0, "pq_setup_s": t2 - t1,
             "pq_m": store.pq_codebook.m}
-    results = {}
+    results, captured, rescores = {}, {}, []
     for prec, rk in (("int8", None), ("pq", PQ_RESCORE_K)):
         def batch():
             return db.dsq_batch(queries, paths, k=k, recursive=rec,
                                 precision=prec, rescore_k=rk)
         ta = time.perf_counter()
-        b = batch()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(path.counted())
+            if prec == "int8":
+                stack.enter_context(first_calls(
+                    ops, ("multi_scope_topk_i8",), captured))
+                stack.enter_context(recorded_calls(
+                    ops, "multi_scope_topk", range(1 << 30), rescores))
+            b = batch()
         tb = time.perf_counter()
         loop = [db.dsq(queries[i], paths[i], k=k, recursive=rec[i],
                        precision=prec, rescore_k=rk)
@@ -1220,11 +1385,12 @@ def phase4(torch, ops, ds, db, batched) -> dict:
     def tiered():
         return db.dsq_batch(queries, paths, k=k, recursive=rec,
                             rescore_k=PQ_RESCORE_K)
-    ta = time.perf_counter()
-    first = tiered()
-    tb = time.perf_counter()
-    second = tiered()
-    tc = time.perf_counter()
+    with path.counted():
+        ta = time.perf_counter()
+        first = tiered()
+        tb = time.perf_counter()
+        second = tiered()
+        tc = time.perf_counter()
     a1, a2 = first[0].batch, second[0].batch
     gate(a1.precision_groups.get("pq", 0) > 0,
          f"fp32 batch did not take the PQ plan: {a1.precision_groups}")
@@ -1244,7 +1410,7 @@ def phase4(torch, ops, ds, db, batched) -> dict:
     tiered_recall = set_recall(fp, second)
     gate(tiered_recall >= PQ_RECALL,
          f"tiered recall@10 {tiered_recall} < {PQ_RECALL}")
-    counts = ops.launch_counts()
+    counts = dict(path.counts)
     info["tiered"] = {
         "budget_bytes": store.device_budget, "fp32_mirror_freed": freed,
         "precision_groups": a1.precision_groups,
@@ -1255,10 +1421,35 @@ def phase4(torch, ops, ds, db, batched) -> dict:
         "batch_second_ms": (tc - tb) * 1e3, "recall_at_10": tiered_recall}
     info["launches_main_path"] = counts
     info["launches_phase"] = ops.launch_counts()
+    info["int8_rescore_launches"] = sorted(
+        int(args[0].shape[0]) for _, args, _ in rescores)
     info["failed"] = failed
     emit(info)
     check(not failed, "; ".join(failed))
-    return counts
+    return counts, captured, rescores
+
+
+def phase4_kernels(torch, ops, ref, peaks, captured, rescores,
+                   measured) -> None:
+    """Kernel 6 on the arguments of phase 4's int8 batch (its scan group on
+    the real scope masks and int8 rows), and kernel 2 on the widest launch
+    that batch's exact rescore made (``gather_rescore``'s block-diagonal
+    masks over the gathered candidates), by :func:`batch_record`. Recorded
+    beside phase 1's main shapes; launches here are not the main path's."""
+    check("multi_scope_topk_i8" in captured,
+          "phase 4 recorded no multi_scope_topk_i8 launch")
+    check(len(rescores) > 0, "phase 4 recorded no rescore launch")
+    args, kw = captured["multi_scope_topk_i8"]
+    recs = {"multi_scope_topk_i8": batch_record(
+        torch, ops, ref, peaks, "multi_scope_topk_i8", args, kw,
+        "multi_scope_topk_i8 int8 batch")}
+    measured["multi_scope_topk_i8"]["flat_batch"] = recs[
+        "multi_scope_topk_i8"]
+    _, args, kw = max(rescores, key=lambda call: call[1][0].shape[0])
+    recs["rescore"] = batch_record(torch, ops, ref, peaks, "multi_scope_topk",
+                                   args, kw, "multi_scope_topk rescore")
+    measured["multi_scope_topk"]["rescore"] = recs["rescore"]
+    emit({"phase": "4-kernels", **recs})
 
 
 # --------------------------------------------------------------- phase 5
@@ -1289,12 +1480,33 @@ def first_calls(ops, names, into: dict):
             setattr(ops, name, fn)
 
 
+class MainPath:
+    """A phase's main-path launch counts: the launches made inside its
+    ``with path.counted():`` windows, around the entry points it drives.
+    The checks' own launches (loops held against a batch, reference
+    batches, timings, profiler sessions) are made outside them."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    @contextlib.contextmanager
+    def counted(self):
+        before = self.ops.launch_counts()
+        yield
+        after = self.ops.launch_counts()
+        for key in self.counts:
+            self.counts[key] += after[key] - before[key]
+
+
 def phase5(torch, ops, ref, ds, db):
     """The IVF executor on the phase-2 database (after phases 3 and 4; the
     phase-4 byte budget is lifted first). Every failed check is collected
-    and reported at once. Returns the phase's launch counts and the
-    arguments of the first kernel-9 launch of each precision in the
-    nprobe-8 mix."""
+    and reported at once. Returns the main path's launch counts (the build,
+    the first batch of each precision, the deletes, the ingest, the
+    repartition and the tiered batch; not the checks' batches, loops and
+    timings) and the arguments of the first kernel-9 launch of each
+    precision in the nprobe-8 mix."""
     from repro_torch.vectordb import IVFIndex
     _, paths, rec = requests(ds)
     queries = requests(ds)[0]
@@ -1314,12 +1526,14 @@ def phase5(torch, ops, ref, ds, db):
     store.device_vectors()
     gate(not store.tiered_active(), "budget lifted but still tiered")
     ops.reset_launch_counts()
+    path = MainPath(ops)
     info = {"phase": 5, "budget_lifted": True, "entries": len(store)}
 
     # 1-2: build (timed), twice: k-means repeats bit for bit
-    t0 = time.perf_counter()
-    db.build_ann("ivf", n_lists=IVF_LISTS, seed=0)
-    info["build_s"] = sync_s(t0)
+    with path.counted():
+        t0 = time.perf_counter()
+        db.build_ann("ivf", n_lists=IVF_LISTS, seed=0)
+        info["build_s"] = sync_s(t0)
     ivf = db.executors["ivf"]
     t0 = time.perf_counter()
     twin = IVFIndex(store, n_lists=IVF_LISTS, seed=0)
@@ -1329,9 +1543,10 @@ def phase5(torch, ops, ref, ds, db):
                                                       twin.lists)),
          "two k-means builds differ")
     del twin
-    t0 = time.perf_counter()
-    ivf.layout()
-    info["layout_s"] = sync_s(t0)
+    with path.counted():
+        t0 = time.perf_counter()
+        ivf.layout()
+        info["layout_s"] = sync_s(t0)
     info["partition_stats"] = ivf.partition_stats()
 
     # 3: the 64-request mix at nprobe 8, batch == loop at every precision
@@ -1342,7 +1557,7 @@ def phase5(torch, ops, ref, ds, db):
                   rescore_k=rk)
         before = ops.launch_counts()
         ta = time.perf_counter()
-        with first_calls(ops, IVF_KERNELS, captured):
+        with path.counted(), first_calls(ops, IVF_KERNELS, captured):
             b = db.dsq_batch(queries, paths, recursive=rec, **kw)
         tb = time.perf_counter()
         after = ops.launch_counts()
@@ -1413,8 +1628,9 @@ def phase5(torch, ops, ref, ds, db):
     # 6: deleted ids never come back
     victims = sorted({int(r.ids[0][0]) for r in results["fp32"][:16]
                       if r.ids[0][0] >= 0})[:5]
-    for v in victims:
-        db.delete(v)
+    with path.counted():
+        for v in victims:
+            db.delete(v)
     for prec, rk in (("fp32", None), ("int8", None), ("pq", PQ_RESCORE_K)):
         got = db.dsq_batch(queries, paths, k=k, recursive=rec,
                            executor="ivf", nprobe=IVF_NPROBE, precision=prec,
@@ -1428,10 +1644,11 @@ def phase5(torch, ops, ref, ds, db):
     pick = rng.integers(0, len(ds.vectors), size=IVF_INGEST)
     new = ds.vectors[pick] + rng.normal(
         size=(IVF_INGEST, store.dim)).astype(np.float32) * 0.01
-    t0 = time.perf_counter()
-    ids = db.ingest(new.astype(np.float32),
-                    [ds.entry_paths[i] for i in pick])
-    info["ingest_s"] = sync_s(t0)
+    with path.counted():
+        t0 = time.perf_counter()
+        ids = db.ingest(new.astype(np.float32),
+                        [ds.entry_paths[i] for i in pick])
+        info["ingest_s"] = sync_s(t0)
     members = np.concatenate(ivf.lists)
     gate(len(members) == len(store) and np.isin(ids, members).all(),
          f"ivf.add: {len(members)} members for {len(store)} rows")
@@ -1442,9 +1659,10 @@ def phase5(torch, ops, ref, ds, db):
          "after ingest: ivf dsq_batch != loop")
 
     # 8: repartition, then batch == loop again
-    t0 = time.perf_counter()
-    info["repartition"] = ivf.repartition(seed=0)
-    info["repartition_s"] = sync_s(t0)
+    with path.counted():
+        t0 = time.perf_counter()
+        info["repartition"] = ivf.repartition(seed=0)
+        info["repartition_s"] = sync_s(t0)
     info["partition_stats_after"] = ivf.partition_stats()
     gate(same_results(ivf_batch(), [
         db.dsq(queries[i], paths[i], k=k, recursive=rec[i], executor="ivf",
@@ -1461,7 +1679,8 @@ def phase5(torch, ops, ref, ds, db):
     store.set_device_budget(store.alive_nbytes() // 3)
     gate(store.tiered_active(), "budget set but the store is not tiered")
     before = ops.launch_counts()
-    tiered = db.dsq_batch(queries, paths, **kw)
+    with path.counted():
+        tiered = db.dsq_batch(queries, paths, **kw)
     after = ops.launch_counts()
     gate(same_results(tiered, explicit),
          "tiered ivf batch != explicit PQ ivf batch (bitwise)")
@@ -1475,7 +1694,7 @@ def phase5(torch, ops, ref, ds, db):
          and groups.get("fp32", 0) > 0
          and info["tiered"]["kernel_launches"].get("ivf_gather_topk", 0) == 0,
          f"tiered ivf batch took no host-row fp32 group: {info['tiered']}")
-    counts = ops.launch_counts()
+    counts = dict(path.counts)
     info["launches_main_path"] = counts
     info["launches_phase"] = ops.launch_counts()
     info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
@@ -1663,17 +1882,7 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
     keep = set(range(cfg.n_layers)) | set(range(per_answer - cfg.n_layers,
                                                  per_answer))
     captured, flags, answers = [], [], []
-    main_path = dict.fromkeys(ops.launch_counts(), 0)
-
-    @contextlib.contextmanager
-    def counted():
-        """Adds the launches made inside to ``main_path``; the checks'
-        own launches (``direct`` below) stay outside."""
-        before = ops.launch_counts()
-        yield
-        after = ops.launch_counts()
-        for key in main_path:
-            main_path[key] += after[key] - before[key]
+    path = MainPath(ops)           # the checks' ``direct`` stays outside
 
     def one_answer(label, record):
         direct = ctx.retrieve_batch(queries, paths, rcfg, recursive=rec)
@@ -1683,7 +1892,7 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
             if record:
                 stack.enter_context(recorded_calls(
                     ops, "flash_decode", keep, captured))
-            stack.enter_context(counted())
+            stack.enter_context(path.counted())
             t = time.perf_counter()
             out = server.answer(queries, paths, prompt,
                                 max_new_tokens=RAG_STEPS, recursive=rec)
@@ -1714,7 +1923,7 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
     merged = None
     for src, dst in ds.merges:
         try:
-            with counted():
+            with path.counted():
                 ctx.reorganize("merge", src, dst)
         except (KeyError, ValueError):
             continue
@@ -1724,7 +1933,7 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
     ctx.db.check_invariants()
     info["merge"] = merged
     info["answer_2"] = one_answer("answer 2", record=False)
-    counts = dict(main_path)
+    counts = dict(path.counts)
     gate(all(bool(f) for f in flags) and len(flags) == 2 * (1 + RAG_STEPS),
          f"non-finite logits in {sum(not bool(f) for f in flags)} of "
          f"{len(flags)} calls")
@@ -1866,10 +2075,14 @@ def main() -> int:
     scratch = ROOT / "build"            # ignored by git, like the kernels
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        ds, db, batched, looped, c2 = phase2(torch, args, ops,
-                                              str(Path(tmp) / "dsm.journal"))
+        ds, db, batched, looped, c2, captured = phase2(
+            torch, args, ops, str(Path(tmp) / "dsm.journal"))
+        phase2_kernels(torch, ops, ref, peaks, captured, measured)
+        del captured                    # it holds the fp32 device rows
         c3 = phase3(torch, ops, ds, db, batched, looped)
-        c4 = phase4(torch, ops, ds, db, batched)
+        c4, captured, rescores = phase4(torch, ops, ds, db, batched)
+        phase4_kernels(torch, ops, ref, peaks, captured, rescores, measured)
+        del captured, rescores
         c5, captured = phase5(torch, ops, ref, ds, db)
         phase5_kernels(torch, ops, ref, peaks, captured, measured)
         del captured, ds, db, batched, looped

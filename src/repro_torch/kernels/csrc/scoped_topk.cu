@@ -30,17 +30,69 @@
 // does 4.0 G shared-memory LUT lookups, which bound it in practice. The
 // (q, n) score matrix is never written to device memory.
 //
-// Design. The TPU's sequential n-sweep with a running top-k in VMEM scratch
-// does not carry over: Hopper blocks run in parallel and in no order. So:
-//   pass 1: grid (query tiles of qt <= 8, row chunks). A block stages the
-//           query side of its tile in shared memory (fp32 or int8 query
-//           rows, or the tile's LUTs) and sweeps its chunk 256 rows at a
-//           time: each thread scores one row against the whole tile, rows
-//           no query of the tile admits are skipped, and warp j merges query
-//           j's 256 scores into its sorted top-k list. The block writes its
-//           lists as (q, n_chunks, k) partials.
-//   pass 2: one warp per query merges the partials into the final top-k.
-// Limits lifted by design, with no other code path:
+// Two pass-1 designs share one pass 2; the TPU's sequential n-sweep with a
+// running top-k in VMEM scratch does not carry over (Hopper blocks run in
+// parallel and in no order), so every pass 1 writes per-chunk partial lists
+// (q, n_chunks, k) and pass 2 merges them: one block per query, warp w
+// merging chunks w, w + 8, ..., then warp 0 the warps' lists; a list is
+// sorted, so a warp stops reading it at its first entry that loses.
+//
+// scan_pass1_tiled: the fp32 and int8 scans with per-query scope words
+// (multi_scope_topk, multi_scope_topk_i8), the batched scans of dsq_batch.
+//   grid (query tiles of qt <= 64, row chunks, ~1 block per SM in all);
+//   each block reads its chunk's rows once for its whole query tile.
+//   staging: row tiles (256 rows fp32, 128 int8), in depth slices (32
+//           floats, 128 bytes), go through a ring of 2 shared-memory
+//           stages with cp.async (16-byte copies where rows start 16-byte
+//           aligned, else 4-byte, else byte copies), with the tile's scope
+//           words (rows / 32 per query), row scales and l2 norms; the copy
+//           of the next stage overlaps the work on this one (3 and 4
+//           stages measured no faster on the H100). The query
+//           side stays resident when it fits 64 KB, else rides in each
+//           stage as a depth slice; every chain continues across slices in
+//           the same order. Row strides are padded to an odd number of
+//           16-byte units: 8 rows read at one depth hit 8 bank groups.
+//   int8:   16 warps; mma.sync m16n8k32 s8*s8 -> s32 on the tensor cores.
+//           Queries are A (row-major, zero-padded to 16 rows), staged rows
+//           are B as stored (n, d) = column-major, ldmatrix.x4 feeds both;
+//           d is zero-padded to 32 on the query side. Warp w owns rows
+//           16 (w % 8)..+15 against query groups 2 (w / 8) and 2 (w / 8) + 1;
+//           int32 sums are exact, so every score equals the __dp4a chain's
+//           bits.
+//   fp32:   8 warps, register-tiled on the CUDA cores: warp w owns query
+//           group w / 2 (16 queries) x rows 128 (w % 2)..+127, each thread
+//           8 queries x 8 rows = 64 accumulators, fed by float4 loads per
+//           depth quad (shared memory, not the FMA pipe, bounds this loop).
+//           acc = fmaf(q[c], x[c], acc) for c = 0..d-1 in order from 0.0f,
+//           the chain of Scorer<kF32> (and of kernel 1), so scores keep
+//           their bits: no TF32, no split-k, no reassociation, and the file
+//           is built without -use_fast_math (padding adds fmaf(0, 0, acc),
+//           which leaves a chain that starts at +0 unchanged).
+//   skip:   a (16-query group x warp's rows) product runs only when some
+//           query of the group admits one of those rows, so the
+//           block-diagonal masks of gather_rescore cost about one tile per
+//           query.
+//   epilogue: per query, the scores of admitted pairs (bit r & 31 of the
+//           staged words, r inside the chunk) that beat its list's tail; a
+//           warp with any writes its rows' scores to shared memory and
+//           flags the query. Warp w then gathers each flagged query's
+//           candidates into its 32-entry buffer and merges a full buffer
+//           into the query's list (warp_merge: a bitonic sort of the 32 and
+//           a rank-based merge); the list's tail is the next tile's filter.
+//           Lists live in shared memory, the query tile halved until
+//           qt k 8 bytes fit beside the ring, and in their partial slots in
+//           device memory only when one query's do not fit (tiled_plan,
+//           which also picks the depth slice and the query side's
+//           residency: the wrapper passes only a cap on the tile).
+//
+// scan_pass1: the dense-mask scans (scoped_topk, scoped_topk_i8), every PQ
+// scan and the gathered scans.
+//   grid (query tiles of qt <= 8, row chunks). A block stages the query
+//   side of its tile in shared memory (fp32 or int8 query rows, or the
+//   tile's LUTs) and sweeps its chunk 256 rows at a time: each thread
+//   scores one row against the whole tile (16-byte loads where the layout
+//   allows), rows no query of the tile admits are skipped, and warp j
+//   merges query j's 256 scores into its sorted top-k list.
 //   any k: the insertion shifts a list 32 entries at a time from its tail,
 //          so a list has no length bound in registers; lists live in shared
 //          memory while they fit (the wrapper shrinks qt for large k) and in
@@ -64,12 +116,10 @@
 // int8, M PQ), so B * C_admitted row reads; the unique-bytes floor is each
 // distinct admitted row once plus the B * C * 4 bytes of candidate ids.
 // Overlapping probed lists are re-read from device memory (or L2) once per
-// query; sharing them across a query tile is left for a later change.
+// query; sharing them across a query tile is left for a later change, as
+// are the dense-mask and PQ scans' move to the tiled design.
 // The result is the exact top-k under a total order, and no atomics are
-// used: runs are bit-for-bit repeatable. Rows are read per thread (one row
-// per thread, 16-byte loads where the layout allows); making the scans
-// reach their bounds (tensor-core int8, LUTs in registers, staging rows
-// through shared memory) is left for a later change.
+// used: runs are bit-for-bit repeatable.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -77,7 +127,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;                 // = the largest query tile
+constexpr int kWarps = 8;                 // = scan_pass1's largest query tile
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -FLT_MAX;       // finfo(float32).min
 constexpr unsigned kAll = 0xffffffffu;
@@ -110,15 +160,95 @@ __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-// Offer one candidate per lane (``ok`` marks lanes that hold one) to the
-// warp's sorted list (lv, li) of length k, in lane order. The list is owned
-// by the calling warp alone (shared or device memory).
-__device__ void warp_offer(float* lv, int* li, int k, float cv, int ci,
+// warp_merge holds a list of k <= 32 * kSlots entries in registers: 8
+// slots for the tiled pass 1 at k <= 256 (its registers are scarce), 16 for
+// larger k and for pass 2
+constexpr int kMergeSlots = 8;
+constexpr int kMergeSlotsWide = 16;
+
+// Merge the lanes' candidates (``ok`` lanes; ids distinct from the list's)
+// into the warp's sorted list (lv, li) of length k <= 32 * kSlots at
+// once: a bitonic sort of the 32 lanes (best first), then each list entry
+// moves down by the candidates better than it (binary search over the
+// sorted lanes) and candidate c lands at c plus the list entries better
+// than it (binary search over the list). Ranks under a total order are a
+// permutation, so the list equals the one-by-one insertion's.
+template <int kSlots>
+__device__ void warp_merge(float* lv, int* li, int k, float cv, int ci,
                            bool ok) {
+  constexpr int kSentinel = 0x7fffffff;
   const int lane = threadIdx.x & 31;
+  float v = ok ? cv : kNegInf;              // a sentinel ranks below every
+  int id = ok ? ci : kSentinel;             // entry, empty lanes included
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(kAll, v, stride);
+      const int oi = __shfl_xor_sync(kAll, id, stride);
+      const bool keep_better = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (better(ov, oi, v, id) == keep_better) {
+        v = ov;
+        id = oi;
+      }
+    }
+  }
+  const float v31 = __shfl_sync(kAll, v, 31);
+  const int i31 = __shfl_sync(kAll, id, 31);
+  float ev[kSlots];
+  int ei[kSlots], epos[kSlots];
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t) {
+    const int j = lane + 32 * t;
+    ev[t] = kNegInf;
+    ei[t] = -1;
+    epos[t] = k;
+    if (32 * t < k) {                       // warp-uniform
+      if (j < k) {
+        ev[t] = lv[j];
+        ei[t] = li[j];
+      }
+      int cnt = 0;                          // candidates better than entry j
+#pragma unroll
+      for (int step = 16; step; step >>= 1) {
+        const float pv = __shfl_sync(kAll, v, cnt + step - 1);
+        const int pi = __shfl_sync(kAll, id, cnt + step - 1);
+        if (better(pv, pi, ev[t], ei[t])) cnt += step;
+      }
+      if (cnt == 31 && better(v31, i31, ev[t], ei[t])) cnt = 32;
+      epos[t] = j + cnt;
+    }
+  }
+  int lo = 0, hi = k;                       // list entries better than lane's
+  if (id != kSentinel) {
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (better(lv[mid], li[mid], v, id))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+  }
+  const int cpos = id == kSentinel ? k : lane + lo;
   __syncwarp();
-  unsigned want = __ballot_sync(kAll, ok && better(cv, ci, lv[k - 1],
-                                                   li[k - 1]));
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t) {
+    if (32 * t < k && lane + 32 * t < k && epos[t] < k) {
+      lv[epos[t]] = ev[t];
+      li[epos[t]] = ei[t];
+    }
+  }
+  if (cpos < k) {
+    lv[cpos] = v;
+    li[cpos] = id;
+  }
+  __syncwarp();
+}
+
+// Insert the candidates of lanes ``want`` one by one, in lane order.
+__device__ void warp_insert(float* lv, int* li, int k, float cv, int ci,
+                            unsigned want) {
+  const int lane = threadIdx.x & 31;
   while (want) {
     const int src = __ffs(want) - 1;
     want &= want - 1;
@@ -153,6 +283,29 @@ __device__ void warp_offer(float* lv, int* li, int k, float cv, int ci,
       __syncwarp();
     }
   }
+}
+
+// Offer one candidate per lane (``ok`` marks lanes that hold one) to the
+// warp's sorted list (lv, li) of length k, in lane order. The list is owned
+// by the calling warp alone (shared or device memory). Several winners at
+// once go through warp_merge<kSlots> where k <= 32 kSlots; else, and with
+// kSlots = 0 (scan_pass1, whose registers the merge would crowd), one by
+// one. Returns the lanes whose candidate beat the list's tail on entry.
+template <int kSlots>
+__device__ unsigned warp_offer(float* lv, int* li, int k, float cv, int ci,
+                               bool ok) {
+  __syncwarp();
+  const bool win = ok && better(cv, ci, lv[k - 1], li[k - 1]);
+  unsigned want = __ballot_sync(kAll, win);
+  const unsigned won = want;
+  if constexpr (kSlots > 0) {
+    if (__popc(want) > 1 && k <= 32 * kSlots) {
+      warp_merge<kSlots>(lv, li, k, cv, ci, win);
+      return won;
+    }
+  }
+  if (want) warp_insert(lv, li, k, cv, ci, want);
+  return won;
 }
 
 // ------------------------------------------------------------- scorers
@@ -436,7 +589,7 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
       for (int t = 0; t < kThreads; t += 32) {
         const int row = base + t + lane;
         const float v = sv[warp * kThreads + t + lane];
-        warp_offer(wl, wi, k, v, row, row < r_end && v > kNegInf);
+        warp_offer<0>(wl, wi, k, v, row, row < r_end && v > kNegInf);
       }
     }
     __syncthreads();
@@ -452,20 +605,46 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
   }
 }
 
-// One warp per query: merge the (n_chunks, k) partial lists. The list
-// lives in shared memory for k <= kPass2SmemList, else in the output row.
-// Gathered mode (``cand`` non-null) ranks positions and writes the store
-// ids at them, cand[qi, pos].
-__global__ void __launch_bounds__(32)
+// Pass 2, one block per query: warp w merges the partial lists of chunks
+// w, w + nw, ... into its own list, then warp 0 merges the others' lists.
+// Every list merged is sorted best first, so a warp stops reading one at
+// its first entry that does not beat its tail. nw = 8 while the lists fit
+// kPass2SmemList entries, else one warp whose list lives in shared memory
+// for k <= kPass2SmemList, else in the output row. Gathered mode (``cand``
+// non-null) ranks positions and writes the store ids at them,
+// cand[qi, pos].
+__device__ void merge_sorted(float* lv, int* li, int k,
+                             const float* __restrict__ sv,
+                             const int* __restrict__ si) {
+  const int lane = threadIdx.x & 31;
+  for (int e = 0; e < k; e += 32) {
+    const int j = e + lane;
+    const bool in = j < k;
+    const float v = in ? sv[j] : kNegInf;
+    const int id = in ? si[j] : -1;
+    const bool ok = in && id >= 0;
+    if (warp_offer<kMergeSlotsWide>(lv, li, k, v, id, ok) !=
+        __ballot_sync(kAll, in))
+      break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
 scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
            int n_chunks, int k, const int* __restrict__ cand, int n_cand,
            float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ float smem2[];
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   const size_t qi = blockIdx.x;
-  const bool in_smem = k <= kPass2SmemList;
-  float* lv = in_smem ? smem2 : out_v + qi * k;
-  int* li = in_smem ? reinterpret_cast<int*>(smem2 + k) : out_i + qi * k;
+  const bool in_smem = static_cast<size_t>(nw) * k <= kPass2SmemList;
+  float* lists_v = smem2;
+  int* lists_i = reinterpret_cast<int*>(smem2 + static_cast<size_t>(nw) * k);
+  float* lv = in_smem ? lists_v + static_cast<size_t>(warp) * k
+                      : out_v + qi * k;
+  int* li = in_smem ? lists_i + static_cast<size_t>(warp) * k
+                    : out_i + qi * k;
   for (int j = lane; j < k; j += 32) {
     lv[j] = kNegInf;
     li[j] = -1;
@@ -473,13 +652,14 @@ scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
   const size_t total = static_cast<size_t>(n_chunks) * k;
   const float* pv = part_v + qi * total;
   const int* pi = part_i + qi * total;
-  for (size_t t = 0; t < total; t += 32) {
-    const size_t idx = t + lane;
-    const bool in = idx < total;
-    const float v = in ? pv[idx] : kNegInf;
-    const int id = in ? pi[idx] : -1;
-    warp_offer(lv, li, k, v, id, in && id >= 0);
-  }
+  for (int c = warp; c < n_chunks; c += nw)
+    merge_sorted(lv, li, k, pv + static_cast<size_t>(c) * k,
+                 pi + static_cast<size_t>(c) * k);
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < nw; ++w)
+    merge_sorted(lv, li, k, lists_v + static_cast<size_t>(w) * k,
+                 lists_i + static_cast<size_t>(w) * k);
   __syncwarp();
   for (int j = lane; j < k; j += 32) {      // each lane its own entries
     const float v = lv[j];
@@ -488,6 +668,641 @@ scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
     out_v[qi * k + j] = v;
     out_i[qi * k + j] = id;
   }
+}
+
+// ------------------------------------------------- tiled pass 1 (fp32, int8)
+constexpr int kTileQ = 64;                // largest query tile
+// rows per row tile: 256 for fp32 (8 x 8 register tiles), 128 for int8
+__host__ __device__ constexpr int tile_rows(int kind) {
+  return kind == kF32 ? 256 : 128;
+}
+constexpr int kStages = 2;     // ring: tile t + 1 is copied while t computes
+constexpr int kSmemLimit = 232448;        // dynamic shared memory per block
+constexpr int kQResident = 64 * 1024;     // query side kept resident up to
+// depth one ring stage holds: 32 floats (fp32), 128 bytes (int8)
+__host__ __device__ constexpr int tiled_slice(int kind) {
+  return kind == kF32 ? 32 : 128;
+}
+
+struct TiledScan {
+  const void* q;           // f32 | i8 (nq, depth)
+  const float* q_scale;    // int8: (nq,)
+  const void* rows;        // f32 | i8 (n, depth)
+  const float* row_scale;  // int8: (n,)
+  const float* sq;         // l2: (n,)
+  const uint32_t* words;   // (n_scopes, n_words)
+  const int* sids;         // (nq,)
+  int n_scopes, n_words;
+  int nq, n, depth, slice, k, qt, q_resident, chunk_rows, smem_lists;
+  int row_width, q_width;  // copy width in bytes: 16, 4 or 1
+  float* part_v;
+  int* part_i;
+};
+
+// a staged row's stride: an odd number of 16-byte units, so 8 rows read at
+// one depth (ldmatrix, float4) fall on 8 distinct bank groups
+__host__ __device__ inline int pad_stride(int bytes) {
+  int u = (bytes + 15) / 16;
+  if (!(u & 1)) ++u;
+  return u * 16;
+}
+
+// bytes of a depth slice of ``len`` elements, padded to the compute unit
+// (4 floats for fp32, one 32-byte mma step for int8)
+__host__ __device__ inline int depth_pad(int kind, int len) {
+  return kind == kF32 ? (len + 3) / 4 * 16 : (len + 31) / 32 * 32;
+}
+
+// Shared memory of the tiled pass 1, in this order: the resident query side,
+// the ring of stages (rows, then the query slice when not resident), the
+// ring's meta slots (words, row scales, norms), the scores, per query the
+// candidate flags (one word per row slot of 8), its list's tail (value,
+// id), scale, scope id, candidate count and 32-entry candidate buffer, then
+// the lists. Every part but the lists is a multiple of 16 bytes.
+struct TiledLayout {
+  int qta, q_stride, r_stride;
+  size_t q_res, stage, meta, sv, misc, lists, total;
+};
+
+__host__ __device__ inline TiledLayout tiled_layout(int kind, int qt,
+                                                    int depth, int slice,
+                                                    int q_resident, int k,
+                                                    int smem_lists) {
+  TiledLayout L;
+  L.qta = (qt + 15) / 16 * 16;
+  L.r_stride = pad_stride(depth_pad(kind, slice));
+  L.q_stride = q_resident ? pad_stride(depth_pad(kind, depth)) : L.r_stride;
+  L.q_res = q_resident ? static_cast<size_t>(L.qta) * L.q_stride : 0;
+  const int rows = tile_rows(kind);
+  L.stage = static_cast<size_t>(rows) * L.r_stride +
+            (q_resident ? 0 : static_cast<size_t>(L.qta) * L.r_stride);
+  L.meta = static_cast<size_t>(L.qta) * (rows / 8) + rows * 8;
+  L.sv = static_cast<size_t>(L.qta) * (rows + 8) * 4;
+  L.misc = static_cast<size_t>(L.qta) * (kWarps * 4 + 20 + 32 * 8);
+  L.lists = smem_lists ? static_cast<size_t>(qt) * k * 8 : 0;
+  L.total = L.q_res + kStages * (L.stage + L.meta) + L.sv + L.misc + L.lists;
+  return L;
+}
+
+// The launch plan for a query tile of at most ``qt_cap``: the tile is
+// halved while its top-k lists do not fit shared memory beside the ring
+// (the lists go to their partial slots in device memory only when one
+// query's do not fit); the query side stays resident when its padded rows
+// fit kQResident. smem is 0 when nothing fits.
+struct TiledPlan {
+  int qt, slice, q_resident, smem_lists;
+  size_t smem;
+};
+
+TiledPlan tiled_plan(int kind, int qt_cap, int depth, int k) {
+  const int slice = depth < tiled_slice(kind) ? depth : tiled_slice(kind);
+  auto fit = [&](int qt, int smem_lists) {
+    const int q_resident = static_cast<size_t>((qt + 15) / 16 * 16) *
+                               pad_stride(depth_pad(kind, depth)) <=
+                           static_cast<size_t>(kQResident);
+    const size_t smem =
+        tiled_layout(kind, qt, depth, slice, q_resident, k, smem_lists).total;
+    return TiledPlan{qt, slice, q_resident, smem_lists,
+                     smem <= static_cast<size_t>(kSmemLimit) ? smem : 0};
+  };
+  int lists_qt = qt_cap;
+  while (fit(lists_qt, 1).smem == 0 && lists_qt > 1)
+    lists_qt = lists_qt / 2 > 1 ? lists_qt / 2 : 1;
+  const TiledPlan with_lists = fit(lists_qt, 1);
+  return with_lists.smem != 0 ? with_lists : fit(qt_cap, 0);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's cp.async groups have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy ``nrows`` rows of ``row_bytes`` bytes (source rows ``src_stride``
+// apart) into shared rows ``dst_stride`` apart, neighbouring threads on
+// neighbouring bytes: cp.async of ``width`` (16 or 4) bytes, or byte loads
+// and stores for width 1 (synchronous; the next __syncthreads publishes
+// them like the cp.async groups).
+__device__ void stage_copy(unsigned char* dst, int dst_stride,
+                           const unsigned char* src, size_t src_stride,
+                           int nrows, int row_bytes, int width) {
+  const int per = row_bytes / width;
+  const int total = nrows * per;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / per;
+    const int c = (i - r * per) * width;
+    unsigned char* d = dst + r * dst_stride + c;
+    const unsigned char* s = src + r * src_stride + c;
+    if (width == 16)
+      cp_async16(d, s);
+    else if (width == 4)
+      cp_async4(d, s);
+    else
+      *d = __ldg(s);
+  }
+}
+
+// zero bytes [from, to) of ``nrows`` shared rows ``stride`` apart
+__device__ void zero_cols(unsigned char* dst, int stride, int nrows, int from,
+                          int to) {
+  const int w = to - from;
+  if (w <= 0) return;
+  for (int i = threadIdx.x; i < nrows * w; i += blockDim.x) {
+    const int r = i / w;
+    dst[r * stride + from + (i - r * w)] = 0;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D = A (16 x 32, s8, row) * B (32 x 8, s8, col) + D, int32
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// threads of the tiled pass 1: 8 warps for fp32, 16 for int8
+__host__ __device__ constexpr int tiled_threads(int kind) {
+  return kind == kI8 ? 512 : 256;
+}
+
+template <int kKind, bool kL2, bool kWide>
+__global__ void __launch_bounds__(tiled_threads(kKind), 1)
+scan_pass1_tiled(const TiledScan p) {
+  constexpr int kNw = tiled_threads(kKind) / 32;   // warps
+  constexpr int kTileR = tile_rows(kKind);          // rows per row tile
+  constexpr int kSvStride = kTileR + 8;             // score row stride
+  constexpr int kWq = kTileR / 32;                  // words per query
+  constexpr int kEb = kKind == kF32 ? 4 : 1;    // bytes per element
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TiledLayout L = tiled_layout(kKind, p.qt, p.depth, p.slice,
+                                     p.q_resident, p.k, p.smem_lists);
+  unsigned char* q_res = smem;
+  unsigned char* ring = smem + L.q_res;
+  unsigned char* meta = ring + kStages * L.stage;
+  float* sv = reinterpret_cast<float*>(meta + kStages * L.meta);
+  unsigned* flags = reinterpret_cast<unsigned*>(sv + L.qta * kSvStride);
+  float* tail_v = reinterpret_cast<float*>(flags + L.qta * kWarps);
+  int* tail_i = reinterpret_cast<int*>(tail_v + L.qta);
+  float* qsc = reinterpret_cast<float*>(tail_i + L.qta);
+  int* sid_s = reinterpret_cast<int*>(qsc + L.qta);
+  int* bcnt = sid_s + L.qta;
+  float* buf_v = reinterpret_cast<float*>(bcnt + L.qta);
+  int* buf_i = reinterpret_cast<int*>(buf_v + L.qta * 32);
+  float* lv_s = reinterpret_cast<float*>(buf_i + L.qta * 32);
+  int* li_s = reinterpret_cast<int*>(lv_s + p.qt * p.k);
+
+  const int k = p.k;
+  const int q0 = blockIdx.x * p.qt;
+  const int nqt = min(p.qt, p.nq - q0);
+  const int chunk = blockIdx.y;
+  const int r_begin = chunk * p.chunk_rows;
+  const int r_end = min(p.n, r_begin + p.chunk_rows);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t row_bytes = static_cast<size_t>(p.depth) * kEb;
+  const unsigned char* q_src =
+      static_cast<const unsigned char*>(p.q) + q0 * row_bytes;
+  const unsigned char* r_src = static_cast<const unsigned char*>(p.rows);
+  auto list_off = [&](int j) {
+    return (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
+  };
+
+  for (int i = threadIdx.x; i < nqt * k; i += blockDim.x) {
+    const int j = i / k;
+    const int s = i - j * k;
+    if (p.smem_lists) {
+      lv_s[i] = kNegInf;
+      li_s[i] = -1;
+    } else {
+      p.part_v[list_off(j) + s] = kNegInf;
+      p.part_i[list_off(j) + s] = -1;
+    }
+  }
+  for (int i = threadIdx.x; i < L.qta * kWarps; i += blockDim.x)
+    flags[i] = 0u;
+  for (int j = threadIdx.x; j < L.qta; j += blockDim.x) {
+    tail_v[j] = kNegInf;        // an empty list's tail
+    tail_i[j] = -1;
+    bcnt[j] = 0;
+    sid_s[j] = j < nqt ? p.sids[q0 + j] : -1;
+    qsc[j] = (kKind == kI8 && j < nqt) ? p.q_scale[q0 + j] : 0.0f;
+  }
+  if (p.q_resident) {           // padding: the depth tail, missing queries
+    zero_cols(q_res, L.q_stride, nqt, static_cast<int>(row_bytes),
+              L.q_stride);
+    zero_cols(q_res + nqt * L.q_stride, L.q_stride, L.qta - nqt, 0,
+              L.q_stride);
+  }
+  __syncthreads();              // sid_s before the first meta copy
+  if (p.q_resident)             // joins the first item's group
+    stage_copy(q_res, L.q_stride, q_src, row_bytes, nqt,
+               static_cast<int>(row_bytes), p.q_width);
+
+  const int ns = (p.depth + p.slice - 1) / p.slice;
+  const int n_tiles =
+      r_end > r_begin ? (r_end - r_begin + kTileR - 1) / kTileR : 0;
+  const int total = n_tiles * ns;
+
+  // item = (row tile t, depth slice s), staged into ring stage
+  // item % kStages; a tile's first slice also stages its meta into slot
+  // t % kStages (at most kStages tiles are in flight)
+  auto issue = [&](int item) {
+    if (item < total) {
+      const int t = item / ns;
+      const int s = item - t * ns;
+      const int r0 = r_begin + t * kTileR;
+      const int c0 = s * p.slice;
+      const int len = min(p.slice, p.depth - c0);
+      const int padb = depth_pad(kKind, len);
+      unsigned char* stage = ring + (item % kStages) * L.stage;
+      const int nr = min(kTileR, r_end - r0);
+      const unsigned char* src = r_src + r0 * row_bytes + c0 * kEb;
+      stage_copy(stage, L.r_stride, src, row_bytes, nr, len * kEb,
+                 p.row_width);
+      if (kKind == kF32)        // fp32 pads must be 0 (0 * NaN is NaN)
+        zero_cols(stage, L.r_stride, kTileR, len * kEb, padb);
+      if (!p.q_resident) {
+        unsigned char* qs = stage + kTileR * L.r_stride;
+        stage_copy(qs, L.r_stride, q_src + c0 * kEb, row_bytes, nqt,
+                   len * kEb, p.q_width);
+        zero_cols(qs, L.r_stride, nqt, len * kEb, padb);
+      }
+      if (s == 0) {
+        unsigned char* m = meta + (t % kStages) * L.meta;
+        uint32_t* ws = reinterpret_cast<uint32_t*>(m);
+        float* rsc = reinterpret_cast<float*>(ws + L.qta * kWq);
+        float* sqs = rsc + kTileR;
+        for (int i = threadIdx.x; i < L.qta * kWq; i += blockDim.x) {
+          const int sid = sid_s[i / kWq];
+          const int wi = (r0 >> 5) + i % kWq;
+          if (sid >= 0 && sid < p.n_scopes && wi < p.n_words)
+            cp_async4(ws + i,
+                      p.words + static_cast<size_t>(sid) * p.n_words + wi);
+          else
+            ws[i] = 0u;
+        }
+        for (int i = threadIdx.x; i < kTileR; i += blockDim.x) {
+          const bool in = r0 + i < r_end;
+          if (kKind == kI8) {
+            if (in)
+              cp_async4(rsc + i, p.row_scale + r0 + i);
+            else
+              rsc[i] = 0.0f;
+          }
+          if (kL2) {
+            if (in)
+              cp_async4(sqs + i, p.sq + r0 + i);
+            else
+              sqs[i] = 0.0f;
+          }
+        }
+      }
+    }
+    cp_async_commit();          // empty groups keep the count uniform
+  };
+
+  issue(0);
+
+  // merge query j's ``cnt`` buffered candidates into its list (warp-owned),
+  // then publish the list's tail
+  auto flush = [&](int j, int cnt) {
+    __syncwarp();
+    float* wl = p.smem_lists ? lv_s + j * k : p.part_v + list_off(j);
+    int* wi = p.smem_lists ? li_s + j * k : p.part_i + list_off(j);
+    const bool in = lane < cnt;
+    warp_offer<kWide ? kMergeSlotsWide : kMergeSlots>(
+        wl, wi, k, in ? buf_v[j * 32 + lane] : kNegInf,
+        in ? buf_i[j * 32 + lane] : -1, in);
+    __syncwarp();
+    if (lane == 0) {
+      tail_v[j] = wl[k - 1];
+      tail_i[j] = wi[k - 1];
+      bcnt[j] = 0;
+    }
+    __syncwarp();
+  };
+
+  // fp32: warp w = (query group w / 2, row half w % 2), lane = (query
+  // half lane % 2, row sixteenth lane / 2): queries 16 g + q2 + 2 i, rows
+  // 128 h + r16 + 16 r, 8 x 8 accumulators. int8: warp w = rows
+  // 16 (w % 8)..+15 against query groups 2 (w / 8) and 2 (w / 8) + 1 (the
+  // mma fragments' own lane layout). Either way flags slot w % 8 of a query
+  // is the warp that scored row rr: rr / 128 + 2 (j / 16) (fp32), rr / 16
+  // (int8).
+  const int fg = warp >> 1, fh = warp & 1;
+  const int fq = lane & 1, fr = lane >> 1;
+  const int rb = warp & 7, mp = warp >> 3;
+  float facc[8][8];
+  int iacc[2][2][4];
+  bool live[2] = {false, false};  // fp32: [0]; int8: its two query groups
+
+  for (int item = 0; item < total; ++item) {
+    cp_async_wait_all();        // item's stage has landed ...
+    __syncthreads();            // ... for every thread, and item - 1 is done
+    issue(item + 1);
+    const int t = item / ns;
+    const int s = item - t * ns;
+    const int r0 = r_begin + t * kTileR;
+    const int c0 = s * p.slice;
+    const int len = min(p.slice, p.depth - c0);
+    const unsigned char* stage = ring + (item % kStages) * L.stage;
+    const uint32_t* ws =
+        reinterpret_cast<const uint32_t*>(meta + (t % kStages) * L.meta);
+    const float* rsc = reinterpret_cast<const float*>(ws + L.qta * kWq);
+    const float* sqs = rsc + kTileR;
+    const unsigned char* qbase =
+        p.q_resident ? q_res + c0 * kEb : stage + kTileR * L.r_stride;
+
+    if (s == 0) {               // a new row tile: which products run
+      if constexpr (kKind == kF32) {
+        const int j = 16 * fg + (lane & 15);
+        const int w = j * kWq + 4 * fh + 2 * (lane >> 4);
+        const bool any = j < L.qta && (ws[w] | ws[w + 1]) != 0u;
+        live[0] = __any_sync(kAll, any);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int r = 0; r < 8; ++r) facc[i][r] = 0.0f;
+      } else {
+        const uint32_t rmask = 0xffffu << ((16 * rb) & 31);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int j = 16 * (2 * mp + m) + (lane & 15);
+          const bool any =
+              j < L.qta && (ws[j * kWq + (rb >> 1)] & rmask) != 0u;
+          live[m] = __any_sync(kAll, any);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) iacc[m][nt][e] = 0;
+        }
+      }
+    }
+
+    if constexpr (kKind == kF32) {
+      if (live[0]) {
+        const int qs = L.q_stride / 4, xs = L.r_stride / 4;
+        const float* qp =
+            reinterpret_cast<const float*>(qbase) + (16 * fg + fq) * qs;
+        const float* xp =
+            reinterpret_cast<const float*>(stage) + (128 * fh + fr) * xs;
+        const int len4 = depth_pad(kF32, len) / 4;
+#pragma unroll 1
+        for (int c = 0; c < len4; c += 4) {
+          float4 qv[8], xv[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(qp + 2 * i * qs + c);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            xv[r] = *reinterpret_cast<const float4*>(xp + 16 * r * xs + c);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              facc[i][r] = fmaf(qv[i].x, xv[r].x, facc[i][r]);
+              facc[i][r] = fmaf(qv[i].y, xv[r].y, facc[i][r]);
+              facc[i][r] = fmaf(qv[i].z, xv[r].z, facc[i][r]);
+              facc[i][r] = fmaf(qv[i].w, xv[r].w, facc[i][r]);
+            }
+        }
+      }
+    } else {
+      if (live[0] || live[1]) {
+        const int qs = L.q_stride;
+        const unsigned xa = smem_addr(
+            stage + (16 * rb + (lane & 7) + (lane >> 4) * 8) * L.r_stride +
+            ((lane >> 3) & 1) * 16);
+        const unsigned qa = smem_addr(
+            qbase + (32 * mp + (lane & 7) + ((lane >> 3) & 1) * 8) * qs +
+            (lane >> 4) * 16);
+        const int len32 = depth_pad(kI8, len);
+        for (int kk = 0; kk < len32; kk += 32) {
+          unsigned b[4];
+          ldmatrix_x4(b, xa + kk);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            if (live[m]) {
+              unsigned a[4];
+              ldmatrix_x4(a, qa + m * 16 * qs + kk);
+              mma_s8(iacc[m][0], a, b[0], b[1]);
+              mma_s8(iacc[m][1], a, b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+
+    if (s != ns - 1) continue;
+    // epilogue: per query, the scores of admitted pairs that beat its list
+    // tail; a warp that has any for query j writes its rows' scores
+    // (-FLT_MAX for the others) and flags[j * 8 + w], which says so
+    if constexpr (kKind == kF32) {
+      if (16 * fg < L.qta) {
+        float sqr[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          sqr[r] = kL2 ? sqs[128 * fh + fr + 16 * r] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int j = 16 * fg + fq + 2 * i;
+          const float tv = tail_v[j];
+          const int ti = tail_i[j];
+          uint32_t wq[4];                            // rows 128 fh..+127
+#pragma unroll
+          for (int w = 0; w < 4; ++w) wq[w] = ws[j * kWq + 4 * fh + w];
+          float v[8];
+          bool any = false;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int rr = 128 * fh + fr + 16 * r;   // word 4 fh + r / 2
+            v[r] = kNegInf;
+            if (live[0] && r0 + rr < r_end &&
+                ((wq[r >> 1] >> (fr + 16 * (r & 1))) & 1u)) {
+              const float sc = Scorer<kF32>::template finish<kL2>(
+                  facc[i][r], 1.0f, 1.0f, sqr[r]);
+              if (better(sc, r0 + rr, tv, ti)) v[r] = sc;
+            }
+            any |= v[r] > kNegInf;
+          }
+          const unsigned mine =
+              (__ballot_sync(kAll, any) >> fq) & 0x55555555u;
+          if (mine) {
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              sv[j * kSvStride + 128 * fh + fr + 16 * r] = v[r];
+          }
+          if (fr == 0) flags[j * kWarps + warp] = mine;
+        }
+      }
+    } else {
+      const int g8 = lane >> 2, t4 = lane & 3;
+      float rs[4], sqr[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {               // e = 2 nt + lo
+        const int rr = 16 * rb + 8 * (e >> 1) + 2 * t4 + (e & 1);
+        rs[e] = rsc[rr];
+        sqr[e] = kL2 ? sqs[rr] : 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        if (16 * (2 * mp + m) >= L.qta) continue;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int j = 16 * (2 * mp + m) + g8 + 8 * hi;
+          const float tv = tail_v[j];
+          const int ti = tail_i[j];
+          const float qscale = qsc[j];
+          const uint32_t wd = ws[j * kWq + (rb >> 1)];
+          float v[4];
+          bool any = false;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = 16 * rb + 8 * (e >> 1) + 2 * t4 + (e & 1);
+            v[e] = kNegInf;
+            if (live[m] && r0 + rr < r_end && ((wd >> (rr & 31)) & 1u)) {
+              const float sc = Scorer<kI8>::template finish<kL2>(
+                  iacc[m][e >> 1][2 * hi + (e & 1)], qscale, rs[e], sqr[e]);
+              if (better(sc, r0 + rr, tv, ti)) v[e] = sc;
+            }
+            any |= v[e] > kNegInf;
+          }
+          const unsigned mine = (__ballot_sync(kAll, any) >> (4 * g8)) & 0xfu;
+          if (mine) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sv[j * kSvStride + 16 * rb + 8 * (e >> 1) + 2 * t4 +
+                 (e & 1)] = v[e];
+          }
+          if (t4 == 0) flags[j * kWarps + rb] = mine;
+        }
+      }
+    }
+    __syncthreads();
+    // warp w gathers the candidates of queries w, w + kNw, ... into their
+    // 32-entry buffers; a full buffer is merged into the list first
+    for (int j = warp; j < nqt; j += kNw) {
+      // f[s]: flags slot s of query j (fp32 uses slots 2 (j / 16) + h)
+      unsigned f[kWarps] = {};
+      if constexpr (kKind == kF32) {
+        f[0] = flags[j * kWarps + 2 * (j >> 4)];
+        f[1] = flags[j * kWarps + 2 * (j >> 4) + 1];
+        if ((f[0] | f[1]) == 0u) continue;
+      } else {
+        const uint4 f0 = *reinterpret_cast<const uint4*>(flags + j * kWarps);
+        const uint4 f1 =
+            *reinterpret_cast<const uint4*>(flags + j * kWarps + 4);
+        f[0] = f0.x, f[1] = f0.y, f[2] = f0.z, f[3] = f0.w;
+        f[4] = f1.x, f[5] = f1.y, f[6] = f1.z, f[7] = f1.w;
+        if ((f[0] | f[1] | f[2] | f[3] | f[4] | f[5] | f[6] | f[7]) == 0u)
+          continue;
+      }
+      int cnt = bcnt[j];
+#pragma unroll
+      for (int b = 0; b < kTileR; b += 32) {
+        // the warp that wrote rows b..b+31 of query j: row half b / 128
+        // (fp32), or the warps of rows b..b+15 and b+16..b+31 (int8)
+        const int s0 = kKind == kF32 ? b >> 7 : b >> 4;
+        const int s1 = kKind == kF32 ? s0 : s0 + 1;
+        if ((f[s0] | f[s1]) == 0u) continue;
+        const unsigned fl = lane < 16 ? f[s0] : f[s1];
+        const int rr = b + lane;
+        const float v = fl ? sv[j * kSvStride + rr] : kNegInf;
+        const bool ok = v > kNegInf;
+        const unsigned bal = __ballot_sync(kAll, ok);
+        if (bal == 0u) continue;
+        if (cnt + __popc(bal) > 32) {
+          flush(j, cnt);
+          cnt = 0;
+        }
+        if (ok) {
+          const int pos = cnt + __popc(bal & ((1u << lane) - 1u));
+          buf_v[j * 32 + pos] = v;
+          buf_i[j * 32 + pos] = r0 + rr;
+        }
+        cnt += __popc(bal);
+      }
+      __syncwarp();
+      if (lane == 0) bcnt[j] = cnt;
+    }
+  }
+  __syncwarp();
+  for (int j = warp; j < nqt; j += kNw)
+    if (bcnt[j] > 0) flush(j, bcnt[j]);
+  cp_async_wait_all();
+  __syncthreads();
+  if (p.smem_lists) {
+    for (int i = threadIdx.x; i < nqt * k; i += blockDim.x) {
+      const int j = i / k;
+      const int s = i - j * k;
+      p.part_v[list_off(j) + s] = lv_s[i];
+      p.part_i[list_off(j) + s] = li_s[i];
+    }
+  }
+}
+
+template <int kKind, bool kL2>
+cudaError_t launch_tiled(dim3 grid, size_t smem, cudaStream_t stream,
+                         const TiledScan& p) {
+  // lists past 32 kMergeSlots entries take the wide merge's variant
+  auto kern = p.k > 32 * kMergeSlots ? scan_pass1_tiled<kKind, kL2, true>
+                                     : scan_pass1_tiled<kKind, kL2, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<grid, tiled_threads(kKind), smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the widest copy (16, 4 or 1 bytes) that every row start and slice start
+// of ``base`` allows
+int copy_width(const void* base, int row_bytes, int slice_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (a % 16 == 0 && row_bytes % 16 == 0 && slice_bytes % 16 == 0) return 16;
+  if (a % 4 == 0 && row_bytes % 4 == 0 && slice_bytes % 4 == 0) return 4;
+  return 1;
+}
+
+cudaError_t launch_pass2(const float* part_v, const int* part_i, int nq,
+                         int n_chunks, int k, const int* cand, int n_cand,
+                         float* out_v, int* out_i, cudaStream_t stream) {
+  const int nw = static_cast<size_t>(kWarps) * k <= kPass2SmemList ? kWarps
+                                                                   : 1;
+  const size_t smem2 = static_cast<size_t>(nw) * k <= kPass2SmemList
+                           ? sizeof(float) * 2 * nw * k
+                           : 0;
+  scan_pass2<<<nq, 32 * nw, smem2, stream>>>(part_v, part_i, n_chunks, k,
+                                             cand, n_cand, out_v, out_i);
+  return cudaGetLastError();
 }
 
 template <int kKind, int kMode, bool kL2, bool kVec>
@@ -523,8 +1338,11 @@ cudaError_t dispatch_mode(int mode, bool l2, bool vec, dim3 grid,
                           size_t smem, cudaStream_t stream, const Scan& p) {
   if (mode == kGathered)
     return dispatch_pass1<kKind, kGathered>(l2, vec, grid, smem, stream, p);
-  if (mode == kScoped)
-    return dispatch_pass1<kKind, kScoped>(l2, vec, grid, smem, stream, p);
+  if constexpr (kKind == kPQ) {       // fp32 / int8 scoped: the tiled pass 1
+    if (mode == kScoped)
+      return dispatch_pass1<kKind, kScoped>(l2, vec, grid, smem, stream, p);
+  }
+  if (mode == kScoped) return cudaErrorInvalidValue;
   return dispatch_pass1<kKind, kDense>(l2, vec, grid, smem, stream, p);
 }
 
@@ -532,9 +1350,11 @@ cudaError_t dispatch_mode(int mode, bool l2, bool vec, dim3 grid,
 
 extern "C" {
 
-// One entry point for the nine scans. kind: 0 fp32, 1 int8, 2 PQ. Exactly
-// one of ``mask`` (dense (n,) int8, shared by every query) and ``words``
-// (packed (n_scopes, n_words) masks, row sids[i] for query i) is non-null.
+// The entry point of seven scans (scan_pass1): kind 0 fp32, 1 int8, 2 PQ.
+// Exactly one of ``mask`` (dense (n,) int8, shared by every query) and
+// ``words`` (packed (n_scopes, n_words) masks, row sids[i] for query i) is
+// non-null; ``words`` without ``cand`` is taken for PQ only (the fp32 and
+// int8 scoped scans go through repro_scan_topk_tiled).
 // A non-null ``cand`` (nq, n) selects gathered mode: n is then the
 // candidate count C per query, ``words`` is required and qt must be 1.
 // ``slice`` is the depth staged at once (depth = d, or M for PQ), ``qt``
@@ -573,10 +1393,64 @@ int repro_scan_topk(int kind, const void* q, const float* q_scale,
       : kind == kI8 ? dispatch_mode<kI8>(mode, l2, vec, grid1, smem1, stream, p)
                     : dispatch_mode<kPQ>(mode, false, vec, grid1, smem1, stream, p);
   if (err != cudaSuccess) return err;
-  const size_t smem2 = k <= kPass2SmemList ? sizeof(float) * 2 * k : 0;
-  scan_pass2<<<nq, 32, smem2, stream>>>(part_v, part_i, n_chunks, k, cand, n,
-                                        out_v, out_i);
-  return cudaGetLastError();
+  return launch_pass2(part_v, part_i, nq, n_chunks, k, cand, n, out_v, out_i,
+                      stream);
+}
+
+// The tiled pass 1's plan for kind 0 (fp32) or 1 (int8), a query tile of at
+// most ``qt_cap``, depth ``depth`` and lists of ``k``: writes the query tile
+// to ``qt`` (the wrapper sizes the grid with it; passed back as the cap, it
+// plans the same tile) and returns the shared memory a block takes, 0 when
+// nothing fits.
+int repro_tiled_plan(int kind, int qt_cap, int depth, int k, int* qt) {
+  if ((kind != kF32 && kind != kI8) || qt_cap < 1 || qt_cap > kTileQ ||
+      depth < 1 || k < 1)
+    return 0;
+  const TiledPlan plan = tiled_plan(kind, qt_cap, depth, k);
+  *qt = plan.qt;
+  return static_cast<int>(plan.smem);
+}
+
+// The fp32 (kind 0) and int8 (kind 1) scans with per-query scope words:
+// multi_scope_topk and multi_scope_topk_i8 (scan_pass1_tiled, then pass 2).
+// ``qt_cap`` <= 64 caps the query tile (tiled_plan picks the tile, the depth
+// slice, the query side's residency and the lists' place), ``chunk_rows``
+// is a multiple of 32. The partials are (nq, n_chunks, k).
+int repro_scan_topk_tiled(int kind, const void* q, const float* q_scale,
+                          const void* rows, const float* row_scale,
+                          const float* sq, const uint32_t* words,
+                          const int* sids, int n_scopes, int n_words, int nq,
+                          int n, int depth, int k, int l2, int qt_cap,
+                          int chunk_rows, int n_chunks, float* part_v,
+                          int* part_i, float* out_v, int* out_i,
+                          void* stream_ptr) {
+  if (nq <= 0) return cudaSuccess;
+  if ((kind != kF32 && kind != kI8) || k < 1 || qt_cap < 1 ||
+      qt_cap > kTileQ || depth < 1 || chunk_rows < 32 ||
+      chunk_rows % 32 != 0 || n_chunks < 1 || n_chunks > 65535 ||
+      words == nullptr || sids == nullptr ||
+      (kind == kI8 && (q_scale == nullptr || row_scale == nullptr)) ||
+      (l2 && sq == nullptr))
+    return cudaErrorInvalidValue;
+  const TiledPlan plan = tiled_plan(kind, qt_cap, depth, k);
+  if (plan.smem == 0) return cudaErrorInvalidValue;
+  const int eb = kind == kF32 ? 4 : 1;
+  TiledScan p{q, q_scale, rows, row_scale, sq, words, sids, n_scopes,
+              n_words, nq, n, depth, plan.slice, k, plan.qt,
+              plan.q_resident, chunk_rows, plan.smem_lists,
+              copy_width(rows, depth * eb, plan.slice * eb),
+              copy_width(q, depth * eb, plan.slice * eb), part_v, part_i};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const dim3 grid((nq + plan.qt - 1) / plan.qt, n_chunks);
+  cudaError_t err =
+      kind == kF32
+          ? (l2 ? launch_tiled<kF32, true>(grid, plan.smem, stream, p)
+                : launch_tiled<kF32, false>(grid, plan.smem, stream, p))
+          : (l2 ? launch_tiled<kI8, true>(grid, plan.smem, stream, p)
+                : launch_tiled<kI8, false>(grid, plan.smem, stream, p));
+  if (err != cudaSuccess) return err;
+  return launch_pass2(part_v, part_i, nq, n_chunks, k, nullptr, n, out_v,
+                      out_i, stream);
 }
 
 }  // extern "C"

@@ -24,8 +24,11 @@ from .common import row_sq_norms
 # artifact (vectordb.costmodel.install_kernel_tuning). Tiling is a pure
 # performance knob -- results are block-shape independent -- so a
 # process-global registry is safe; callers passing explicit block args still
-# win. On the card block_q is the query tile (<= 8) and block_n the rows one
-# block sweeps; ``None`` sizes the row chunks to fill the card.
+# win. On the card block_q is the query tile and block_n the rows one block
+# sweeps; ``None`` sizes the row chunks to fill the card. The query tile is
+# at most 8 on the per-row pass 1 and at most 64 on the tiled pass 1 of
+# ``multi_scope_topk`` / ``multi_scope_topk_i8`` (``_st.TILED``), whose
+# default is the 64-query tile.
 _DEFAULT_BLOCK_Q = 8
 _DEFAULT_BLOCK_N: Optional[int] = None
 _BLOCK_OVERRIDES: Dict[str, Tuple[int, int]] = {}
@@ -49,7 +52,8 @@ def _blocks(name: str, block_q: Optional[int],
     entry > defaults."""
     tuned = _BLOCK_OVERRIDES.get(name)
     if block_q is None:
-        block_q = tuned[0] if tuned else _DEFAULT_BLOCK_Q
+        block_q = tuned[0] if tuned else (
+            _st.TILE_Q if name in _st.TILED else _DEFAULT_BLOCK_Q)
     if block_n is None:
         block_n = tuned[1] if tuned else _DEFAULT_BLOCK_N
     return block_q, block_n

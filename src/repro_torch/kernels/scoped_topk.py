@@ -8,9 +8,12 @@ They take CUDA tensors only (``ops.py`` routes CPU tensors to ``ref.py``),
 check what the kernel cannot take, allocate outputs and scratch with
 ``torch.empty``, launch on the current stream, raise on a non-zero
 ``cudaError_t``, and count their launches in :data:`launches`. Any k >= 1
-and any depth (d, or M for PQ) are taken: :func:`geometry` picks the query
-tile, whether the top-k lists fit in shared memory and how much of the
-depth is staged at once.
+and any depth (d, or M for PQ) are taken. The fp32 and int8 scans with
+scope words (``multi_scope_topk``, ``multi_scope_topk_i8``) run the tiled
+pass 1 (query tiles of up to 64, rows staged through a shared-memory ring;
+:func:`tiled_plan` asks the C entry for the tile, :func:`tiled_geometry`
+sizes the grid); the others run the per-row pass 1, whose query tile
+(<= 8), list placement and depth slice :func:`geometry` picks.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from . import _build
 
-MAX_BLOCK_Q = 8        # queries per block = warps per block
+MAX_BLOCK_Q = 8        # per-row pass 1: queries per block = warps per block
 THREADS = 256
 SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use
 LIST_SMEM = 64 * 1024  # shared memory a block's top-k lists may take
@@ -33,6 +36,11 @@ KINDS = {"f32": 0, "i8": 1, "pq": 2}
 # granularity that keeps the kernel's wide loads aligned
 _DEPTH_BYTES = {"f32": 4, "i8": 1, "pq": 256 * 4}
 _DEPTH_UNIT = {"f32": 4, "i8": 16, "pq": 4}
+
+# the tiled pass 1 (scan_pass1_tiled): largest query tile, rows per row tile
+TILE_Q = 64
+TILE_R = {"f32": 256, "i8": 128}
+TILED = ("multi_scope_topk", "multi_scope_topk_i8")
 
 launches = {name: 0 for name in (
     "scoped_topk", "multi_scope_topk", "scoped_topk_i8",
@@ -124,6 +132,41 @@ def geometry(kind: str, nq: int, n: int, depth: int, k: int, block_q: int,
                     max(1, _ceil(n, block_n)))
 
 
+class TiledGeometry(NamedTuple):
+    qt: int            # query tile (<= 64)
+    chunk_rows: int    # rows one block sweeps (a multiple of 32)
+    n_chunks: int
+
+
+def tiled_plan(kind: str, qt_cap: int, depth: int, k: int) -> Tuple[int, int]:
+    """The C entry's plan for the tiled pass 1 (``tiled_plan`` in the CUDA
+    source, which alone holds its shared-memory layout): the query tile for
+    a cap of ``qt_cap`` (halved while its top-k lists do not fit shared
+    memory) and the dynamic shared memory of a block, 0 when nothing fits.
+    Builds the library."""
+    qt = ctypes.c_int(0)
+    smem = _build.library().repro_tiled_plan(KINDS[kind], qt_cap, depth, k,
+                                             ctypes.byref(qt))
+    return qt.value, smem
+
+
+def tiled_geometry(kind: str, nq: int, n: int, k: int, qt: int,
+                   block_n: Optional[int], sms: int = 132) -> TiledGeometry:
+    """Grid of the tiled pass 1 for the query tile ``qt`` that
+    :func:`tiled_plan` gave: ``block_n`` (default: one block per SM in all,
+    at least k rows and one row tile each) is rounded up to whole mask
+    words and to at most 65535 chunks."""
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    if not 1 <= qt <= TILE_Q:
+        raise ValueError(f"qt={qt} outside [1, {TILE_Q}]")
+    if block_n is None:
+        chunks = max(1, _ceil(sms, _ceil(max(nq, 1), qt)))
+        block_n = max(_ceil(max(n, 1), chunks), k, TILE_R[kind])
+    block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
+    return TiledGeometry(qt, block_n, max(1, _ceil(n, block_n)))
+
+
 def _check_cand(cand: torch.Tensor, nq: int, n: int,
                 device: torch.device, check_ids: bool) -> int:
     """Gathered mode's (nq, C) int32 candidate ids: C >= 1 and, with
@@ -146,9 +189,10 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
             row_scale, sq, mask, words, sids, depth: int, k: int, l2: bool,
             block_q: int, block_n: Optional[int], cand=None,
             check_ids: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shared launch of every scan. With ``cand`` (gathered mode) the sweep
-    runs over each query's C candidate positions instead of the n rows,
-    one query per block (``block_q`` 1)."""
+    """Shared launch of every scan. The wrappers named in :data:`TILED` run
+    the tiled pass 1. With ``cand`` (gathered mode) the sweep runs over
+    each query's C candidate positions instead of the n rows, one query per
+    block (``block_q`` 1)."""
     dev = q.device
     nq, n = q.shape[0], rows.shape[0]
     sweep = n if cand is None else _check_cand(cand, nq, n, dev, check_ids)
@@ -171,7 +215,20 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
             raise ValueError(f"mask has {mask.shape[0]} lanes for {n} rows")
         n_scopes = n_words = 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    geo = geometry(kind, nq, sweep, depth, k, block_q, block_n, sms)
+    tiled = name in TILED
+    if tiled:
+        if block_q < 1:
+            raise ValueError(f"block_q={block_q} must be >= 1")
+        if k < 1:
+            raise ValueError(f"k={k} must be >= 1")
+        qt, smem = tiled_plan(kind, max(1, min(block_q, nq, TILE_Q)), depth,
+                              k)
+        if smem == 0:
+            raise ValueError(f"no tiled plan fits shared memory: {name} "
+                             f"depth={depth} k={k}")
+        geo = tiled_geometry(kind, nq, n, k, qt, block_n, sms)
+    else:
+        geo = geometry(kind, nq, sweep, depth, k, block_q, block_n, sms)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
@@ -182,14 +239,22 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
                          device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.repro_scan_topk(
-            KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows), _ptr(row_scale),
-            _ptr(sq if l2 else None), _ptr(mask), _ptr(words), _ptr(sids),
-            _ptr(cand), n_scopes, n_words, nq, sweep, depth, geo.slice, k,
-            int(l2), geo.qt, geo.chunk_rows, geo.n_chunks,
-            int(geo.smem_lists), _ptr(part_v), _ptr(part_i), _ptr(out_v),
-            _ptr(out_i), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if tiled:
+            rc = lib.repro_scan_topk_tiled(
+                KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
+                _ptr(row_scale), _ptr(sq if l2 else None), _ptr(words),
+                _ptr(sids), n_scopes, n_words, nq, n, depth, k, int(l2),
+                geo.qt, geo.chunk_rows, geo.n_chunks, _ptr(part_v),
+                _ptr(part_i), _ptr(out_v), _ptr(out_i), stream)
+        else:
+            rc = lib.repro_scan_topk(
+                KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
+                _ptr(row_scale), _ptr(sq if l2 else None), _ptr(mask),
+                _ptr(words), _ptr(sids), _ptr(cand), n_scopes, n_words, nq,
+                sweep, depth, geo.slice, k, int(l2), geo.qt, geo.chunk_rows,
+                geo.n_chunks, int(geo.smem_lists), _ptr(part_v),
+                _ptr(part_i), _ptr(out_v), _ptr(out_i), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
     count_launch(launches, name)
@@ -248,7 +313,7 @@ def scoped_topk(queries, rows, mask, k, metric="ip", sq=None, block_q=8,
 
 
 def multi_scope_topk(queries, rows, mask_words, scope_ids, k, metric="ip",
-                     sq=None, block_q=8, block_n=None):
+                     sq=None, block_q=TILE_Q, block_n=None):
     """As :func:`scoped_topk`, with query i admitting row r where bit r%32 of
     ``mask_words[scope_ids[i], r // 32]`` is set. mask_words (S, W) int32
     view of the packed uint32 words, W >= ceil(n/32); scope_ids (q,) int32
@@ -271,7 +336,8 @@ def scoped_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, mask, k,
 
 
 def multi_scope_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, mask_words,
-                        scope_ids, k, metric="ip", block_q=8, block_n=None):
+                        scope_ids, k, metric="ip", block_q=TILE_Q,
+                        block_n=None):
     """int8 scan with packed per-query scope masks."""
     d = _i8(q_i8, q_scale, rows_i8, row_scale)
     return _launch("multi_scope_topk_i8", "i8", q_i8, q_scale, rows_i8,

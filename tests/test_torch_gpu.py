@@ -314,3 +314,206 @@ def test_flash_decode_refuses_a_group_beyond_shared_memory():
         ops.flash_decode(q, kv, kv, torch.ones(1, 8, dtype=torch.int8,
                                                device=dev))
     assert ops.launch_counts()["flash_decode"] == 0
+
+
+# (kind, q, n, depth, k, block_q) of every tiled-pass-1 launch that
+# chip_smoke.py and these tests make: phase 1's edge sweep, main shapes,
+# lifted limits and int8 tier shapes, the tiled cases below and the
+# block-diagonal masks (tests/test_torch_kernels.py checks their launch
+# shapes on the CPU)
+_MAIN = 1_940_000
+TILED_LAUNCHES = sorted({
+    *[(kind, q, n, d, k, None) for kind in ("f32", "i8")
+      for q, n, d, k, _, _ in (
+          (1, 137, 16, 1, 0, 0), (15, 1000, 13, 10, 0, 0),
+          (16, 2081, 100, 80, 0, 0), (17, 4100, 128, 257, 0, 0),
+          (64, 5000, 128, 10, 0, 0), (65, 3001, 16, 80, 0, 0),
+          (130, 2500, 100, 257, 0, 0), (64, 3000, 300, 10, 0, 0),
+          (64, 2000, 1100, 10, 0, 0), (33, 2000, 128, 600, 0, 0),
+          (64, 5120, 128, 10, 0, 0), (20, 1600, 13, 10, 0, 0),
+          (2, 30000, 64, 20000, 0, 0))],
+    ("f32", 20, 3000, 64, 10, 3), ("i8", 20, 3000, 64, 10, 3),
+    ("f32", 70, 3000, 64, 40, 8), ("i8", 70, 3000, 64, 40, 8),
+    ("f32", 8, 2081, 16, 40, None), ("f32", 5, 1024, 128, 10, None),
+    ("i8", 16, 2081, 13, 40, None), ("i8", 16, 137, 16, 40, None),
+    ("f32", 64, _MAIN, 128, 10, None), ("f32", 64, _MAIN, 128, 320, None),
+    ("i8", 64, _MAIN, 128, 40, None), ("i8", 64, _MAIN, 128, 80, None),
+    ("f32", 64, 100_000, 8192, 10, None), ("f32", 3, 30_000, 64, 10_000,
+                                           None),
+    ("f32", 5, 20_000, 64, 4096, None), ("f32", 8, 20_000, 8192, 10, None),
+    ("i8", 3, 30_000, 64, 10_000, None), ("i8", 5, 20_000, 64, 4096, None),
+    ("i8", 8, 20_000, 8192, 10, None), ("i8", 8, 4000, 32768, 10, None),
+}, key=str)
+
+
+
+
+# the tiled pass 1 of kernels 2 and 6: (q, n, d, k, metric, block_q), each
+# case run at fp32 and int8. q crosses the 16-query groups and the 64-query
+# tile; d takes byte (13), 4-byte (100) and 16-byte (16, 128) copies, depth
+# slices (100, 128 at fp32) and a query side past 64 KB (300 at fp32, 1100
+# at both); k = 257 and 600 halve the query tile to keep the lists in
+# shared memory, k = 20,000 puts them in device memory; n is never a
+# multiple of the row tile (256 rows fp32, 128 int8)
+TILED_CASES = [
+    (1, 137, 16, 1, "ip", None),
+    (15, 1000, 13, 10, "l2", None),
+    (16, 2081, 100, 80, "ip", None),
+    (17, 4100, 128, 257, "l2", None),
+    (64, 5000, 128, 10, "ip", None),
+    (65, 3001, 16, 80, "l2", None),
+    (130, 2500, 100, 257, "ip", None),
+    (64, 3000, 300, 10, "ip", None),
+    (64, 2000, 1100, 10, "l2", None),
+    (33, 2000, 128, 600, "ip", None),
+    (20, 3000, 64, 10, "ip", 3),
+    (70, 3000, 64, 40, "l2", 8),
+    (2, 30000, 64, 20000, "ip", None),
+]
+
+
+def _tiled_inputs(q, n, d, seed, blockdiag=False):
+    """Queries, rows with a duplicated row, their int8 codes, and scope
+    words: four scopes (sparse, empty, only the last rows, dense) with ids
+    in [0, 5) (4 is out of range), or with ``blockdiag`` gather_rescore's
+    masks: query b admits its own slice of n / q rows."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.randn(q, d, generator=g, device=dev)
+    X = torch.randn(n, d, generator=g, device=dev)
+    X[n // 2] = X[n // 3]                                   # a tie
+    if blockdiag:
+        r = n // q
+        dense = torch.zeros(q, n, dtype=torch.bool, device=dev)
+        for b in range(q):
+            dense[b, b * r:(b + 1) * r] = True
+        dense &= torch.rand(q, n, generator=g, device=dev) < 0.9
+        sid = torch.arange(q, dtype=torch.int32, device=dev)
+    else:
+        dense = torch.rand(4, n, generator=g, device=dev) < 0.4
+        dense[1] = False                                    # empty scope
+        dense[2, : n - 5] = False                           # the last rows
+        dense[3] = torch.rand(n, generator=g, device=dev) < 0.9
+        sid = torch.randint(0, 5, (q,), generator=g, device=dev,
+                            dtype=torch.int32)
+        sid[0] = 4                                          # out of range
+    return Q, X, dense, _words(dense), sid, _i8_inputs(g, q, n, d, dev)
+
+
+def _dense_row(dense, sid, i):
+    """Query i's scope as the dense mask kernels 1 and 5 take."""
+    s = int(sid[i])
+    if 0 <= s < dense.shape[0]:
+        return dense[s].to(torch.int8)
+    return torch.zeros(dense.shape[1], dtype=torch.int8, device=dense.device)
+
+
+def _tiled_pairs(Q, X, dense, words, sid, i8, k, metric, block_q):
+    q8, qs, x8, xs, sq8 = i8
+    sq = ref.row_sq_norms(X)
+    ops.reset_launch_counts()
+    got = ops.multi_scope_topk(Q, X, words, sid, k, metric, sq, block_q)
+    got8 = ops.multi_scope_topk_i8(q8, qs, x8, xs, sq8, words, sid, k,
+                                   metric, block_q)
+    counts = ops.launch_counts()
+    assert counts["multi_scope_topk"] == 1
+    assert counts["multi_scope_topk_i8"] == 1
+    return got, got8, sq
+
+
+def _hold_tiled_against_dense(Q, X, dense, words, sid, i8, k, metric,
+                              block_q):
+    """Kernel 2 against kernel 1 and kernel 6 against kernel 5, query by
+    query on the unpacked scope row: ids and values bitwise equal."""
+    q8, qs, x8, xs, sq8 = i8
+    got, got8, sq = _tiled_pairs(Q, X, dense, words, sid, i8, k, metric,
+                                 block_q)
+    for i in range(Q.shape[0]):
+        mask = _dense_row(dense, sid, i)
+        v1, i1 = ops.scoped_topk(Q[i:i + 1], X, mask, k, metric, sq)
+        assert torch.equal(got[1][i:i + 1], i1), f"fp32 ids, query {i}"
+        assert torch.equal(got[0][i:i + 1], v1), f"fp32 values, query {i}"
+        v5, i5 = ops.scoped_topk_i8(q8[i:i + 1], qs[i:i + 1], x8, xs, sq8,
+                                    mask, k, metric)
+        assert torch.equal(got8[1][i:i + 1], i5), f"int8 ids, query {i}"
+        assert torch.equal(got8[0][i:i + 1], v5), f"int8 values, query {i}"
+    if int(sid[0]) >= dense.shape[0]:
+        assert torch.all(got[1][0] == -1) and torch.all(got8[1][0] == -1)
+
+
+def _hold_tiled_against_plain(Q, X, dense, words, sid, i8, k, metric,
+                              block_q):
+    """The plain versions index scope rows directly: an out-of-range id is
+    given an empty row there (what the kernels make of it)."""
+    q8, qs, x8, xs, sq8 = i8
+    got, got8, sq = _tiled_pairs(Q, X, dense, words, sid, i8, k, metric,
+                                 block_q)
+    empty = max(0, int(sid.max()) + 1 - words.shape[0])
+    pw = torch.nn.functional.pad(words, (0, 0, 0, empty))
+    _agree(got, ref.multi_scope_topk_ref(Q, X, pw, sid, k, metric, sq),
+           "multi_scope_topk")
+    want8 = ref.multi_scope_topk_i8_ref(q8, qs, x8, xs, sq8, pw, sid, k,
+                                        metric)
+    assert torch.equal(got8[1], want8[1]) and torch.equal(got8[0], want8[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k,metric,block_q", TILED_CASES)
+def test_tiled_scans_equal_dense_scans_bitwise(q, n, d, k, metric, block_q):
+    """dsq_batch (kernels 2 / 6) is held bitwise equal to a loop of dsq
+    (kernels 1 / 5): the tiled pass 1 must give every query exactly the
+    dense-mask scan's ids and values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _hold_tiled_against_dense(*_tiled_inputs(q, n, d, q * 31 + n + d), k,
+                              metric, block_q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k,metric,block_q", TILED_CASES)
+def test_tiled_scans_match_plain_versions(q, n, d, k, metric, block_q):
+    """Kernels 2 and 6 against their plain versions: fp32 within the
+    tolerance above, int8 bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _hold_tiled_against_plain(*_tiled_inputs(q, n, d, q * 37 + n + d), k,
+                              metric, block_q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,q,n,depth,k,block_q", TILED_LAUNCHES)
+def test_tiled_plan_fits_shared_memory(kind, q, n, depth, k, block_q):
+    """The C entry's plan (query tile, depth slice, resident query side,
+    list placement) for every tiled launch above fits a block's 232,448
+    bytes with its two-stage ring, so no such launch is refused; the tile
+    is at most the cap and plans itself again; at the main shapes the
+    tile is 64 queries (32 at k = 320, where 64 lists do not fit) and
+    the grid is one or two blocks per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    st = ops._st
+    cap = min(block_q or st.TILE_Q, q, st.TILE_Q)
+    qt, smem = st.tiled_plan(kind, cap, depth, k)
+    assert 0 < smem <= st.SMEM_LIMIT and 1 <= qt <= cap
+    assert st.tiled_plan(kind, qt, depth, k) == (qt, smem)
+    geo = st.tiled_geometry(kind, q, n, k, qt, None)
+    assert 1 <= geo.n_chunks <= 65535
+    if n == _MAIN:
+        assert qt == (64 if k <= 80 else 32)
+        assert 132 <= geo.n_chunks * -(-q // qt) <= 264
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,r,d,k,metric", [
+    (64, 40, 128, 10, "ip"),                  # gather_rescore's shape
+    (20, 80, 13, 10, "l2"),
+])
+def test_tiled_scans_on_block_diagonal_masks(q, r, d, k, metric):
+    """gather_rescore's masks (query b admits only its own r rows of the
+    q * r gathered block): bitwise equal to kernels 1 / 5 and to the plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args = _tiled_inputs(q, q * r, d, q + r, blockdiag=True)
+    _hold_tiled_against_dense(*args, k, metric, None)
+    _hold_tiled_against_plain(*args, k, metric, None)

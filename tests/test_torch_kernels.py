@@ -20,6 +20,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
+from test_torch_gpu import TILED_LAUNCHES  # noqa: E402
+
 NEG_INF = float(np.finfo(np.float32).min)
 TOL = 1e-5
 
@@ -210,7 +212,7 @@ def test_align_block_n_and_block_registry():
     try:
         assert _blocks("scoped_topk", None, None) == (4, 2048)
         assert _blocks("scoped_topk", 2, None) == (2, 2048)
-        assert _blocks("multi_scope_topk", None, None) == (8, None)
+        assert _blocks("multi_scope_topk", None, None) == (64, None)
     finally:
         ops.set_block_overrides({})
 
@@ -423,3 +425,31 @@ def test_i8_l2_needs_the_dequantized_norms():
     with pytest.raises(ValueError, match="sq"):
         ops.scoped_topk_i8(qi, torch.ones(1), qi, torch.ones(1), None,
                            torch.ones(1, dtype=torch.int8), 1, "l2")
+
+
+_MAIN = 1_940_000
+
+
+@pytest.mark.parametrize("kind,q,n,depth,k,block_q", TILED_LAUNCHES)
+def test_tiled_geometry_fits_the_card(kind, q, n, depth, k, block_q):
+    """The tiled pass 1's grid on an H100 (132 SMs) for a query tile of
+    the cap min(block_q, q, 64): row chunks of whole mask words, at least
+    one row tile and k rows each, at most 65535 of them, covering the n
+    rows. At the main shapes the 64-query tile reads each row once in
+    about one block per SM. (The C entry plans the tile itself, which may
+    be smaller than the cap, and the shared memory from the cap, the depth
+    and k; tests/test_torch_gpu.py::test_tiled_plan_fits_shared_memory
+    holds that plan and its grid at every one of these shapes on the
+    card.)"""
+    st = ops._st                     # the wrappers' module
+    qt = min(block_q or st.TILE_Q, q, st.TILE_Q)
+    geo = st.tiled_geometry(kind, q, n, k, qt, None, 132)
+    assert geo.qt == qt
+    assert geo.chunk_rows % 32 == 0
+    assert geo.chunk_rows >= max(k, st.TILE_R[kind])
+    assert 1 <= geo.n_chunks <= 65535
+    assert geo.n_chunks * geo.chunk_rows >= n > (geo.n_chunks - 1) * \
+        geo.chunk_rows
+    if n == _MAIN:
+        assert geo.qt == 64
+        assert 132 <= geo.n_chunks * -(-q // geo.qt) <= 264
