@@ -151,8 +151,10 @@ def device_ms(torch, fn, runs: int, names=None):
     20 calls), so a session counts only when it saw every launch: one
     ``scan_pass1`` and one ``scan_pass2`` per scan launch that the wrappers
     counted, and a multiple of ``runs`` of every other kernel it matched.
-    A session that missed some is repeated, twice at most. None when no
-    session saw every launch, or none saw device time."""
+    A session that missed some is repeated, twice with ``runs`` calls and
+    then three times with a quarter of them (smaller sessions lose fewer
+    events). None when no session saw every launch, or none saw device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -164,7 +166,7 @@ def device_ms(torch, fn, runs: int, names=None):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for runs in (runs,) * 3 + (max(1, runs // 4),) * 3:
         before = scan_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
@@ -201,6 +203,26 @@ def bound(nbytes: float, ops: float, peaks, kind: str = "fp32") -> dict:
     t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+_SM_CLOCK_MHZ = []
+
+
+def lookup_bound(torch, lookups: float) -> dict:
+    """The shared-memory bound of a PQ scan, beside its operations bound:
+    each admitted (query, row) pair reads M LUT entries from shared memory,
+    and an SM serves at most 32 4-byte reads a clock (one per bank) at its
+    highest clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    if not _SM_CLOCK_MHZ:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[0]
+        _SM_CLOCK_MHZ.append(float(out))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = _SM_CLOCK_MHZ[0]
+    return {"lookup_bound_ms": lookups / (sms * 32 * mhz * 1e6) * 1e3,
+            "lookups": lookups, "sm_clock_mhz": mhz}
 
 
 # --------------------------------------------------------------- phase 1
@@ -256,24 +278,67 @@ def library_int_mm(torch, q8, x8):
     return median_ms(torch, lambda: torch._int_mm(q8, x8t), 20)
 
 
-def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
-    """Kernel 2 or 6 (``name``) on the arguments of one call: held against
-    kernel 1 or 5 query by query (bitwise) and against its plain version,
-    timed, and bounded by the rows its queries admit (each such row read
-    once, with the scope words and the query side); ``library_ms`` is one
-    product of the same queries by the same rows (``torch.matmul`` at fp32,
-    ``torch._int_mm`` at int8), without the top-k."""
+def bound_args(ops, name, args, kw) -> dict:
+    """The wrapper ``ops.name``'s arguments by name, defaults filled in."""
     import inspect
-
-    from repro_torch.kernels.common import unpack_words
     call = inspect.signature(getattr(ops, name)).bind(*args, **kw)
     call.apply_defaults()
-    a = call.arguments
+    return call.arguments
+
+
+def dense_record(torch, ops, ref, peaks, args, kw, label) -> dict:
+    """Kernel 1 on the arguments of one call: held against its plain
+    version (ids tie-aware, scores within TOL), timed, and bounded by the
+    rows the mask admits (each read once), the mask, the queries (and the
+    admitted rows' norms for l2) and the results; ``library_ms`` is
+    ``torch.matmul`` of the same queries by the same rows, without the mask
+    and the top-k."""
+    a = bound_args(ops, "scoped_topk", args, kw)
+    queries, rows, mask, k, metric, sq = (a[key] for key in (
+        "queries", "rows", "mask", "k", "metric", "sq"))
+    n, d = rows.shape
+    B = queries.shape[0]
+
+    def fn():
+        return ops.scoped_topk(queries, rows, mask, k, metric, sq)
+
+    def plain():
+        return ref.scoped_topk_ref(queries, rows, mask, k, metric, sq)
+
+    err = topk_case(ref, label, fn(), plain())
+    admitted = int((mask != 0).sum())
+    row_bytes = d * 4 + (4 if metric == "l2" else 0)
+    return {"max_abs_err": err,
+            **timed(torch, fn, 30, ("scan_pass1", "scan_pass2")),
+            "pass1_device_ms": device_ms(torch, fn, 30, ("scan_pass1",)),
+            "plain_ms": median_ms(torch, plain, 10),
+            "library_ms": median_ms(torch, lambda: torch.matmul(
+                queries, rows.T), 30),
+            **bound(admitted * row_bytes + n + B * (d * 4 + k * 8),
+                    2.0 * B * admitted * d, peaks),
+            "shape": f"q={B} n={n} d={d} k={k} {metric} "
+                     f"admitted_rows={admitted}; library: torch.matmul "
+                     f"({B},{d})x({d},{n})"}
+
+
+def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
+    """Kernel 2, 6 or 8 (``name``) on the arguments of one call: held
+    against kernel 1, 5 or 7 query by query (bitwise) and against its plain
+    version, timed, and bounded by the rows its queries admit (each such
+    row read once, with the scope words and the query side); kernel 8 also
+    by its shared-memory LUT lookups (:func:`lookup_bound`).
+    ``library_ms`` is one product of the same queries by the same rows
+    (``torch.matmul`` at fp32, ``torch._int_mm`` at int8), without the
+    top-k; PQ has none."""
+    from repro_torch.kernels.common import unpack_words
+    a = bound_args(ops, name, args, kw)
     i8 = name == "multi_scope_topk_i8"
-    queries, rows = (a["q_i8"], a["rows_i8"]) if i8 else (a["queries"],
-                                                          a["rows"])
-    sids, k, metric, sq = (a[key] for key in ("scope_ids", "k", "metric",
-                                              "sq"))
+    pq = name == "multi_scope_topk_pq"
+    queries, rows = ((a["q_i8"], a["rows_i8"]) if i8 else
+                     (a["lut"], a["codes"]) if pq else
+                     (a["queries"], a["rows"]))
+    sids, k = a["scope_ids"], a["k"]
+    metric, sq = (None, None) if pq else (a["metric"], a["sq"])
     n, d = rows.shape
     words = ops.as_words(a["mask_words"])
     S, n_words = words.shape
@@ -295,6 +360,15 @@ def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
         def one(i, m):
             return ops.scoped_topk_i8(queries[i:i + 1], qs[i:i + 1], rows,
                                       xs, sq, m, k, metric)
+    elif pq:
+        def fn():
+            return ops.multi_scope_topk_pq(queries, rows, words, sids, k)
+
+        def plain():
+            return ref.multi_scope_topk_pq_ref(queries, rows, words, sids, k)
+
+        def one(i, m):
+            return ops.scoped_topk_pq(queries[i:i + 1], rows, m, k)
     else:
         def fn():
             return ops.multi_scope_topk(queries, rows, words, sids, k,
@@ -308,7 +382,7 @@ def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
             return ops.scoped_topk(queries[i:i + 1], rows, m, k, metric, sq)
 
     got = fn()
-    err = (exact_case(torch, label, got, plain()) if i8
+    err = (exact_case(torch, label, got, plain()) if i8 or pq
            else topk_case(ref, label, got, plain()))
     same_as_dense(torch, f"{label} vs the dense-mask scan", got, one, dense,
                   sids)
@@ -318,20 +392,31 @@ def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
     pairs = int(dense.sum(1)[live].sum())
     union = int(dense[live.unique()].any(0).sum()) if len(live) else 0
     norm = 4 if metric == "l2" else 0
-    row_bytes = (d + 4 if i8 else d * 4) + norm
-    q_bytes = (d + 8 if i8 else d * 4 + 4) + k * 8
-    lib = "torch._int_mm" if i8 else "torch.matmul"
-    return {"max_abs_err": err,
-            **timed(torch, fn, 10, ("scan_pass1", "scan_pass2")),
-            "plain_ms": median_ms(torch, plain, 5),
-            "library_ms": (library_int_mm(torch, queries, rows) if i8 else
-                           median_ms(torch, lambda: torch.matmul(
-                               queries, rows.T), 30)),
-            **bound(union * row_bytes + S * n_words * 4 + B * q_bytes,
-                    2.0 * pairs * d, peaks, "int8" if i8 else "fp32"),
-            "shape": f"q={B} n={n} d={d} k={k} {metric} scopes={S} "
-                     f"admitted_pairs={pairs} union_rows={union}; "
-                     f"library: {lib} ({B},{d})x({d},{n})"}
+    row_bytes = (d + 4 if i8 else d if pq else d * 4) + norm
+    q_bytes = (d + 8 if i8 else d * 1024 + 4 if pq else d * 4 + 4) + k * 8
+    if pq:
+        lib, library = "none", None
+    elif i8:
+        lib, library = "torch._int_mm", library_int_mm(torch, queries, rows)
+    else:
+        lib, library = "torch.matmul", median_ms(
+            torch, lambda: torch.matmul(queries, rows.T), 30)
+    rec = {"max_abs_err": err,
+           **timed(torch, fn, 10, ("scan_pass1", "scan_pass2")),
+           "plain_ms": median_ms(torch, plain, 5),
+           "library_ms": library,
+           **bound(union * row_bytes + S * n_words * 4 + B * q_bytes,
+                   (1.0 if pq else 2.0) * pairs * d, peaks,
+                   "int8" if i8 else "fp32"),
+           "shape": f"q={B} n={n} {'M' if pq else 'd'}={d} k={k}"
+                    f"{'' if pq else ' ' + metric} scopes={S} "
+                    f"admitted_pairs={pairs} "
+                    f"union_rows={union}; library: {lib}"
+                    + ("" if pq else f" ({B},{d})x({d},{n})")}
+    if pq:
+        rec.update(lookup_bound(torch, pairs * d))
+        rec["pass1_device_ms"] = device_ms(torch, fn, 10, ("scan_pass1",))
+    return rec
 
 
 def words_of(torch, dense):              # (S, n) bool -> (S, ceil(n/32)) i32
@@ -443,19 +528,17 @@ def phase1(torch, ops, ref, peaks) -> dict:
     words = words_of(torch, dense)
     sid = (torch.arange(B, device=dev) % S).to(torch.int32)
 
-    # scoped_topk at q = 1 over every row (the root scan of one dsq)
-    err = topk_case(ref, "scoped_topk main", ops.scoped_topk(Q1, X, ones, k),
-                    ref.scoped_topk_ref(Q1, X, ones, k))
+    # scoped_topk at q = 1 over every row (the root scan of one dsq), and
+    # over a gather plan's few thousand gathered rows (an all-ones mask)
+    out["scoped_topk"] = dense_record(torch, ops, ref, peaks,
+                                      (Q1, X, ones, k), {},
+                                      "scoped_topk main")
+    rows_g = X[torch.randperm(n, generator=g, device=dev)[:4000]]
+    out["scoped_topk"]["gather_synthetic"] = dense_record(
+        torch, ops, ref, peaks,
+        (Q1, rows_g, torch.ones(4000, dtype=torch.int8, device=dev), k), {},
+        "scoped_topk gather (synthetic)")
     scan_names = ("scan_pass1", "scan_pass2")
-    out["scoped_topk"] = {
-        "max_abs_err": err,
-        **timed(torch, lambda: ops.scoped_topk(Q1, X, ones, k), 30,
-                scan_names),
-        "plain_ms": median_ms(
-            torch, lambda: ref.scoped_topk_ref(Q1, X, ones, k), 20),
-        "library_ms": median_ms(torch, lambda: torch.matmul(Q1, X.T), 30),
-        **bound(n * d * 4 + n + d * 4 + k * 8, 2.0 * n * d, peaks),
-        "shape": f"q=1 n={n} d={d} k={k} all rows admitted"}
 
     got = ops.multi_scope_topk(QB, X, words, sid, k)
     err = topk_case(ref, "multi_scope_topk main", got,
@@ -719,9 +802,14 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
         exact_case(torch, f"scoped_topk_pq main k={k1}",
                    ops.scoped_topk_pq(lut1, codes, ones, k1),
                    ref.scoped_topk_pq_ref(lut1, codes, ones, k1))
-        exact_case(torch, f"multi_scope_topk_pq main k={kb}",
-                   ops.multi_scope_topk_pq(lutb, codes, words, sid, kb),
+        got = ops.multi_scope_topk_pq(lutb, codes, words, sid, kb)
+        exact_case(torch, f"multi_scope_topk_pq main k={kb}", got,
                    ref.multi_scope_topk_pq_ref(lutb, codes, words, sid, kb))
+        same_as_dense(torch, f"multi_scope_topk_pq main k={kb} vs "
+                      f"scoped_topk_pq", got,
+                      lambda i, m: ops.scoped_topk_pq(lutb[i:i + 1], codes,
+                                                      m, kb), dense, sid)
+        del got
         cases += 4
 
     out["scoped_topk_i8"] = {
@@ -730,10 +818,15 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                                                   40), 30, names),
         "plain_ms": median_ms(torch, lambda: ref.scoped_topk_i8_ref(
             q1, s1, x8, xs, None, ones, 40), 10),
-        "library_ms": None,
+        # torch._int_mm takes more than 16 rows: the query padded with zero
+        # rows to 17
+        "library_ms": library_int_mm(
+            torch, torch.nn.functional.pad(q1, (0, 0, 0, 16)), x8),
         **bound(n * (d + 4) + n + d + 4 + 40 * 8, 2.0 * n * d, peaks,
                 "int8"),
-        "shape": f"q=1 n={n} d={d} k=40 ip, all rows admitted"}
+        "shape": f"q=1 n={n} d={d} k=40 ip, all rows admitted; library: "
+                 f"torch._int_mm (17,{d})x({d},{n}), the query padded to "
+                 f"the 17 rows it takes at least, no top-k"}
     out["multi_scope_topk_i8"] = {
         "max_abs_err": 0.0,
         **timed(torch, lambda: ops.multi_scope_topk_i8(
@@ -754,6 +847,7 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
             lut1, codes, ones, 40), 10),
         "library_ms": None,
         **bound(n * M + n + M * 256 * 4 + 40 * 8, 1.0 * n * M, peaks),
+        **lookup_bound(torch, n * M),
         "shape": f"q=1 n={n} M={M} k=40, all rows admitted"}
     out["multi_scope_topk_pq"] = {
         "max_abs_err": 0.0,
@@ -764,9 +858,28 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
         "library_ms": None,
         **bound(union * M + S * n_words * 4 + B * (M * 256 * 4 + 4 + 80 * 8),
                 1.0 * admitted * M, peaks),
+        **lookup_bound(torch, admitted * M),
+        "pass1_device_ms": device_ms(torch, lambda: ops.multi_scope_topk_pq(
+            lutb, codes, words, sid, 80), 10, ("scan_pass1",)),
         "shape": f"q={B} n={n} M={M} k=80 scopes={S} "
                  f"admitted_pairs={admitted}; "
                  f"shared-memory LUT lookups {admitted * M}"}
+    # a diagnostic of kernel 8's limiter: the same scan over codes whose
+    # 32 consecutive rows fall on 32 distinct banks at every m, so a warp's
+    # LUT reads never conflict (random codes conflict several ways)
+    r = torch.arange(n, device=dev)[:, None]
+    spread = ((r % 32) + 32 * ((r // 32 + torch.arange(M, device=dev)) % 8)
+              ).to(torch.uint8)
+    exact_case(torch, "multi_scope_topk_pq conflict-free codes",
+               ops.multi_scope_topk_pq(lutb, spread, words, sid, 80),
+               ref.multi_scope_topk_pq_ref(lutb, spread, words, sid, 80))
+    out["multi_scope_topk_pq"]["conflict_free_codes"] = {
+        **timed(torch, lambda: ops.multi_scope_topk_pq(
+            lutb, spread, words, sid, 80), 30, names),
+        "shape": f"as the main shape, codes (r % 32) + 32 ((r // 32 + m) "
+                 f"% 8): no bank conflicts among a warp's rows"}
+    del spread
+    cases += 1
     return cases
 
 
@@ -940,14 +1053,17 @@ def ivf_record(torch, ops, ref, peaks, name, args, kw, runs=20) -> dict:
         ops_, kind = 2.0 * pairs * depth, "fp32"
     if metric == "l2":
         row_bytes += 4                   # the row's squared norm
-    return {"max_abs_err": err,
-            **timed(torch, lambda: kernel(*args, **kw), runs,
-                    ("scan_pass1", "scan_pass2")),
-            "plain_ms": median_ms(torch, lambda: plain(*args, **plain_kw), 3),
-            "library_ms": None,
-            **bound(head + nbytes + uniq * row_bytes, ops_, peaks, kind),
-            "pair_bytes": pairs * row_bytes,
-            "shape": f"{shape} depth={depth} {metric}"}
+    rec = {"max_abs_err": err,
+           **timed(torch, lambda: kernel(*args, **kw), runs,
+                   ("scan_pass1", "scan_pass2")),
+           "plain_ms": median_ms(torch, lambda: plain(*args, **plain_kw), 3),
+           "library_ms": None,
+           **bound(head + nbytes + uniq * row_bytes, ops_, peaks, kind),
+           "pair_bytes": pairs * row_bytes,
+           "shape": f"{shape} depth={depth} {metric}"}
+    if name == "ivf_gather_topk_pq":
+        rec.update(lookup_bound(torch, pairs * depth))
+    return rec
 
 
 def library_bmm(torch, rows, cand, queries):
@@ -1169,11 +1285,16 @@ def phase2(torch, args, ops, journal):
 
     ops.reset_launch_counts()
     path = MainPath(ops)
-    captured = {}
+    captured, gathers = {}, []
     ta = time.perf_counter()
-    with path.counted(), first_calls(ops, ("multi_scope_topk",), captured):
+    with path.counted(), first_calls(ops, ("multi_scope_topk",), captured), \
+            recorded_calls(ops, "scoped_topk", range(1 << 30), gathers):
         batch = batched()
     tb = time.perf_counter()
+    if gathers:                 # kernel 1's widest gather-plan launch
+        widest = max(gathers, key=lambda call: call[1][1].shape[0])
+        captured["scoped_topk"] = widest[1:]
+    del gathers
     per_batch = dict(path.counts)
     loop = looped()
     tc = time.perf_counter()
@@ -1222,16 +1343,24 @@ def phase2(torch, args, ops, journal):
 
 def phase2_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     """Kernel 2 on the arguments phase 2's flat batch gave it (the scan
-    plan's group on WIKI-Dir's real scope masks), by :func:`batch_record`.
-    Recorded beside phase 1's main shape under "flat_batch"; launches here
-    are not the main path's."""
-    check("multi_scope_topk" in captured,
-          "phase 2 recorded no multi_scope_topk launch")
+    plan's group on WIKI-Dir's real scope masks), by :func:`batch_record`,
+    and kernel 1 on the widest launch of that batch's gather plans (the
+    scope's gathered rows under an all-ones mask), by
+    :func:`dense_record`. Recorded beside phase 1's main shapes under
+    "flat_batch" and "flat_batch_gather"; launches here are not the main
+    path's."""
+    for name in ("multi_scope_topk", "scoped_topk"):
+        check(name in captured, f"phase 2 recorded no {name} launch")
     args, kw = captured["multi_scope_topk"]
     rec = batch_record(torch, ops, ref, peaks, "multi_scope_topk", args, kw,
                        "multi_scope_topk flat batch")
     measured["multi_scope_topk"]["flat_batch"] = rec
-    emit({"phase": "2-kernels", "multi_scope_topk": rec})
+    args, kw = captured["scoped_topk"]
+    gather = dense_record(torch, ops, ref, peaks, args, kw,
+                          "scoped_topk flat batch gather")
+    measured["scoped_topk"]["flat_batch_gather"] = gather
+    emit({"phase": "2-kernels", "multi_scope_topk": rec,
+          "scoped_topk": gather})
 
 
 # --------------------------------------------------------------- phase 3
@@ -1306,7 +1435,8 @@ def phase4(torch, ops, ds, db, batched):
     """int8 and PQ on the phase-2 database (after phase 3's DSM), then
     tiered storage. Every failed check is collected and reported at once.
     Returns the main path's launch counts, the arguments of the int8
-    batch's kernel-6 launch and of every kernel-2 launch its exact rescore
+    batch's kernel-6 launch and of the PQ batch's kernel-8 launch, and of
+    every kernel-2 launch the int8 batch's exact rescore
     (``gather_rescore``) made."""
     _, paths, rec = requests(ds)
     queries = requests(ds)[0]
@@ -1343,6 +1473,9 @@ def phase4(torch, ops, ds, db, batched):
                     ops, ("multi_scope_topk_i8",), captured))
                 stack.enter_context(recorded_calls(
                     ops, "multi_scope_topk", range(1 << 30), rescores))
+            else:
+                stack.enter_context(first_calls(
+                    ops, ("multi_scope_topk_pq",), captured))
             b = batch()
         tb = time.perf_counter()
         loop = [db.dsq(queries[i], paths[i], k=k, recursive=rec[i],
@@ -1431,20 +1564,22 @@ def phase4(torch, ops, ds, db, batched):
 
 def phase4_kernels(torch, ops, ref, peaks, captured, rescores,
                    measured) -> None:
-    """Kernel 6 on the arguments of phase 4's int8 batch (its scan group on
-    the real scope masks and int8 rows), and kernel 2 on the widest launch
-    that batch's exact rescore made (``gather_rescore``'s block-diagonal
-    masks over the gathered candidates), by :func:`batch_record`. Recorded
-    beside phase 1's main shapes; launches here are not the main path's."""
-    check("multi_scope_topk_i8" in captured,
-          "phase 4 recorded no multi_scope_topk_i8 launch")
+    """Kernels 6 and 8 on the arguments of phase 4's int8 and PQ batches
+    (their scan groups on the real scope masks, int8 rows and PQ codes),
+    and kernel 2 on the widest launch that the int8 batch's exact rescore
+    made (``gather_rescore``'s block-diagonal masks over the gathered
+    candidates), by :func:`batch_record`. Recorded beside phase 1's main
+    shapes; launches here are not the main path's."""
+    for name in ("multi_scope_topk_i8", "multi_scope_topk_pq"):
+        check(name in captured, f"phase 4 recorded no {name} launch")
     check(len(rescores) > 0, "phase 4 recorded no rescore launch")
-    args, kw = captured["multi_scope_topk_i8"]
-    recs = {"multi_scope_topk_i8": batch_record(
-        torch, ops, ref, peaks, "multi_scope_topk_i8", args, kw,
-        "multi_scope_topk_i8 int8 batch")}
-    measured["multi_scope_topk_i8"]["flat_batch"] = recs[
-        "multi_scope_topk_i8"]
+    recs = {}
+    for name, label in (("multi_scope_topk_i8", "int8 batch"),
+                        ("multi_scope_topk_pq", "PQ batch")):
+        args, kw = captured[name]
+        recs[name] = batch_record(torch, ops, ref, peaks, name, args, kw,
+                                  f"{name} {label}")
+        measured[name]["flat_batch"] = recs[name]
     _, args, kw = max(rescores, key=lambda call: call[1][0].shape[0])
     recs["rescore"] = batch_record(torch, ops, ref, peaks, "multi_scope_topk",
                                    args, kw, "multi_scope_topk rescore")

@@ -108,16 +108,18 @@ class PEOfflineIndex(ScopeIndex):
                     stats.stage_ns.get("bitmap_fetch", 0)
                     + time.perf_counter_ns() - t0)
             return out
-        # non-recursive: Set_total \ union(direct child subtree postings)
+        # non-recursive: Set_total \ union(direct child subtree postings);
+        # the child names are snapshotted under the latch, which DSM holds
+        # while it re-keys or removes directories
         t0 = time.perf_counter_ns()
-        total = self.postings.get(path)
-        if total is None:
-            return RoaringBitmap()
-        child_names = self.aux.children(path)
-        t1 = time.perf_counter_ns()
         children = RoaringBitmap()
         fetches = 1
         with self._agg_latch:
+            total = self.postings.get(path)
+            if total is None:
+                return RoaringBitmap()
+            child_names = list(self.aux.children(path))
+            t1 = time.perf_counter_ns()
             for name in child_names:
                 cp = self.postings.get(path + (name,))
                 if cp is not None:
@@ -152,7 +154,8 @@ class PEOfflineIndex(ScopeIndex):
         # step 1: O(m_u) subtree path-key remapping — every re-keyed posting
         # is ancestor-materialized, so each subtree entry is re-filed once
         # per subtree level below it (the t-fold amplification of Table II)
-        old_keys = self.aux.rekey_subtree(src, dst)
+        with self._agg_latch:    # vs non-recursive readers' child sets
+            old_keys = self.aux.rekey_subtree(src, dst)
         for old in old_keys:
             new = P.replace_prefix(old, src, dst)
             if old in self.postings:
@@ -213,7 +216,8 @@ class PEOfflineIndex(ScopeIndex):
             for ref in self.refs.pop(old, []):
                 ref.path = new
                 self.refs.setdefault(new, []).append(ref)
-        self.aux.rekey_subtree(src, dst)
+        with self._agg_latch:
+            self.aux.rekey_subtree(src, dst)
         # ancestor-membership updates: remove S from old-only proper ancestors
         # of src; add S to new-only proper ancestors of dst. dst itself was
         # updated by the src->dst root key merge above.
@@ -247,7 +251,7 @@ class PEOfflineIndex(ScopeIndex):
             raise KeyError(P.to_str(p))
         with self._agg_latch:
             removed = self.postings.get(p, RoaringBitmap()).copy()
-        keys = self.aux.remove_subtree(p)
+            keys = self.aux.remove_subtree(p)
         for key in keys:
             posting = self.postings.pop(key, None)
             if posting is not None and stats is not None:

@@ -39,6 +39,9 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P],
     "repro_tiled_plan": [_I, _I, _I, _I, _P],
+    "repro_scan_topk_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P, _P, _P, _P],
+    "repro_stream_plan": [_I, _I, _I, _P, _P, _P],
     "repro_bitmap_patch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_mask_and_popcount": [_P, _P, _P, _I, _I, _P, _P, _P],
     "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

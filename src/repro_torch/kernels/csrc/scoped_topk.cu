@@ -23,19 +23,62 @@
 // entry point, so dsq_batch can stay bit-identical to a loop of dsq.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32, 1,979 TOP/s
-// int8): at the main path's shapes (n = 1.94M, d = 128) the fp32 scan moves
-// 0.99 GB of rows (~0.30 ms) and at q = 64 does 31.8 GFLOP (~0.47 ms); the
-// int8 scan moves n (d + 8) bytes (~0.08 ms) and is bytes-bound at q = 1 and
-// q = 64; the PQ scan moves n M bytes (~0.02 ms at M = 32), but at q = 64
-// does 4.0 G shared-memory LUT lookups, which bound it in practice. The
+// int8; 132 SMs, each serving 32 4-byte shared-memory reads a clock): at
+// the main path's shapes (n = 1.94M, d = 128) the fp32 scan moves 0.99 GB
+// of rows (~0.30 ms) and at q = 64 does 31.8 GFLOP (~0.47 ms); the int8
+// scan moves n (d + 8) bytes (~0.08 ms) and is bytes-bound at q = 1 and
+// q = 64; the PQ scan moves n M bytes (~0.02 ms at M = 32), but each
+// admitted (query, row) pair reads M LUT entries from shared memory: at
+// q = 64 with 74.5M admitted pairs that is 2.4G reads, ~0.29 ms at 32 a
+// clock on 132 SMs at 1.98 GHz, and several times that in practice, since
+// rows' codes are random and 32 lanes' reads fall on random banks. The
 // (q, n) score matrix is never written to device memory.
 //
-// Two pass-1 designs share one pass 2; the TPU's sequential n-sweep with a
-// running top-k in VMEM scratch does not carry over (Hopper blocks run in
-// parallel and in no order), so every pass 1 writes per-chunk partial lists
-// (q, n_chunks, k) and pass 2 merges them: one block per query, warp w
-// merging chunks w, w + 8, ..., then warp 0 the warps' lists; a list is
-// sorted, so a warp stops reading it at its first entry that loses.
+// Every pass 1 writes per-chunk partial lists (q, n_chunks, k) and one
+// pass 2 merges them; the TPU's sequential n-sweep with a running top-k in
+// VMEM scratch does not carry over (Hopper blocks run in parallel and in
+// no order). Pass 2 is one block per query, warp w merging chunks w,
+// w + 8, ..., then warp 0 the warps' lists; a list is sorted, so a warp
+// stops reading it at its first entry that loses. Which pass 1 runs which
+// kernel:
+//
+//   scan_pass1_stream  kernel 1 (scoped_topk): fp32, one dense mask
+//   scan_pass1_tiled   kernels 2, 6 (multi_scope_topk, _i8): scope words
+//   scan_pass1_pq      kernel 8 (multi_scope_topk_pq): PQ, scope words
+//   scan_pass1         kernels 5, 7 (scoped_topk_i8, _pq): dense mask, and
+//                      kernel 9 in all three modes (gathered)
+//
+// scan_pass1_stream: bytes-bound (one pass over the rows).
+//   grid (query tiles of qt <= 8, row chunks): one wave of blocks of 4
+//   warps, two per SM at q = 1 (105 KB of shared memory each), so 262
+//   chunks of whole 128-row tiles over 1.94M rows; a gather plan's few
+//   thousand rows get one tile per block.
+//   staging: item = (128-row tile, 64-float depth slice); all 128 threads
+//           copy an item with 16-byte cp.async (neighbouring threads on
+//           neighbouring bytes, 256 contiguous bytes of each row; 4-byte
+//           copies where rows start off 16-byte alignment), with the query
+//           tile's slice, into a ring of 3 stages of 35 KB, two items ahead
+//           of the one computed: 64 KB of rows in flight per block, 128 KB
+//           per SM, against the ~25 KB per SM that 3.35 TB/s x ~1 us of
+//           loaded latency needs. (tools/scan_variants.py on the H100,
+//           pass 1: 256-row tiles of 32-float slices 2% slower, of
+//           16-float slices with 4 stages 50% slower; whole 128-float rows
+//           in 64-row tiles 22% slower, in 128-row tiles with one block
+//           per SM 29% slower.) Row strides are padded to an odd number of
+//           16-byte units (272 bytes), so a quarter warp's float4 reads hit
+//           8 bank groups.
+//   compute: thread t owns row t of each tile and runs its chain
+//           acc = fmaf(q[c], x[c], acc), c = 0..d-1 from 0.0f, out of
+//           shared memory (the query slice is a broadcast), across the
+//           slices; kQ = 1 compiles the one-query scan of dsq alone. This
+//           is kernel 2's chain, so kernel 2 == kernel 1 bit for bit.
+//   epilogue: each warp keeps its own list per query and its tail in
+//           registers; only lanes whose score beats the tail take part,
+//           several at once through warp_merge. No barrier waits on a
+//           merge: the ring's one barrier per item is the only one, and
+//           the warps' lists are merged once, at the chunk's end. Lists
+//           live in shared memory (the tile shrinks until they fit) or,
+//           past that, as one partial per warp in device memory.
 //
 // scan_pass1_tiled: the fp32 and int8 scans with per-query scope words
 // (multi_scope_topk, multi_scope_topk_i8), the batched scans of dsq_batch.
@@ -64,7 +107,7 @@
 //           8 queries x 8 rows = 64 accumulators, fed by float4 loads per
 //           depth quad (shared memory, not the FMA pipe, bounds this loop).
 //           acc = fmaf(q[c], x[c], acc) for c = 0..d-1 in order from 0.0f,
-//           the chain of Scorer<kF32> (and of kernel 1), so scores keep
+//           the chain of Scorer<kF32> and of kernel 1, so scores keep
 //           their bits: no TF32, no split-k, no reassociation, and the file
 //           is built without -use_fast_math (padding adds fmaf(0, 0, acc),
 //           which leaves a chain that starts at +0 unchanged).
@@ -85,14 +128,36 @@
 //           which also picks the depth slice and the query side's
 //           residency: the wrapper passes only a cap on the tile).
 //
-// scan_pass1: the dense-mask scans (scoped_topk, scoped_topk_i8), every PQ
-// scan and the gathered scans.
+// scan_pass1_pq: bound by shared-memory LUT reads (above).
+//   grid (query tiles, row chunks): at most one block per SM in all (one
+//   wave). The tile is the most queries whose (M, 256) LUTs stay resident
+//   in shared memory beside the ring and the lists (5 at M = 32, k = 80:
+//   160 KB), so the codes are read once per tile and no LUT is re-staged;
+//   a LUT larger than shared memory rides in each stage in slices of M
+//   (pq_plan).
+//   staging: 512-row tiles of codes (32 bytes a row, 16-byte cp.async,
+//           strides padded to an odd number of 16-byte units) and the
+//           tile's scope words, through a ring of 2 stages.
+//   compute: 16 warps, thread t owns row t of the tile and reads its codes
+//           16 at a time; it looks up only the queries that admit its row,
+//           acc += lut[j, m, code[m]] for m = 0..M-1 in order from 0.0f
+//           (Scorer<kPQ>'s chain, so kernel 8 == kernel 7 bit for bit),
+//           16 reads in flight before their 16 adds; a warp skips a query
+//           that none of its rows admits. On the H100 this loop, not the
+//           epilogue, takes most of the time, and it runs well below the
+//           shared-memory read rate: codes whose reads never conflict save
+//           only about a quarter, 8 warps are slower than 16
+//           (tools/scan_variants.py, PERF.md).
+//   epilogue: scan_pass1_tiled's (tail filter, flags per warp, 32-entry
+//           buffers merged by warp_merge, warp j serving query j).
+//
+// scan_pass1: the int8 and PQ dense-mask scans and the gathered scans.
 //   grid (query tiles of qt <= 8, row chunks). A block stages the query
-//   side of its tile in shared memory (fp32 or int8 query rows, or the
-//   tile's LUTs) and sweeps its chunk 256 rows at a time: each thread
-//   scores one row against the whole tile (16-byte loads where the layout
-//   allows), rows no query of the tile admits are skipped, and warp j
-//   merges query j's 256 scores into its sorted top-k list.
+//   side of its tile in shared memory (int8 query rows, or the tile's
+//   LUTs) and sweeps its chunk 256 rows at a time: each thread scores one
+//   row against the whole tile (16-byte loads where the layout allows),
+//   rows no query of the tile admits are skipped, and warp j merges query
+//   j's 256 scores into its sorted top-k list.
 //   any k: the insertion shifts a list 32 entries at a time from its tail,
 //          so a list has no length bound in registers; lists live in shared
 //          memory while they fit (the wrapper shrinks qt for large k) and in
@@ -117,7 +182,7 @@
 // distinct admitted row once plus the B * C * 4 bytes of candidate ids.
 // Overlapping probed lists are re-read from device memory (or L2) once per
 // query; sharing them across a query tile is left for a later change, as
-// are the dense-mask and PQ scans' move to the tiled design.
+// is the int8 and PQ dense-mask scans' move to a streaming design.
 // The result is the exact top-k under a total order, and no atomics are
 // used: runs are bit-for-bit repeatable.
 
@@ -135,10 +200,9 @@ constexpr int kPass2SmemList = 6144;      // pass 2 keeps lists of k <= this
                                           // in shared memory (48 KB)
 
 enum Kind { kF32 = 0, kI8 = 1, kPQ = 2 };
-// how a query admits a row: one dense mask shared by every query, packed
-// per-query scope words over rows [0, n), or packed scope words over the
-// query's own gathered candidates
-enum Mode { kDense = 0, kScoped = 1, kGathered = 2 };
+// how scan_pass1's query admits a row: one dense mask shared by every
+// query, or packed scope words over the query's own gathered candidates
+enum Mode { kDense = 0, kGathered = 1 };
 
 struct Scan {
   const void* q;           // f32 (nq, depth) | i8 (nq, depth) | LUT f32 (nq, depth, 256)
@@ -168,28 +232,32 @@ constexpr int kMergeSlotsWide = 16;
 
 // Merge the lanes' candidates (``ok`` lanes; ids distinct from the list's)
 // into the warp's sorted list (lv, li) of length k <= 32 * kSlots at
-// once: a bitonic sort of the 32 lanes (best first), then each list entry
+// once: a bitonic sort of the 32 lanes (best first; skipped with kSorted,
+// where the ok lanes are a prefix in that order), then each list entry
 // moves down by the candidates better than it (binary search over the
 // sorted lanes) and candidate c lands at c plus the list entries better
 // than it (binary search over the list). Ranks under a total order are a
 // permutation, so the list equals the one-by-one insertion's.
-template <int kSlots>
+template <int kSlots, bool kSorted = false>
 __device__ void warp_merge(float* lv, int* li, int k, float cv, int ci,
                            bool ok) {
   constexpr int kSentinel = 0x7fffffff;
   const int lane = threadIdx.x & 31;
   float v = ok ? cv : kNegInf;              // a sentinel ranks below every
   int id = ok ? ci : kSentinel;             // entry, empty lanes included
+  if constexpr (!kSorted) {                 // kSorted: lanes already in order
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
+    for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const float ov = __shfl_xor_sync(kAll, v, stride);
-      const int oi = __shfl_xor_sync(kAll, id, stride);
-      const bool keep_better = ((lane & stride) == 0) == ((lane & size) == 0);
-      if (better(ov, oi, v, id) == keep_better) {
-        v = ov;
-        id = oi;
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const float ov = __shfl_xor_sync(kAll, v, stride);
+        const int oi = __shfl_xor_sync(kAll, id, stride);
+        const bool keep_better =
+            ((lane & stride) == 0) == ((lane & size) == 0);
+        if (better(ov, oi, v, id) == keep_better) {
+          v = ov;
+          id = oi;
+        }
       }
     }
   }
@@ -286,12 +354,13 @@ __device__ void warp_insert(float* lv, int* li, int k, float cv, int ci,
 }
 
 // Offer one candidate per lane (``ok`` marks lanes that hold one) to the
-// warp's sorted list (lv, li) of length k, in lane order. The list is owned
+// warp's sorted list (lv, li) of length k, in lane order (kSorted: the
+// lanes hold a sorted list's entries, best first). The list is owned
 // by the calling warp alone (shared or device memory). Several winners at
 // once go through warp_merge<kSlots> where k <= 32 kSlots; else, and with
 // kSlots = 0 (scan_pass1, whose registers the merge would crowd), one by
 // one. Returns the lanes whose candidate beat the list's tail on entry.
-template <int kSlots>
+template <int kSlots, bool kSorted = false>
 __device__ unsigned warp_offer(float* lv, int* li, int k, float cv, int ci,
                                bool ok) {
   __syncwarp();
@@ -300,7 +369,7 @@ __device__ unsigned warp_offer(float* lv, int* li, int k, float cv, int ci,
   const unsigned won = want;
   if constexpr (kSlots > 0) {
     if (__popc(want) > 1 && k <= 32 * kSlots) {
-      warp_merge<kSlots>(lv, li, k, cv, ci, win);
+      warp_merge<kSlots, kSorted>(lv, li, k, cv, ci, win);
       return won;
     }
   }
@@ -545,15 +614,6 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
               p.words[static_cast<size_t>(s) * p.n_words + (r >> 5)];
           admit = (w >> (r & 31)) & 1u;
         }
-      } else if (kMode == kScoped) {
-        for (int j = 0; j < nqt; ++j) {
-          const int s = tile_sid[j];
-          if (s >= 0 && s < p.n_scopes) {
-            const uint32_t w =
-                p.words[static_cast<size_t>(s) * p.n_words + (r >> 5)];
-            admit |= ((w >> (r & 31)) & 1u) << j;
-          }
-        }
       } else if (p.mask[r]) {
         admit = (1u << nqt) - 1u;
       }
@@ -606,30 +666,53 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
 }
 
 // Pass 2, one block per query: warp w merges the partial lists of chunks
-// w, w + nw, ... into its own list, then warp 0 merges the others' lists.
-// Every list merged is sorted best first, so a warp stops reading one at
-// its first entry that does not beat its tail. nw = 8 while the lists fit
-// kPass2SmemList entries, else one warp whose list lives in shared memory
-// for k <= kPass2SmemList, else in the output row. Gathered mode (``cand``
-// non-null) ranks positions and writes the store ids at them,
-// cand[qi, pos].
+// w, w + nw, ... into its own list, loading the head of its next list
+// while it merges this one. Every list merged is sorted best first, so a
+// warp stops reading one at its first entry that does not beat its tail,
+// and a presorted merge skips warp_merge's sort; the warps' lists then
+// merge in a tree of log2(nw) rounds. nw = 16 for 32 lists or more, else
+// 8, while the warps' lists fit kPass2SmemList entries, else one warp
+// whose list lives in shared memory for k <= kPass2SmemList, else in the
+// output row. Gathered mode (``cand`` non-null) ranks positions and
+// writes the store ids at them, cand[qi, pos].
+constexpr int kPass2Warps = 16;
+
+// the lane's entry of a sorted list's first 32 (-FLT_MAX, -1 past k)
+__device__ __forceinline__ void list_head(const float* sv, const int* si,
+                                          int k, float& v, int& id) {
+  const int lane = threadIdx.x & 31;
+  v = lane < k ? sv[lane] : kNegInf;
+  id = lane < k ? si[lane] : -1;
+}
+
+// merge sorted list (sv, si) of length k, whose first 32 entries the lanes
+// already hold in (v0, i0), into the warp's list (lv, li)
 __device__ void merge_sorted(float* lv, int* li, int k,
                              const float* __restrict__ sv,
-                             const int* __restrict__ si) {
+                             const int* __restrict__ si, float v0, int i0) {
   const int lane = threadIdx.x & 31;
   for (int e = 0; e < k; e += 32) {
     const int j = e + lane;
     const bool in = j < k;
-    const float v = in ? sv[j] : kNegInf;
-    const int id = in ? si[j] : -1;
+    const float v = e == 0 ? v0 : in ? sv[j] : kNegInf;
+    const int id = e == 0 ? i0 : in ? si[j] : -1;
     const bool ok = in && id >= 0;
-    if (warp_offer<kMergeSlotsWide>(lv, li, k, v, id, ok) !=
+    if (warp_offer<kMergeSlotsWide, true>(lv, li, k, v, id, ok) !=
         __ballot_sync(kAll, in))
       break;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ void merge_sorted(float* lv, int* li, int k,
+                             const float* __restrict__ sv,
+                             const int* __restrict__ si) {
+  float v0;
+  int i0;
+  list_head(sv, si, k, v0, i0);
+  merge_sorted(lv, li, k, sv, si, v0, i0);
+}
+
+__global__ void __launch_bounds__(kPass2Warps * 32)
 scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
            int n_chunks, int k, const int* __restrict__ cand, int n_cand,
            float* __restrict__ out_v, int* __restrict__ out_i) {
@@ -652,14 +735,27 @@ scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
   const size_t total = static_cast<size_t>(n_chunks) * k;
   const float* pv = part_v + qi * total;
   const int* pi = part_i + qi * total;
-  for (int c = warp; c < n_chunks; c += nw)
+  float hv = kNegInf;           // the head of the warp's next list
+  int hi = -1;
+  if (warp < n_chunks)
+    list_head(pv + static_cast<size_t>(warp) * k,
+              pi + static_cast<size_t>(warp) * k, k, hv, hi);
+  for (int c = warp; c < n_chunks; c += nw) {
+    const float v0 = hv;
+    const int i0 = hi;
+    if (c + nw < n_chunks)
+      list_head(pv + static_cast<size_t>(c + nw) * k,
+                pi + static_cast<size_t>(c + nw) * k, k, hv, hi);
     merge_sorted(lv, li, k, pv + static_cast<size_t>(c) * k,
-                 pi + static_cast<size_t>(c) * k);
-  __syncthreads();
+                 pi + static_cast<size_t>(c) * k, v0, i0);
+  }
+  for (int step = 1; step < nw; step <<= 1) {   // a tree of the warps' lists
+    __syncthreads();
+    if ((warp & (2 * step - 1)) == 0 && warp + step < nw)
+      merge_sorted(lv, li, k, lists_v + static_cast<size_t>(warp + step) * k,
+                   lists_i + static_cast<size_t>(warp + step) * k);
+  }
   if (warp != 0) return;
-  for (int w = 1; w < nw; ++w)
-    merge_sorted(lv, li, k, lists_v + static_cast<size_t>(w) * k,
-                 lists_i + static_cast<size_t>(w) * k);
   __syncwarp();
   for (int j = lane; j < k; j += 32) {      // each lane its own entries
     const float v = lv[j];
@@ -1283,6 +1379,574 @@ cudaError_t launch_tiled(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// ------------------------------------------ streaming pass 1 (dense fp32)
+constexpr int kStreamThreads = 128;
+constexpr int kStreamWarps = kStreamThreads / 32;
+constexpr int kStreamRows = kStreamThreads;   // rows per tile: one a thread
+constexpr int kStreamStages = 3;          // ring: 2 items in flight
+constexpr int kStreamSlice = 64;          // floats of a row per item
+constexpr int kStreamBlocks = 4;          // most blocks an SM is planned for
+constexpr int kStreamQ = 8;               // largest query tile
+constexpr int kSmemPerSM = 233472;        // shared memory of one SM
+constexpr int kSmemPerBlock = 1024;       // ... the system keeps per block
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+struct StreamScan {
+  const float* q;          // (nq, depth)
+  const float* rows;       // (n, depth)
+  const float* sq;         // l2: (n,)
+  const int8_t* mask;      // (n,), non-zero admits the row
+  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists, lists;
+  int row_width, q_width;  // copy width in bytes: 16 or 4
+  float* part_v;
+  int* part_i;
+};
+
+// Shared memory of the streaming pass 1: the ring (each stage a row tile's
+// depth slice and the query tile's, rows padded to an odd number of
+// 16-byte units), then per warp and query a top-k list when they fit.
+struct StreamLayout {
+  int r_stride;
+  size_t stage, lists, total;
+};
+
+__host__ __device__ inline StreamLayout stream_layout(int qt, int slice,
+                                                      int k,
+                                                      int smem_lists) {
+  StreamLayout L;
+  L.r_stride = pad_stride(depth_pad(kF32, slice));
+  L.stage = static_cast<size_t>(kStreamRows + qt) * L.r_stride;
+  L.lists = smem_lists ? static_cast<size_t>(kStreamWarps) * qt * k * 8 : 0;
+  L.total = kStreamStages * L.stage + L.lists;
+  return L;
+}
+
+// The largest query tile up to ``qt_cap`` whose per-warp lists fit shared
+// memory beside the ring; past that the lists live in device memory, one
+// partial per warp (``lists`` partials per chunk). ``blocks``: how many
+// such blocks one SM holds (1 or 2), which the wrapper sizes the grid by.
+struct StreamPlan {
+  int qt, slice, smem_lists, lists, blocks;
+  size_t smem;
+};
+
+StreamPlan stream_plan(int qt_cap, int depth, int k) {
+  StreamPlan P{qt_cap, depth < kStreamSlice ? depth : kStreamSlice, 0,
+               kStreamWarps, 1, 0};
+  for (int qt = qt_cap; qt >= 1; --qt) {
+    const size_t smem = stream_layout(qt, P.slice, k, 1).total;
+    if (smem <= static_cast<size_t>(kSmemLimit)) {
+      P.qt = qt;
+      P.smem_lists = 1;
+      P.lists = 1;
+      P.smem = smem;
+      break;
+    }
+  }
+  if (P.smem == 0) P.smem = stream_layout(qt_cap, P.slice, k, 0).total;
+  const int fit = kSmemPerSM / static_cast<int>(P.smem + kSmemPerBlock);
+  P.blocks = fit < 1 ? 1 : fit > kStreamBlocks ? kStreamBlocks : fit;
+  return P;
+}
+
+// Kernel 1 (scoped_topk): query tile of qt <= 8 (kQ = 1 compiles the
+// q = 1 scan alone) x row chunk. Item = (128-row tile, 64-float depth
+// slice), copied with cp.async into ring stage item % 3 by all threads
+// (neighbouring threads on neighbouring 16 bytes), two items ahead of the
+// one computed. Thread t owns row t of every tile: its chain
+// acc = fmaf(q[c], x[c], acc), c = 0..d-1 from 0.0f, continues across the
+// slices out of shared memory (the query slice is a broadcast). At a
+// tile's end each warp offers its 32 rows' scores to its own per-query
+// lists: only lanes that beat the list's tail (kept in registers) take
+// part, and several winners merge at once (warp_merge). No block barrier
+// waits on a merge; the warps' lists are merged once at the chunk's end.
+template <bool kL2, int kQ, bool kWide>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks)
+scan_pass1_stream(const StreamScan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const StreamLayout L = stream_layout(p.qt, p.slice, p.k, p.smem_lists);
+  unsigned char* ring = smem;
+  float* lv_s = reinterpret_cast<float*>(smem + kStreamStages * L.stage);
+  int* li_s = reinterpret_cast<int*>(
+      lv_s + static_cast<size_t>(kStreamWarps) * p.qt * p.k);
+
+  const int k = p.k;
+  const int q0 = blockIdx.x * p.qt;
+  const int nqt = min(p.qt, p.nq - q0);
+  const int chunk = blockIdx.y;
+  const int r_begin = chunk * p.chunk_rows;
+  const int r_end = min(p.n, r_begin + p.chunk_rows);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t row_bytes = static_cast<size_t>(p.depth) * 4;
+  // warp w's list of query j: in shared memory, or partial w of the chunk
+  auto list_at = [&](int w, int j) {
+    return p.smem_lists
+               ? (static_cast<size_t>(w) * p.qt + j) * k
+               : ((static_cast<size_t>(q0 + j) * gridDim.y + chunk) *
+                      p.lists + w) * k;
+  };
+  float* const lv = p.smem_lists ? lv_s : p.part_v;
+  int* const li = p.smem_lists ? li_s : p.part_i;
+  float tv[kQ];                 // the warp's lists' tails
+  int ti[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    tv[j] = kNegInf;
+    ti[j] = -1;
+  }
+  for (int j = 0; j < nqt; ++j)
+    for (int e = lane; e < k; e += 32) {
+      lv[list_at(warp, j) + e] = kNegInf;
+      li[list_at(warp, j) + e] = -1;
+    }
+  __syncwarp();
+
+  const int ns = (p.depth + p.slice - 1) / p.slice;
+  const int n_tiles = r_end > r_begin
+                          ? (r_end - r_begin + kStreamRows - 1) / kStreamRows
+                          : 0;
+  const int total = n_tiles * ns;
+  const unsigned char* r_src = reinterpret_cast<const unsigned char*>(p.rows);
+  const unsigned char* q_src =
+      reinterpret_cast<const unsigned char*>(p.q) + q0 * row_bytes;
+  auto issue = [&](int item) {
+    if (item < total) {
+      const int t = item / ns;
+      const int s = item - t * ns;
+      const int r0 = r_begin + t * kStreamRows;
+      const int c0 = s * p.slice;
+      const int len = min(p.slice, p.depth - c0);
+      const int padb = depth_pad(kF32, len);
+      unsigned char* stage = ring + (item % kStreamStages) * L.stage;
+      unsigned char* qs = stage + kStreamRows * L.r_stride;
+      stage_copy(stage, L.r_stride, r_src + r0 * row_bytes + c0 * 4,
+                 row_bytes, min(kStreamRows, r_end - r0), len * 4,
+                 p.row_width);
+      stage_copy(qs, L.r_stride, q_src + c0 * 4, row_bytes, nqt, len * 4,
+                 p.q_width);
+      if (padb > len * 4) {     // fp32 pads must be 0 (0 * NaN is NaN)
+        zero_cols(stage, L.r_stride, kStreamRows, len * 4, padb);
+        zero_cols(qs, L.r_stride, nqt, len * 4, padb);
+      }
+    }
+    cp_async_commit();          // empty groups keep the count uniform
+  };
+#pragma unroll
+  for (int i = 0; i < kStreamStages - 1; ++i) issue(i);
+
+  float acc[kQ];
+  float sqr = 0.0f;
+  int8_t mk = 0;
+  const int qs4 = L.r_stride / 4;
+  for (int item = 0; item < total; ++item) {
+    cp_async_wait<kStreamStages - 2>();  // item's stage has landed ...
+    __syncthreads();            // ... for all, and item - 1 is consumed
+    issue(item + kStreamStages - 1);
+    const int t = item / ns;
+    const int s = item - t * ns;
+    const int r = r_begin + t * kStreamRows + threadIdx.x;
+    const int len = min(p.slice, p.depth - s * p.slice);
+    const unsigned char* stage = ring + (item % kStreamStages) * L.stage;
+    if (s == 0) {               // a new tile; its mask and norm are read
+#pragma unroll                  // here and used at its end
+      for (int j = 0; j < kQ; ++j) acc[j] = 0.0f;
+      mk = r < r_end ? p.mask[r] : 0;
+      if (kL2) sqr = r < r_end ? p.sq[r] : 0.0f;
+    }
+    const float* xr =
+        reinterpret_cast<const float*>(stage + threadIdx.x * L.r_stride);
+    const float* qv0 =
+        reinterpret_cast<const float*>(stage + kStreamRows * L.r_stride);
+    const int len4 = depth_pad(kF32, len) / 4;
+    for (int c = 0; c < len4; c += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        if (kQ == 1 || j < nqt) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qv0 + j * qs4 + c);
+          acc[j] = fmaf(qv.x, xv.x, acc[j]);
+          acc[j] = fmaf(qv.y, xv.y, acc[j]);
+          acc[j] = fmaf(qv.z, xv.z, acc[j]);
+          acc[j] = fmaf(qv.w, xv.w, acc[j]);
+        }
+      }
+    }
+    if (s != ns - 1) continue;
+    const bool adm = mk != 0;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      if (kQ == 1 || j < nqt) {
+        const float sc =
+            Scorer<kF32>::template finish<kL2>(acc[j], 1.0f, 1.0f, sqr);
+        const bool win = adm && better(sc, r, tv[j], ti[j]);
+        if (__any_sync(kAll, win)) {
+          float* wl = lv + list_at(warp, j);
+          int* wi = li + list_at(warp, j);
+          warp_offer<kWide ? kMergeSlotsWide : kMergeSlots>(wl, wi, k, sc,
+                                                            r, win);
+          __syncwarp();
+          tv[j] = wl[k - 1];
+          ti[j] = wi[k - 1];
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  if (!p.smem_lists) return;    // each warp's list is a partial of its own
+  __syncthreads();
+  for (int j = warp; j < nqt; j += kStreamWarps) {
+    float* lv0 = lv_s + list_at(0, j);
+    int* li0 = li_s + list_at(0, j);
+    for (int w = 1; w < kStreamWarps; ++w)
+      merge_sorted(lv0, li0, k, lv_s + list_at(w, j), li_s + list_at(w, j));
+    __syncwarp();
+    const size_t off = (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
+    for (int e = lane; e < k; e += 32) {
+      p.part_v[off + e] = lv0[e];
+      p.part_i[off + e] = li0[e];
+    }
+  }
+}
+
+template <bool kL2, int kQ>
+cudaError_t launch_stream(dim3 grid, size_t smem, cudaStream_t stream,
+                          const StreamScan& p) {
+  auto kern = p.k > 32 * kMergeSlots ? scan_pass1_stream<kL2, kQ, true>
+                                     : scan_pass1_stream<kL2, kQ, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kStreamThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- tiled pass 1 (PQ, scope words)
+constexpr int kPQWarps = 16;
+constexpr int kPQThreads = kPQWarps * 32;
+constexpr int kPQRows = kPQThreads;       // rows per tile: one per thread
+constexpr int kPQMaxQ = 8;                // largest query tile
+constexpr int kPQStages = 2;
+constexpr int kPQWords = kPQRows / 32;    // scope words per query and tile
+
+struct PQScan {
+  const float* lut;        // (nq, depth, 256)
+  const uint8_t* codes;    // (n, depth)
+  const uint32_t* words;   // (n_scopes, n_words)
+  const int* sids;         // (nq,)
+  int n_scopes, n_words;
+  int nq, n, depth, slice, k, qt, resident, chunk_rows, smem_lists;
+  int code_width, lut_width;   // copy width in bytes: 16, 4 or 1
+  float* part_v;
+  int* part_i;
+};
+
+// Shared memory of the PQ pass 1, in this order: the tile's resident LUTs
+// (qt x depth x 256 floats, when they fit), the ring (each stage: the row
+// tile's code slice, rows padded to an odd number of 16-byte units, the
+// query tile's LUT slice when not resident, and the tile's scope words),
+// the winners' scores, per query its flags (one word per warp), list tail
+// (value, id), scope id, candidate count and 32-entry candidate buffer,
+// then the lists. Every part but the lists is a multiple of 16 bytes.
+struct PQLayout {
+  int c_stride;
+  size_t lut, codes, lut_slice, stage, sv, misc, lists, total;
+};
+
+__host__ __device__ inline PQLayout pq_layout(int qt, int depth, int slice,
+                                              int resident, int k,
+                                              int smem_lists) {
+  PQLayout L;
+  L.c_stride = pad_stride(slice);
+  L.lut = resident ? static_cast<size_t>(qt) * depth * 1024 : 0;
+  L.codes = static_cast<size_t>(kPQRows) * L.c_stride;
+  L.lut_slice = resident ? 0 : static_cast<size_t>(qt) * slice * 1024;
+  L.stage = L.codes + L.lut_slice + static_cast<size_t>(qt) * kPQWords * 4;
+  L.sv = static_cast<size_t>(qt) * kPQRows * 4;
+  L.misc = static_cast<size_t>(qt) * (kPQWords + 4 + 64) * 4;
+  L.lists = smem_lists ? static_cast<size_t>(qt) * k * 8 : 0;
+  L.total = L.lut + kPQStages * L.stage + L.sv + L.misc + L.lists;
+  return L;
+}
+
+// The largest query tile up to min(qt_cap, 8) whose LUTs stay resident
+// with the lists in shared memory, else with the lists in their partial
+// slots; when one query's LUT does not fit, a tile of one query whose LUT
+// rides in each stage in slices of the M axis (multiples of 16 where
+// possible). smem is 0 when nothing fits.
+struct PQPlan {
+  int qt, slice, resident, smem_lists;
+  size_t smem;
+};
+
+PQPlan pq_plan(int qt_cap, int depth, int k) {
+  const size_t limit = static_cast<size_t>(kSmemLimit);
+  if (qt_cap > kPQMaxQ) qt_cap = kPQMaxQ;
+  for (int lists = 1; lists >= 0; --lists)
+    for (int qt = qt_cap; qt >= 1; --qt) {
+      const size_t smem = pq_layout(qt, depth, depth, 1, k, lists).total;
+      if (smem <= limit) return PQPlan{qt, depth, 1, lists, smem};
+    }
+  for (int lists = 1; lists >= 0; --lists)
+    for (int slice = depth - 1; slice >= 1; --slice) {
+      if (slice > 16 && slice % 16 != 0) continue;
+      const size_t smem = pq_layout(1, depth, slice, 0, k, lists).total;
+      if (smem <= limit) return PQPlan{1, slice, 0, lists, smem};
+    }
+  return PQPlan{1, 1, 0, 0, 0};
+}
+
+// Kernel 8 (multi_scope_topk_pq): query tile of qt <= 8 x row chunk, 16
+// warps. The tile's LUTs are copied once into shared memory; code rows
+// (and the tile's scope words) come through a two-stage cp.async ring,
+// 512 rows a tile, thread t owning row t. A thread looks up only the
+// queries that admit its row, acc += lut[j, m, code[m]] for m = 0..M-1 in
+// order from 0.0f (Scorer<kPQ>'s chain); a warp whose rows no query of the
+// tile admits skips the tile. Epilogue as scan_pass1_tiled's: scores that
+// beat the list's tail go to shared memory, flagged per warp; warp j then
+// gathers query j's into its 32-entry buffer and merges full buffers with
+// warp_merge.
+template <bool kWide>
+__global__ void __launch_bounds__(kPQThreads, 1)
+scan_pass1_pq(const PQScan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PQLayout L =
+      pq_layout(p.qt, p.depth, p.slice, p.resident, p.k, p.smem_lists);
+  float* lut_res = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + L.lut;
+  float* sv = reinterpret_cast<float*>(ring + kPQStages * L.stage);
+  unsigned* flags = reinterpret_cast<unsigned*>(sv + p.qt * kPQRows);
+  float* tail_v = reinterpret_cast<float*>(flags + p.qt * kPQWords);
+  int* tail_i = reinterpret_cast<int*>(tail_v + p.qt);
+  int* sid_s = tail_i + p.qt;
+  int* bcnt = sid_s + p.qt;
+  float* buf_v = reinterpret_cast<float*>(bcnt + p.qt);
+  int* buf_i = reinterpret_cast<int*>(buf_v + p.qt * 32);
+  float* lv_s = reinterpret_cast<float*>(buf_i + p.qt * 32);
+  int* li_s = reinterpret_cast<int*>(lv_s + p.qt * p.k);
+
+  const int k = p.k;
+  const int q0 = blockIdx.x * p.qt;
+  const int nqt = min(p.qt, p.nq - q0);
+  const int chunk = blockIdx.y;
+  const int r_begin = chunk * p.chunk_rows;
+  const int r_end = min(p.n, r_begin + p.chunk_rows);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t lut_bytes = static_cast<size_t>(p.depth) * 1024;  // a query's
+  auto list_off = [&](int j) {
+    return (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
+  };
+
+  for (int i = threadIdx.x; i < nqt * k; i += kPQThreads) {
+    const int j = i / k;
+    const int s = i - j * k;
+    if (p.smem_lists) {
+      lv_s[i] = kNegInf;
+      li_s[i] = -1;
+    } else {
+      p.part_v[list_off(j) + s] = kNegInf;
+      p.part_i[list_off(j) + s] = -1;
+    }
+  }
+  for (int j = threadIdx.x; j < p.qt; j += kPQThreads) {
+    tail_v[j] = kNegInf;        // an empty list's tail
+    tail_i[j] = -1;
+    bcnt[j] = 0;
+    sid_s[j] = j < nqt ? p.sids[q0 + j] : -1;
+  }
+  __syncthreads();              // sid_s before the first words copy
+  const unsigned char* lut_src =
+      reinterpret_cast<const unsigned char*>(p.lut) + q0 * lut_bytes;
+  if (p.resident)               // joins the first item's group
+    stage_copy(smem, static_cast<int>(lut_bytes), lut_src, lut_bytes, nqt,
+               static_cast<int>(lut_bytes), p.lut_width);
+
+  const int ns = (p.depth + p.slice - 1) / p.slice;
+  const int n_tiles =
+      r_end > r_begin ? (r_end - r_begin + kPQRows - 1) / kPQRows : 0;
+  const int total = n_tiles * ns;
+  auto issue = [&](int item) {
+    if (item < total) {
+      const int t = item / ns;
+      const int s = item - t * ns;
+      const int r0 = r_begin + t * kPQRows;
+      const int c0 = s * p.slice;
+      const int len = min(p.slice, p.depth - c0);
+      unsigned char* stage = ring + (item % kPQStages) * L.stage;
+      stage_copy(stage, L.c_stride,
+                 p.codes + static_cast<size_t>(r0) * p.depth + c0, p.depth,
+                 min(kPQRows, r_end - r0), len, p.code_width);
+      if (!p.resident)
+        stage_copy(stage + L.codes, p.slice * 1024,
+                   lut_src + static_cast<size_t>(c0) * 1024, lut_bytes, nqt,
+                   len * 1024, p.lut_width);
+      if (s == 0) {
+        uint32_t* ws =
+            reinterpret_cast<uint32_t*>(stage + L.codes + L.lut_slice);
+        for (int i = threadIdx.x; i < p.qt * kPQWords; i += kPQThreads) {
+          const int sid = sid_s[i / kPQWords];
+          const int wi = (r0 >> 5) + i % kPQWords;
+          if (sid >= 0 && sid < p.n_scopes && wi < p.n_words)
+            cp_async4(ws + i,
+                      p.words + static_cast<size_t>(sid) * p.n_words + wi);
+          else
+            ws[i] = 0u;
+        }
+      }
+    }
+    cp_async_commit();          // empty groups keep the count uniform
+  };
+  issue(0);
+
+  // merge query j's ``cnt`` buffered candidates into its list (warp-owned),
+  // then publish the list's tail
+  auto flush = [&](int j, int cnt) {
+    __syncwarp();
+    float* wl = p.smem_lists ? lv_s + j * k : p.part_v + list_off(j);
+    int* wi = p.smem_lists ? li_s + j * k : p.part_i + list_off(j);
+    const bool in = lane < cnt;
+    warp_offer<kWide ? kMergeSlotsWide : kMergeSlots>(
+        wl, wi, k, in ? buf_v[j * 32 + lane] : kNegInf,
+        in ? buf_i[j * 32 + lane] : -1, in);
+    __syncwarp();
+    if (lane == 0) {
+      tail_v[j] = wl[k - 1];
+      tail_i[j] = wi[k - 1];
+      bcnt[j] = 0;
+    }
+    __syncwarp();
+  };
+
+  float acc[kPQMaxQ];
+  unsigned admit = 0;           // bit j: query j admits this thread's row
+  for (int item = 0; item < total; ++item) {
+    cp_async_wait_all();        // item's stage has landed ...
+    __syncthreads();            // ... for every thread, and item - 1 is done
+    issue(item + 1);
+    const int t = item / ns;
+    const int s = item - t * ns;
+    const int r0 = r_begin + t * kPQRows;
+    const int r = r0 + threadIdx.x;
+    const int c0 = s * p.slice;
+    const int len = min(p.slice, p.depth - c0);
+    const unsigned char* stage = ring + (item % kPQStages) * L.stage;
+    if (s == 0) {               // a new tile: which queries admit the row
+      const uint32_t* ws =
+          reinterpret_cast<const uint32_t*>(stage + L.codes + L.lut_slice);
+      admit = 0u;
+#pragma unroll
+      for (int j = 0; j < kPQMaxQ; ++j) {
+        acc[j] = 0.0f;
+        if (j < nqt && r < r_end)
+          admit |= ((ws[j * kPQWords + warp] >> lane) & 1u) << j;
+      }
+    }
+    // query by query: a lane runs query j's chain only when j admits its
+    // row (one branch per query and slice, not per lookup), and a warp
+    // skips query j when none of its rows is admitted
+    const unsigned char* cr = stage + threadIdx.x * L.c_stride;
+    const float* lq = p.resident
+                          ? lut_res + c0 * 256
+                          : reinterpret_cast<const float*>(stage + L.codes);
+    const int qstride = (p.resident ? p.depth : p.slice) * 256;
+#pragma unroll
+    for (int j = 0; j < kPQMaxQ; ++j) {
+      const bool in = (admit >> j) & 1u;
+      if (j >= nqt || !__any_sync(kAll, in)) continue;
+      if (in) {                 // 16 reads in flight, then 16 adds in order
+        const float* lj = lq + j * qstride;
+        float a = acc[j];
+        int m = 0;
+        for (; m + 16 <= len; m += 16) {
+          const uint4 cw = *reinterpret_cast<const uint4*>(cr + m);
+          const unsigned wd[4] = {cw.x, cw.y, cw.z, cw.w};
+          const float* lm = lj + m * 256;
+          float v[16];
+#pragma unroll
+          for (int b = 0; b < 16; ++b)   // byte b & 3 of the word, as an int
+            v[b] = lm[b * 256 + static_cast<int>(__byte_perm(
+                                    wd[b >> 2], 0u, 0x4440u + (b & 3)))];
+#pragma unroll
+          for (int b = 0; b < 16; ++b) a += v[b];
+        }
+        for (; m < len; ++m) a += lj[m * 256 + cr[m]];
+        acc[j] = a;
+      }
+    }
+    if (s != ns - 1) continue;
+    // epilogue: per query, the admitted scores that beat its list's tail;
+    // a warp with any writes its rows' scores and flags[j * 16 + w]
+#pragma unroll
+    for (int j = 0; j < kPQMaxQ; ++j) {
+      if (j < nqt) {
+        float v = kNegInf;
+        if (((admit >> j) & 1u) && better(acc[j], r, tail_v[j], tail_i[j]))
+          v = acc[j];
+        const unsigned bal = __ballot_sync(kAll, v > kNegInf);
+        if (bal) sv[j * kPQRows + threadIdx.x] = v;
+        if (lane == 0) flags[j * kPQWords + warp] = bal;
+      }
+    }
+    __syncthreads();
+    // warp j gathers query j's candidates into its 32-entry buffer; a full
+    // buffer is merged into the list first
+    for (int j = warp; j < nqt; j += kPQWarps) {
+      int cnt = bcnt[j];
+      // lane w holds warp w's flags; only the warps with candidates are read
+      const unsigned fw = lane < kPQWords ? flags[j * kPQWords + lane] : 0u;
+      for (unsigned live = __ballot_sync(kAll, fw != 0u); live;
+           live &= live - 1) {
+        const int w = __ffs(live) - 1;
+        const unsigned f = __shfl_sync(kAll, fw, w);
+        if (cnt + __popc(f) > 32) {
+          flush(j, cnt);
+          cnt = 0;
+        }
+        if ((f >> lane) & 1u) {
+          const int pos = cnt + __popc(f & ((1u << lane) - 1u));
+          buf_v[j * 32 + pos] = sv[j * kPQRows + 32 * w + lane];
+          buf_i[j * 32 + pos] = r0 + 32 * w + lane;
+        }
+        cnt += __popc(f);
+      }
+      __syncwarp();
+      if (lane == 0) bcnt[j] = cnt;
+    }
+  }
+  __syncwarp();
+  for (int j = warp; j < nqt; j += kPQWarps)
+    if (bcnt[j] > 0) flush(j, bcnt[j]);
+  cp_async_wait_all();
+  __syncthreads();
+  if (p.smem_lists) {
+    for (int i = threadIdx.x; i < nqt * k; i += kPQThreads) {
+      const int j = i / k;
+      const int s = i - j * k;
+      p.part_v[list_off(j) + s] = lv_s[i];
+      p.part_i[list_off(j) + s] = li_s[i];
+    }
+  }
+}
+
+cudaError_t launch_pq(dim3 grid, size_t smem, cudaStream_t stream,
+                      const PQScan& p) {
+  auto kern = p.k > 32 * kMergeSlots ? scan_pass1_pq<true>
+                                     : scan_pass1_pq<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kPQThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // the widest copy (16, 4 or 1 bytes) that every row start and slice start
 // of ``base`` allows
 int copy_width(const void* base, int row_bytes, int slice_bytes) {
@@ -1295,8 +1959,9 @@ int copy_width(const void* base, int row_bytes, int slice_bytes) {
 cudaError_t launch_pass2(const float* part_v, const int* part_i, int nq,
                          int n_chunks, int k, const int* cand, int n_cand,
                          float* out_v, int* out_i, cudaStream_t stream) {
-  const int nw = static_cast<size_t>(kWarps) * k <= kPass2SmemList ? kWarps
-                                                                   : 1;
+  int nw = n_chunks >= 2 * kPass2Warps ? kPass2Warps : kWarps;
+  if (static_cast<size_t>(nw) * k > kPass2SmemList)
+    nw = static_cast<size_t>(kWarps) * k <= kPass2SmemList ? kWarps : 1;
   const size_t smem2 = static_cast<size_t>(nw) * k <= kPass2SmemList
                            ? sizeof(float) * 2 * nw * k
                            : 0;
@@ -1333,33 +1998,34 @@ cudaError_t dispatch_pass1(bool l2, bool vec, dim3 grid, size_t smem,
   }
 }
 
+// scan_pass1 runs the gathered scans of every kind and the int8 and PQ
+// dense-mask scans; the fp32 dense scan and every scoped scan have passes
+// of their own
 template <int kKind>
 cudaError_t dispatch_mode(int mode, bool l2, bool vec, dim3 grid,
                           size_t smem, cudaStream_t stream, const Scan& p) {
   if (mode == kGathered)
     return dispatch_pass1<kKind, kGathered>(l2, vec, grid, smem, stream, p);
-  if constexpr (kKind == kPQ) {       // fp32 / int8 scoped: the tiled pass 1
-    if (mode == kScoped)
-      return dispatch_pass1<kKind, kScoped>(l2, vec, grid, smem, stream, p);
+  if constexpr (kKind != kF32) {
+    if (mode == kDense)
+      return dispatch_pass1<kKind, kDense>(l2, vec, grid, smem, stream, p);
   }
-  if (mode == kScoped) return cudaErrorInvalidValue;
-  return dispatch_pass1<kKind, kDense>(l2, vec, grid, smem, stream, p);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The entry point of seven scans (scan_pass1): kind 0 fp32, 1 int8, 2 PQ.
-// Exactly one of ``mask`` (dense (n,) int8, shared by every query) and
-// ``words`` (packed (n_scopes, n_words) masks, row sids[i] for query i) is
-// non-null; ``words`` without ``cand`` is taken for PQ only (the fp32 and
-// int8 scoped scans go through repro_scan_topk_tiled).
-// A non-null ``cand`` (nq, n) selects gathered mode: n is then the
-// candidate count C per query, ``words`` is required and qt must be 1.
-// ``slice`` is the depth staged at once (depth = d, or M for PQ), ``qt``
-// the query tile, ``smem_lists`` whether the tile's lists fit in shared
-// memory; the partials are (nq, n_chunks, k).
+// The entry point of scan_pass1's five scans (kind 0 fp32, 1 int8, 2 PQ):
+// the int8 and PQ scans with one dense (n,) int8 ``mask`` shared by every
+// query (scoped_topk_i8, scoped_topk_pq), and the gathered scans of every
+// kind (ivf_gather_topk*): a non-null ``cand`` (nq, n) selects gathered
+// mode, n is then the candidate count C per query, ``words`` (packed
+// (n_scopes, n_words) masks, row sids[i] for query i) is required and qt
+// must be 1. ``slice`` is the depth staged at once (depth = d, or M for
+// PQ), ``qt`` the query tile, ``smem_lists`` whether the tile's lists fit
+// in shared memory; the partials are (nq, n_chunks, k).
 int repro_scan_topk(int kind, const void* q, const float* q_scale,
                     const void* rows, const float* row_scale, const float* sq,
                     const int8_t* mask, const uint32_t* words,
@@ -1370,11 +2036,12 @@ int repro_scan_topk(int kind, const void* q, const float* q_scale,
                     float* part_v, int* part_i, float* out_v, int* out_i,
                     void* stream_ptr) {
   if (nq <= 0) return cudaSuccess;
+  const bool gathered = cand != nullptr;
   if (kind < kF32 || kind > kPQ || k < 1 || qt < 1 || qt > kWarps ||
       depth < 1 || slice < 1 || slice > depth || chunk_rows < 1 ||
       n_chunks < 1 || n_chunks > 65535 ||
-      (mask == nullptr) == (words == nullptr) ||
-      (cand != nullptr && (words == nullptr || qt != 1 || n < 1)))
+      (gathered ? (words == nullptr || mask != nullptr || qt != 1 || n < 1)
+                : (mask == nullptr || words != nullptr || kind == kF32)))
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Scan p{q, q_scale, rows, row_scale, sq, mask, words, sids, cand, n_scopes,
@@ -1386,8 +2053,7 @@ int repro_scan_topk(int kind, const void* q, const float* q_scale,
                    base % (kind == kPQ ? 4 : 16) == 0;
   const size_t smem1 = pass1_smem(kind, qt, slice, k, smem_lists);
   const dim3 grid1((nq + qt - 1) / qt, n_chunks);
-  const int mode = cand != nullptr ? kGathered
-                   : words != nullptr ? kScoped : kDense;
+  const int mode = gathered ? kGathered : kDense;
   cudaError_t err =
       kind == kF32 ? dispatch_mode<kF32>(mode, l2, vec, grid1, smem1, stream, p)
       : kind == kI8 ? dispatch_mode<kI8>(mode, l2, vec, grid1, smem1, stream, p)
@@ -1397,25 +2063,78 @@ int repro_scan_topk(int kind, const void* q, const float* q_scale,
                       stream);
 }
 
-// The tiled pass 1's plan for kind 0 (fp32) or 1 (int8), a query tile of at
-// most ``qt_cap``, depth ``depth`` and lists of ``k``: writes the query tile
-// to ``qt`` (the wrapper sizes the grid with it; passed back as the cap, it
-// plans the same tile) and returns the shared memory a block takes, 0 when
-// nothing fits.
+// The streaming pass 1's plan (kernel 1) for a query tile of at most
+// ``qt_cap`` <= 8, depth ``depth`` and lists of ``k``: writes the query tile
+// to ``qt``, the partial lists per chunk to ``lists`` (1, or 8 when the
+// warps' lists live in device memory) and the blocks one SM holds to
+// ``blocks``; returns the shared memory a block takes, 0 for bad arguments.
+int repro_stream_plan(int qt_cap, int depth, int k, int* qt, int* lists,
+                      int* blocks) {
+  if (qt_cap < 1 || qt_cap > kStreamQ || depth < 1 || k < 1) return 0;
+  const StreamPlan plan = stream_plan(qt_cap, depth, k);
+  *qt = plan.qt;
+  *lists = plan.lists;
+  *blocks = plan.blocks;
+  return static_cast<int>(plan.smem);
+}
+
+// Kernel 1, the fp32 scan with one dense (n,) int8 ``mask`` shared by every
+// query (scoped_topk): scan_pass1_stream, then pass 2. ``qt_cap`` <= 8
+// caps the query tile (stream_plan picks it); the partials are
+// (nq, n_chunks * lists, k) for the plan's ``lists``.
+int repro_scan_topk_stream(const float* q, const float* rows, const float* sq,
+                           const int8_t* mask, int nq, int n, int depth,
+                           int k, int l2, int qt_cap, int chunk_rows,
+                           int n_chunks, float* part_v, int* part_i,
+                           float* out_v, int* out_i, void* stream_ptr) {
+  if (nq <= 0) return cudaSuccess;
+  if (k < 1 || qt_cap < 1 || qt_cap > kStreamQ || depth < 1 ||
+      chunk_rows < 1 || n_chunks < 1 || n_chunks > 65535 || mask == nullptr ||
+      (l2 && sq == nullptr))
+    return cudaErrorInvalidValue;
+  const StreamPlan plan = stream_plan(qt_cap, depth, k);
+  StreamScan p{q, rows, sq, mask, nq, n, depth, plan.slice, k, plan.qt,
+               chunk_rows, plan.smem_lists, plan.lists,
+               copy_width(rows, depth * 4, plan.slice * 4),
+               copy_width(q, depth * 4, plan.slice * 4), part_v, part_i};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const dim3 grid((nq + plan.qt - 1) / plan.qt, n_chunks);
+  cudaError_t err =
+      plan.qt == 1
+          ? (l2 ? launch_stream<true, 1>(grid, plan.smem, stream, p)
+                : launch_stream<false, 1>(grid, plan.smem, stream, p))
+          : (l2 ? launch_stream<true, kStreamQ>(grid, plan.smem, stream, p)
+                : launch_stream<false, kStreamQ>(grid, plan.smem, stream, p));
+  if (err != cudaSuccess) return err;
+  return launch_pass2(part_v, part_i, nq, n_chunks * plan.lists, k, nullptr,
+                      n, out_v, out_i, stream);
+}
+
+// The tiled passes' plan for kind 0 (fp32), 1 (int8) or 2 (PQ), a query
+// tile of at most ``qt_cap``, depth ``depth`` (M for PQ) and lists of
+// ``k``: writes the query tile to ``qt`` (the wrapper sizes the grid with
+// it; passed back as the cap, it plans the same tile) and returns the
+// shared memory a block takes, 0 when nothing fits.
 int repro_tiled_plan(int kind, int qt_cap, int depth, int k, int* qt) {
-  if ((kind != kF32 && kind != kI8) || qt_cap < 1 || qt_cap > kTileQ ||
+  if (kind < kF32 || kind > kPQ || qt_cap < 1 || qt_cap > kTileQ ||
       depth < 1 || k < 1)
     return 0;
+  if (kind == kPQ) {
+    const PQPlan plan = pq_plan(qt_cap, depth, k);
+    *qt = plan.qt;
+    return static_cast<int>(plan.smem);
+  }
   const TiledPlan plan = tiled_plan(kind, qt_cap, depth, k);
   *qt = plan.qt;
   return static_cast<int>(plan.smem);
 }
 
-// The fp32 (kind 0) and int8 (kind 1) scans with per-query scope words:
-// multi_scope_topk and multi_scope_topk_i8 (scan_pass1_tiled, then pass 2).
-// ``qt_cap`` <= 64 caps the query tile (tiled_plan picks the tile, the depth
-// slice, the query side's residency and the lists' place), ``chunk_rows``
-// is a multiple of 32. The partials are (nq, n_chunks, k).
+// The scans with per-query scope words: multi_scope_topk and
+// multi_scope_topk_i8 (kind 0, 1: scan_pass1_tiled) and multi_scope_topk_pq
+// (kind 2: scan_pass1_pq, ``q`` the (nq, depth, 256) LUTs and ``rows`` the
+// (n, depth) uint8 codes), then pass 2. ``qt_cap`` <= 64 caps the query
+// tile (the plan picks the tile and the rest), ``chunk_rows`` is a multiple
+// of 32. The partials are (nq, n_chunks, k).
 int repro_scan_topk_tiled(int kind, const void* q, const float* q_scale,
                           const void* rows, const float* row_scale,
                           const float* sq, const uint32_t* words,
@@ -1425,29 +2144,41 @@ int repro_scan_topk_tiled(int kind, const void* q, const float* q_scale,
                           int* part_i, float* out_v, int* out_i,
                           void* stream_ptr) {
   if (nq <= 0) return cudaSuccess;
-  if ((kind != kF32 && kind != kI8) || k < 1 || qt_cap < 1 ||
+  if (kind < kF32 || kind > kPQ || k < 1 || qt_cap < 1 ||
       qt_cap > kTileQ || depth < 1 || chunk_rows < 32 ||
       chunk_rows % 32 != 0 || n_chunks < 1 || n_chunks > 65535 ||
       words == nullptr || sids == nullptr ||
       (kind == kI8 && (q_scale == nullptr || row_scale == nullptr)) ||
-      (l2 && sq == nullptr))
+      (kind != kPQ && l2 && sq == nullptr))
     return cudaErrorInvalidValue;
-  const TiledPlan plan = tiled_plan(kind, qt_cap, depth, k);
-  if (plan.smem == 0) return cudaErrorInvalidValue;
-  const int eb = kind == kF32 ? 4 : 1;
-  TiledScan p{q, q_scale, rows, row_scale, sq, words, sids, n_scopes,
-              n_words, nq, n, depth, plan.slice, k, plan.qt,
-              plan.q_resident, chunk_rows, plan.smem_lists,
-              copy_width(rows, depth * eb, plan.slice * eb),
-              copy_width(q, depth * eb, plan.slice * eb), part_v, part_i};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((nq + plan.qt - 1) / plan.qt, n_chunks);
-  cudaError_t err =
-      kind == kF32
-          ? (l2 ? launch_tiled<kF32, true>(grid, plan.smem, stream, p)
-                : launch_tiled<kF32, false>(grid, plan.smem, stream, p))
-          : (l2 ? launch_tiled<kI8, true>(grid, plan.smem, stream, p)
-                : launch_tiled<kI8, false>(grid, plan.smem, stream, p));
+  cudaError_t err;
+  if (kind == kPQ) {
+    const PQPlan plan = pq_plan(qt_cap, depth, k);
+    if (plan.smem == 0) return cudaErrorInvalidValue;
+    PQScan p{static_cast<const float*>(q), static_cast<const uint8_t*>(rows),
+             words, sids, n_scopes, n_words, nq, n, depth, plan.slice, k,
+             plan.qt, plan.resident, chunk_rows, plan.smem_lists,
+             copy_width(rows, depth, plan.slice),
+             copy_width(q, depth * 1024, plan.slice * 1024), part_v, part_i};
+    err = launch_pq(dim3((nq + plan.qt - 1) / plan.qt, n_chunks), plan.smem,
+                    stream, p);
+  } else {
+    const TiledPlan plan = tiled_plan(kind, qt_cap, depth, k);
+    if (plan.smem == 0) return cudaErrorInvalidValue;
+    const int eb = kind == kF32 ? 4 : 1;
+    TiledScan p{q, q_scale, rows, row_scale, sq, words, sids, n_scopes,
+                n_words, nq, n, depth, plan.slice, k, plan.qt,
+                plan.q_resident, chunk_rows, plan.smem_lists,
+                copy_width(rows, depth * eb, plan.slice * eb),
+                copy_width(q, depth * eb, plan.slice * eb), part_v, part_i};
+    const dim3 grid((nq + plan.qt - 1) / plan.qt, n_chunks);
+    err = kind == kF32
+              ? (l2 ? launch_tiled<kF32, true>(grid, plan.smem, stream, p)
+                    : launch_tiled<kF32, false>(grid, plan.smem, stream, p))
+              : (l2 ? launch_tiled<kI8, true>(grid, plan.smem, stream, p)
+                    : launch_tiled<kI8, false>(grid, plan.smem, stream, p));
+  }
   if (err != cudaSuccess) return err;
   return launch_pass2(part_v, part_i, nq, n_chunks, k, nullptr, n, out_v,
                       out_i, stream);

@@ -8,16 +8,23 @@ They take CUDA tensors only (``ops.py`` routes CPU tensors to ``ref.py``),
 check what the kernel cannot take, allocate outputs and scratch with
 ``torch.empty``, launch on the current stream, raise on a non-zero
 ``cudaError_t``, and count their launches in :data:`launches`. Any k >= 1
-and any depth (d, or M for PQ) are taken. The fp32 and int8 scans with
-scope words (``multi_scope_topk``, ``multi_scope_topk_i8``) run the tiled
-pass 1 (query tiles of up to 64, rows staged through a shared-memory ring;
-:func:`tiled_plan` asks the C entry for the tile, :func:`tiled_geometry`
-sizes the grid); the others run the per-row pass 1, whose query tile
-(<= 8), list placement and depth slice :func:`geometry` picks.
+and any depth (d, or M for PQ) are taken. Which pass 1 runs:
+
+* the scans with scope words (:data:`TILED`: ``multi_scope_topk``,
+  ``multi_scope_topk_i8``, ``multi_scope_topk_pq``) run the tiled passes
+  (query tiles of up to 64 fp32 / int8 or 8 PQ queries, rows staged through
+  a shared-memory ring; :func:`tiled_plan` asks the C entry for the tile,
+  :func:`tiled_geometry` sizes the grid);
+* the fp32 dense-mask scan (``scoped_topk``) runs the streaming pass
+  (query tiles of up to 8; :func:`stream_plan`, :func:`stream_geometry`);
+* the int8 and PQ dense-mask scans and the gathered scans run the per-row
+  pass 1, whose query tile (<= 8), list placement and depth slice
+  :func:`geometry` picks.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,10 +44,15 @@ KINDS = {"f32": 0, "i8": 1, "pq": 2}
 _DEPTH_BYTES = {"f32": 4, "i8": 1, "pq": 256 * 4}
 _DEPTH_UNIT = {"f32": 4, "i8": 16, "pq": 4}
 
-# the tiled pass 1 (scan_pass1_tiled): largest query tile, rows per row tile
+# the tiled passes (scan_pass1_tiled, scan_pass1_pq): largest query tile
+# asked for (the PQ plan takes at most 8), rows per row tile
 TILE_Q = 64
-TILE_R = {"f32": 256, "i8": 128}
-TILED = ("multi_scope_topk", "multi_scope_topk_i8")
+TILE_R = {"f32": 256, "i8": 128, "pq": 512}
+TILED = ("multi_scope_topk", "multi_scope_topk_i8", "multi_scope_topk_pq")
+# the streaming pass 1 of the fp32 dense scan (scan_pass1_stream): largest
+# query tile, rows per row tile
+STREAM_Q = 8
+STREAM_ROWS = 128
 
 launches = {name: 0 for name in (
     "scoped_topk", "multi_scope_topk", "scoped_topk_i8",
@@ -138,12 +150,14 @@ class TiledGeometry(NamedTuple):
     n_chunks: int
 
 
+@functools.lru_cache(maxsize=256)
 def tiled_plan(kind: str, qt_cap: int, depth: int, k: int) -> Tuple[int, int]:
     """The C entry's plan for the tiled pass 1 (``tiled_plan`` in the CUDA
     source, which alone holds its shared-memory layout): the query tile for
     a cap of ``qt_cap`` (halved while its top-k lists do not fit shared
     memory) and the dynamic shared memory of a block, 0 when nothing fits.
-    Builds the library."""
+    Builds the library; plans are remembered (they depend on the arguments
+    alone)."""
     qt = ctypes.c_int(0)
     smem = _build.library().repro_tiled_plan(KINDS[kind], qt_cap, depth, k,
                                              ctypes.byref(qt))
@@ -152,19 +166,67 @@ def tiled_plan(kind: str, qt_cap: int, depth: int, k: int) -> Tuple[int, int]:
 
 def tiled_geometry(kind: str, nq: int, n: int, k: int, qt: int,
                    block_n: Optional[int], sms: int = 132) -> TiledGeometry:
-    """Grid of the tiled pass 1 for the query tile ``qt`` that
-    :func:`tiled_plan` gave: ``block_n`` (default: one block per SM in all,
-    at least k rows and one row tile each) is rounded up to whole mask
-    words and to at most 65535 chunks."""
+    """Grid of the tiled passes for the query tile ``qt`` that
+    :func:`tiled_plan` gave: ``block_n`` (default: at most one block per SM
+    in all, so the grid is one wave, and at least k rows and one row tile
+    each) is rounded up to whole mask words and to at most 65535
+    chunks."""
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
     if not 1 <= qt <= TILE_Q:
         raise ValueError(f"qt={qt} outside [1, {TILE_Q}]")
     if block_n is None:
-        chunks = max(1, _ceil(sms, _ceil(max(nq, 1), qt)))
+        chunks = max(1, sms // _ceil(max(nq, 1), qt))
         block_n = max(_ceil(max(n, 1), chunks), k, TILE_R[kind])
     block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
     return TiledGeometry(qt, block_n, max(1, _ceil(n, block_n)))
+
+
+class StreamPlan(NamedTuple):
+    qt: int            # query tile (<= 8)
+    lists: int         # partial lists per chunk: 1, or one per warp (4)
+    blocks: int        # blocks one SM holds (1 to 4)
+    smem: int          # dynamic shared memory of a block
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(qt_cap: int, depth: int, k: int) -> StreamPlan:
+    """The C entry's plan for the streaming pass 1 of ``scoped_topk``
+    (``stream_plan`` in the CUDA source, which alone holds its layout): the
+    largest query tile up to ``qt_cap`` whose per-warp lists fit shared
+    memory beside the ring (else the lists go to device memory, one partial
+    per warp), and how many blocks an SM holds. Builds the library; plans
+    are remembered."""
+    if not 1 <= qt_cap <= STREAM_Q:
+        raise ValueError(f"qt_cap={qt_cap} outside [1, {STREAM_Q}]")
+    qt, lists, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    smem = _build.library().repro_stream_plan(
+        qt_cap, depth, k, ctypes.byref(qt), ctypes.byref(lists),
+        ctypes.byref(blocks))
+    return StreamPlan(qt.value, lists.value, blocks.value, smem)
+
+
+def stream_geometry(nq: int, n: int, qt: int, blocks: int,
+                    block_n: Optional[int], sms: int = 132) -> TiledGeometry:
+    """Grid of the streaming pass 1 for the plan's query tile ``qt`` and
+    ``blocks`` per SM: ``block_n`` (default: the rows split over one wave of
+    ``sms * blocks`` blocks, in whole 128-row tiles) is rounded up to whole
+    mask words and to at most 65535 chunks. A launch of a few thousand
+    rows (a gather plan's) gets one tile per block."""
+    if not 1 <= qt <= STREAM_Q:
+        raise ValueError(f"qt={qt} outside [1, {STREAM_Q}]")
+    if blocks < 1:
+        raise ValueError(f"blocks={blocks} must be >= 1")
+    if block_n is None:
+        chunks = max(1, (sms * blocks) // _ceil(max(nq, 1), qt))
+        block_n = STREAM_ROWS * _ceil(_ceil(max(n, 1), chunks), STREAM_ROWS)
+    block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
+    return TiledGeometry(qt, block_n, max(1, _ceil(n, block_n)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cand(cand: torch.Tensor, nq: int, n: int,
@@ -190,7 +252,8 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
             block_q: int, block_n: Optional[int], cand=None,
             check_ids: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared launch of every scan. The wrappers named in :data:`TILED` run
-    the tiled pass 1. With ``cand`` (gathered mode) the sweep runs over
+    the tiled passes, ``scoped_topk`` the streaming pass 1, the others the
+    per-row pass 1. With ``cand`` (gathered mode) the sweep runs over
     each query's C candidate positions instead of the n rows, one query per
     block (``block_q`` 1)."""
     dev = q.device
@@ -214,9 +277,20 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
         if mask.shape[0] != n:
             raise ValueError(f"mask has {mask.shape[0]} lanes for {n} rows")
         n_scopes = n_words = 0
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
     tiled = name in TILED
-    if tiled:
+    streaming = name == "scoped_topk"
+    lists = 1                          # partial lists per chunk
+    if streaming:
+        if block_q < 1:
+            raise ValueError(f"block_q={block_q} must be >= 1")
+        if k < 1:
+            raise ValueError(f"k={k} must be >= 1")
+        plan = stream_plan(max(1, min(block_q, nq, STREAM_Q)), depth, k)
+        geo = stream_geometry(nq, n, plan.qt, plan.blocks, block_n, sms)
+        lists = plan.lists
+    elif tiled:
         if block_q < 1:
             raise ValueError(f"block_q={block_q} must be >= 1")
         if k < 1:
@@ -233,20 +307,27 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_i
-    part_v = torch.empty((nq, geo.n_chunks, k), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((nq, geo.n_chunks, k), dtype=torch.int32,
+    part_v = torch.empty((nq, geo.n_chunks * lists, k),
+                         dtype=torch.float32, device=dev)
+    part_i = torch.empty((nq, geo.n_chunks * lists, k), dtype=torch.int32,
                          device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if tiled:
+        cuda_stream = ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream)
+        if streaming:
+            rc = lib.repro_scan_topk_stream(
+                _ptr(q), _ptr(rows), _ptr(sq if l2 else None), _ptr(mask),
+                nq, n, depth, k, int(l2), geo.qt, geo.chunk_rows,
+                geo.n_chunks, _ptr(part_v), _ptr(part_i), _ptr(out_v),
+                _ptr(out_i), cuda_stream)
+        elif tiled:
             rc = lib.repro_scan_topk_tiled(
                 KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
                 _ptr(row_scale), _ptr(sq if l2 else None), _ptr(words),
                 _ptr(sids), n_scopes, n_words, nq, n, depth, k, int(l2),
                 geo.qt, geo.chunk_rows, geo.n_chunks, _ptr(part_v),
-                _ptr(part_i), _ptr(out_v), _ptr(out_i), stream)
+                _ptr(part_i), _ptr(out_v), _ptr(out_i), cuda_stream)
         else:
             rc = lib.repro_scan_topk(
                 KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
@@ -254,7 +335,7 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
                 _ptr(words), _ptr(sids), _ptr(cand), n_scopes, n_words, nq,
                 sweep, depth, geo.slice, k, int(l2), geo.qt, geo.chunk_rows,
                 geo.n_chunks, int(geo.smem_lists), _ptr(part_v),
-                _ptr(part_i), _ptr(out_v), _ptr(out_i), stream)
+                _ptr(part_i), _ptr(out_v), _ptr(out_i), cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
     count_launch(launches, name)
@@ -353,8 +434,8 @@ def scoped_topk_pq(lut, codes, mask, k, block_q=8, block_n=None):
                    mask, None, None, m, k, False, block_q, block_n)
 
 
-def multi_scope_topk_pq(lut, codes, mask_words, scope_ids, k, block_q=8,
-                        block_n=None):
+def multi_scope_topk_pq(lut, codes, mask_words, scope_ids, k,
+                        block_q=TILE_Q, block_n=None):
     """PQ/ADC scan with packed per-query scope masks."""
     m = _pq(lut, codes)
     return _launch("multi_scope_topk_pq", "pq", lut, None, codes, None, None,

@@ -517,3 +517,196 @@ def test_tiled_scans_on_block_diagonal_masks(q, r, d, k, metric):
     args = _tiled_inputs(q, q * r, d, q + r, blockdiag=True)
     _hold_tiled_against_dense(*args, k, metric, None)
     _hold_tiled_against_plain(*args, k, metric, None)
+
+
+# ------------------------------------------------------ kernels 1 and 8
+# launch shapes of the streaming pass 1 (kernel 1: q, n, d, k) and of the
+# PQ tiled pass (kernel 8: q, n, M, k) that the cases below, chip_smoke.py
+# and the main path make (tests/test_torch_kernels.py checks their grids on
+# the CPU)
+STREAM_LAUNCHES = [
+    (1, _MAIN, 128, 10), (1, _MAIN, 128, 320), (1, 100_000, 8192, 10),
+    (1, 4000, 128, 10), (1, 137, 16, 200), (8, 2081, 16, 40),
+    (5, 3001, 13, 17), (3, 1000, 100, 320), (3, 30_000, 64, 10_000),
+    (5, 20_000, 64, 4096), (8, 20_000, 8192, 10), (9, 5000, 64, 256),
+    (3, 100_000, 64, 256),
+]
+PQ_LAUNCHES = [
+    (64, _MAIN, 32, 80), (64, _MAIN, 32, 40), (1, 137, 4, 1),
+    (5, 1024, 32, 40), (16, 2081, 13, 17), (9, 5000, 16, 320),
+    (8, 3000, 256, 10), (4, 5000, 32, 320), (13, 3001, 3, 10),
+    (3, 30_000, 16, 10_000), (1, 3000, 32, 80), (64, 5120, 32, 80),
+]
+
+# kernel 1's cases: (q, n, d, k, metric, mask, offset). q = 1 and q <= 8;
+# n never a multiple of the 128-row tile (4000: a gather plan's launch,
+# all rows admitted); d = 13 and 100 are not multiples of the 4-float
+# vector (and 13 takes 4-byte copies), d = 8192 is 128 slices;
+# ``offset`` rows start ``offset`` floats past a 16-byte boundary; k = 320
+# takes the wide merge, k = 4096 at q = 5 puts the per-warp lists in device
+# memory; mask "empty" admits nothing, "few" 5 rows (k above them)
+STREAM_CASES = [
+    (1, 2081, 128, 10, "ip", "dense", 0),
+    (1, 4000, 128, 10, "l2", "ones", 0),
+    (1, 137, 16, 200, "ip", "few", 0),
+    (1, 3001, 64, 10, "ip", "empty", 0),
+    (8, 2081, 16, 40, "ip", "dense", 0),
+    (5, 3001, 13, 17, "l2", "dense", 1),
+    (3, 1000, 100, 320, "ip", "dense", 2),
+    (2, 5000, 64, 10, "l2", "ones", 3),
+    (5, 20_000, 64, 4096, "ip", "dense", 0),
+    (1, 20_000, 8192, 10, "l2", "dense", 0),
+    (7, 70_001, 128, 10, "ip", "dense", 0),
+]
+
+
+def _stream_inputs(q, n, d, mask, offset, seed):
+    """Queries, rows (a view ``offset`` floats into a larger buffer, with a
+    duplicated row), their norms and the dense mask of the case."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.randn(q, d, generator=g, device=dev)
+    X = torch.randn(n * d + offset, generator=g, device=dev)[offset:]
+    X = X.view(n, d)
+    X[n // 2] = X[n // 3]                                   # a tie
+    if mask == "ones":
+        dense = torch.ones(n, dtype=torch.bool, device=dev)
+    elif mask == "empty":
+        dense = torch.zeros(n, dtype=torch.bool, device=dev)
+    elif mask == "few":
+        dense = torch.zeros(n, dtype=torch.bool, device=dev)
+        dense[torch.randperm(n, generator=g, device=dev)[:5]] = True
+    else:
+        dense = torch.rand(n, generator=g, device=dev) < 0.4
+    return Q, X, ref.row_sq_norms(X), dense
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k,metric,mask,offset", STREAM_CASES)
+def test_stream_scan_matches_plain_version_and_kernel_2(q, n, d, k, metric,
+                                                        mask, offset):
+    """Kernel 1 (the streaming pass 1) against its plain version (ids
+    tie-aware, scores within TOL) and bit for bit against kernel 2 given
+    the same mask as one scope row shared by every query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    Q, X, sq, dense = _stream_inputs(q, n, d, mask, offset,
+                                     q * 13 + n + d + k)
+    m8 = dense.to(torch.int8)
+    ops.reset_launch_counts()
+    got = ops.scoped_topk(Q, X, m8, k, metric, sq)
+    assert ops.launch_counts()["scoped_topk"] == 1
+    _agree(got, ref.scoped_topk_ref(Q, X, m8, k, metric, sq), "scoped_topk")
+    admitted = int(dense.sum())
+    if admitted < k:
+        assert torch.all(got[1][:, admitted:] == -1)
+    words = _words(dense[None])
+    sid = torch.zeros(q, dtype=torch.int32, device=Q.device)
+    two = ops.multi_scope_topk(Q, X, words, sid, k, metric, sq)
+    assert torch.equal(got[1], two[1]) and torch.equal(got[0], two[0])
+
+
+# kernel 8's cases: (q, n, M, k, offset). q = 1, q <= 8 and q = 13 (three
+# query tiles); n never a multiple of the 512-row tile but at 3072; M = 3
+# and 13 take byte copies, M = 256 stages the LUT in slices; ``offset``
+# codes start ``offset`` bytes past a 16-byte boundary; k = 320 takes the
+# wide merge, k above the admitted rows of the sparse and empty scopes;
+# scope ids include an empty scope and one out of range
+PQ_CASES = [
+    (1, 3001, 32, 80, 0),
+    (8, 2081, 32, 40, 0),
+    (13, 5000, 32, 80, 0),
+    (5, 3072, 16, 320, 0),
+    (4, 2000, 3, 10, 1),
+    (6, 4100, 13, 17, 5),
+    (3, 3000, 256, 10, 0),
+    (2, 1000, 32, 900, 0),
+    (9, 20_001, 32, 80, 16),
+]
+
+
+def _pq_case_inputs(q, n, m, offset, seed):
+    """LUTs, codes (a view ``offset`` bytes into a larger buffer, with a
+    duplicated row), and four scopes: dense, empty, only the last 7 rows,
+    sparse; scope ids cycle through them and 4 (out of range)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.randn(q, m, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n * m + offset,), generator=g,
+                          device=dev, dtype=torch.int32).to(torch.uint8)
+    codes = codes[offset:].view(n, m)
+    codes[n // 2] = codes[n // 3]                           # a tie
+    dense = torch.zeros(4, n, dtype=torch.bool, device=dev)
+    dense[0] = torch.rand(n, generator=g, device=dev) < 0.6
+    dense[2, n - 7:] = True
+    dense[3] = torch.rand(n, generator=g, device=dev) < 0.05
+    sid = (torch.arange(q, device=dev) % 5).to(torch.int32)
+    return lut, codes, dense, _words(dense), sid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,m,k,offset", PQ_CASES)
+def test_pq_tiled_scan_equals_plain_version_and_kernel_7(q, n, m, k, offset):
+    """Kernel 8 (the PQ tiled pass) bit for bit against its plain version
+    and, query by query, against kernel 7 on the query's unpacked scope
+    row (the PQ batch == a loop of dsq at PQ)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    lut, codes, dense, words, sid = _pq_case_inputs(q, n, m, offset,
+                                                    q * 17 + n + m + k)
+    ops.reset_launch_counts()
+    got = ops.multi_scope_topk_pq(lut, codes, words, sid, k)
+    assert ops.launch_counts()["multi_scope_topk_pq"] == 1
+    pw = torch.nn.functional.pad(words, (0, 0, 0, 1))       # id 4: empty
+    want = ref.multi_scope_topk_pq_ref(lut, codes, pw, sid, k)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    for i in range(q):
+        one = ops.scoped_topk_pq(lut[i:i + 1], codes,
+                                 _dense_row(dense, sid, i), k)
+        assert torch.equal(got[1][i:i + 1], one[1]), f"ids, query {i}"
+        assert torch.equal(got[0][i:i + 1], one[0]), f"values, query {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k", STREAM_LAUNCHES)
+def test_stream_plan_fits_shared_memory(q, n, d, k):
+    """The C entry's plan for kernel 1 fits a block's 232,448 bytes with
+    its three-stage ring, the tile is at most the cap and plans itself
+    again, the per-warp lists stay in shared memory unless one query's do
+    not fit (then one partial per warp, 4 a chunk), and at the main shape
+    (q = 1, k = 10) two blocks share an SM, so the grid is one wave of 262
+    blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    st = ops._st
+    cap = min(q, st.STREAM_Q)
+    plan = st.stream_plan(cap, d, k)
+    assert 0 < plan.smem <= st.SMEM_LIMIT and 1 <= plan.qt <= cap
+    assert 1 <= plan.blocks <= 4 and plan.lists in (1, 4)
+    assert st.stream_plan(plan.qt, d, k) == plan
+    geo = st.stream_geometry(q, n, plan.qt, plan.blocks, None)
+    assert 1 <= geo.n_chunks <= 65535
+    assert geo.chunk_rows % st.STREAM_ROWS == 0 or geo.n_chunks == 1
+    if (n, d, k) == (_MAIN, 128, 10):
+        assert (plan.qt, plan.lists, plan.blocks) == (1, 1, 2)
+        assert 256 <= geo.n_chunks <= 264
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,m,k", PQ_LAUNCHES)
+def test_pq_plan_fits_shared_memory(q, n, m, k):
+    """The C entry's plan for kernel 8 fits a block's 232,448 bytes, the
+    tile is at most 8 queries and plans itself again; at the main shape
+    (M = 32, k = 80) the resident LUTs of 5 queries fit beside the ring
+    and the grid is one wave of at most one block per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    st = ops._st
+    qt, smem = st.tiled_plan("pq", min(q, st.TILE_Q), m, k)
+    assert 0 < smem <= st.SMEM_LIMIT and 1 <= qt <= min(q, 8)
+    assert st.tiled_plan("pq", qt, m, k) == (qt, smem)
+    geo = st.tiled_geometry("pq", q, n, k, qt, None)
+    assert 1 <= geo.n_chunks <= 65535
+    if n == _MAIN:
+        assert qt == 5
+        assert geo.n_chunks * -(-q // qt) <= 132

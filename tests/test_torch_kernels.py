@@ -20,7 +20,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-from test_torch_gpu import TILED_LAUNCHES  # noqa: E402
+from test_torch_gpu import (PQ_LAUNCHES, STREAM_LAUNCHES,  # noqa: E402
+                            TILED_LAUNCHES)
 
 NEG_INF = float(np.finfo(np.float32).min)
 TOL = 1e-5
@@ -453,3 +454,67 @@ def test_tiled_geometry_fits_the_card(kind, q, n, depth, k, block_q):
     if n == _MAIN:
         assert geo.qt == 64
         assert 132 <= geo.n_chunks * -(-q // geo.qt) <= 264
+
+
+@pytest.mark.parametrize("q,n,d,k", STREAM_LAUNCHES)
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_stream_geometry_fits_the_card(q, n, d, k, blocks):
+    """Kernel 1's grid on an H100 (132 SMs) for a query tile of
+    min(q, 8) and ``blocks`` blocks per SM: row chunks of whole 128-row
+    tiles (so whole mask words), at most one wave of blocks unless the
+    rows need more chunks, at most 65535 chunks, covering the n rows. A
+    gather plan's few thousand rows get one tile per block. (The C entry
+    plans the tile, the list placement and the blocks per SM;
+    tests/test_torch_gpu.py::test_stream_plan_fits_shared_memory holds that
+    plan's shared memory on the card.)"""
+    st = ops._st
+    qt = min(q, st.STREAM_Q)
+    geo = st.stream_geometry(q, n, qt, blocks, None, 132)
+    tiles = -(-q // qt)
+    assert geo.qt == qt
+    assert geo.chunk_rows % st.STREAM_ROWS == 0 and geo.chunk_rows % 32 == 0
+    assert 1 <= geo.n_chunks <= 65535
+    assert geo.n_chunks * geo.chunk_rows >= n > (geo.n_chunks - 1) * \
+        geo.chunk_rows
+    assert geo.n_chunks * tiles <= max(132 * blocks, tiles)
+    if n <= 4000:
+        assert geo.chunk_rows == st.STREAM_ROWS
+    if n == _MAIN and blocks == 2:
+        assert 256 <= geo.n_chunks <= 264
+
+
+def test_stream_geometry_keeps_a_given_block_n_and_refuses_bad_tiles():
+    """A tuned block_n is kept, rounded up to whole mask words; a query
+    tile outside [1, 8] or no block per SM is refused, and so is a plan's
+    cap outside [1, 8] before the library is asked."""
+    st = ops._st
+    geo = st.stream_geometry(3, 2081, 3, 1, 100, 132)
+    assert geo.chunk_rows == 128 and geo.n_chunks == 17
+    assert st.stream_geometry(1, 10, 1, 2, None, 132) == (1, 128, 1)
+    for qt, blocks in ((0, 1), (9, 1), (1, 0)):
+        with pytest.raises(ValueError):
+            st.stream_geometry(1, 100, qt, blocks, None, 132)
+    for cap in (0, 9):
+        with pytest.raises(ValueError):
+            st.stream_plan(cap, 128, 10)
+
+
+@pytest.mark.parametrize("q,n,m,k", PQ_LAUNCHES)
+def test_pq_geometry_fits_the_card(q, n, m, k):
+    """Kernel 8's grid on an H100 for the plan's query tile (5 queries of
+    32 KB LUTs at M = 32, at most 8): row chunks of whole mask words and at
+    least one 512-row tile and k rows each, covering the n rows, and at
+    most one block per SM in all (one wave) where the query tiles allow.
+    (test_pq_plan_fits_shared_memory holds the tile on the card.)"""
+    st = ops._st
+    qt = min(q, 5 if m <= 32 else 1)
+    geo = st.tiled_geometry("pq", q, n, k, qt, None, 132)
+    assert geo.chunk_rows % 32 == 0
+    assert geo.chunk_rows >= max(k, st.TILE_R["pq"])
+    assert 1 <= geo.n_chunks <= 65535
+    assert geo.n_chunks * geo.chunk_rows >= n > (geo.n_chunks - 1) * \
+        geo.chunk_rows
+    tiles = -(-q // qt)
+    assert geo.n_chunks * tiles <= max(132, tiles)
+    if n == _MAIN:
+        assert (tiles, geo.n_chunks) == (13, 10)

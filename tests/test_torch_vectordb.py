@@ -366,3 +366,53 @@ def test_dsq_batch_fallback_forwards_executor_params():
         _assert_matches_ref(batch[i], r, f"fallback {i}")
     stats = port.stats()
     assert stats["entries"] == len(ds.vectors) and stats["device"] == "cpu"
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_concurrent_resolve_during_dsm_batch(strategy):
+    """The port's twin of ``tests/test_dsm.py``'s test of the same name:
+    two readers resolve (recursively and not) while ``dsm_batch``'s four
+    workers move subtrees. No reader may raise (PE-OFFLINE's non-recursive
+    resolve once iterated a child set that a concurrent re-key resized),
+    TrieHI's recursive read of the root is one snapshot of all 200
+    entries, and the index's invariants hold afterwards."""
+    import threading
+
+    from repro_torch.core import DSMExecutor, make_scope_index
+
+    idx = make_scope_index(strategy)
+    for eid in range(200):
+        idx.insert(eid, f"/t{eid % 8}/d{(eid // 8) % 2}/")
+    ex = DSMExecutor(idx)
+    stop = threading.Event()
+    errors: list = []
+
+    def reader():
+        try:
+            while not stop.is_set():
+                got = idx.resolve("/", recursive=True)
+                if strategy == "triehi":
+                    assert len(got) == 200      # single-aggregate snapshot
+                else:
+                    assert len(got) <= 200
+                for t in range(8):
+                    idx.resolve(f"/t{t}/", recursive=True)
+                    idx.resolve(f"/t{t}/", recursive=False)
+        except Exception as e:                  # pragma: no cover - failure
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        for r in range(2):
+            ops = [DSM("move", f"/t{t}/d{r}/", f"/x{r}_{t}/")
+                   for t in range(8)]
+            res = ex.apply_many(ops, max_workers=4)
+            assert all(e is None for e in res.errors), res.errors
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+    assert not errors, errors
+    idx.check_invariants()

@@ -5,14 +5,18 @@
     PYTHONPATH=<other checkout>/src python3 tools/scan_ab.py --label parent
 
 Runs ``chip_smoke.py``'s phase 1 (every kernel held against its plain
-version, then timed at the main path's shapes, with kernel 2 also at
-``gather_rescore``'s block-diagonal shapes and kernel 9 at a synthetic IVF
-layout) with the ``repro_torch`` that comes first on ``sys.path``: the one
+version, then timed at the main path's shapes, with kernel 1 also at a
+gather plan's 4,000 gathered rows, kernel 2 at ``gather_rescore``'s
+block-diagonal shapes, kernel 8 also over bank-conflict-free codes and
+kernel 9 at a synthetic IVF layout) with the ``repro_torch`` that comes
+first on ``sys.path``: the one
 ``PYTHONPATH`` names, else this checkout's ``src``. Each tree builds its own
 kernels under its own ``build/``. Prints one JSON line: the label, the
 package's path, the card's name and power limit, and per kernel and shape
-the CUDA-event time (``ms``), the profiler's device time (``device_ms``),
-the bound and the library call's time. Compare two trees only within one
+the CUDA-event time (``ms``), the profiler's device time (``device_ms``,
+and pass 1's alone where recorded), the bound (and the PQ scans'
+shared-memory lookup bound) and the library call's time. Compare two
+trees only within one
 run on one card, in turns (A, B, B, A), each in its own process.
 """
 from __future__ import annotations
@@ -24,7 +28,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KEYS = ("ms", "device_ms", "bound_ms", "library_ms", "shape")
+KEYS = ("ms", "device_ms", "pass1_device_ms", "bound_ms", "lookup_bound_ms",
+        "library_ms", "shape")
 
 
 def main() -> int:

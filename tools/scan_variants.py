@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Time variants of the scan kernels' source side by side on one card.
+
+    python3 tools/scan_variants.py                 # every variant below
+    python3 tools/scan_variants.py --only final stream_t256_s32
+
+Each variant is this checkout's ``src/repro_torch`` copied under
+``build/variants/<name>/`` with the text substitutions listed in
+:data:`VARIANTS` (in the CUDA source, and in the Python constants that
+mirror it). All variants are built at once, one process each; then each is
+timed in a process of its own, in turns (the list, then the list reversed):
+kernel 1 (``scoped_topk``) at q = 1 over 1.94M unit rows (d = 128, k = 10,
+ip, every row admitted) and kernel 8 (``multi_scope_topk_pq``) at the main
+PQ shape (q = 64, M = 32, k = 80, 8 scopes, random codes), each checked
+against its plain version first (a variant that changes what is computed
+is marked ``"checked": false``). Prints one JSON line per run: the
+CUDA-event time (``ms``), the profiler's device time (``device_ms``) and
+pass 1's alone (``pass1_ms``), with the card's name and power limit.
+
+The variants are the experiments behind the designs of
+``scan_pass1_stream`` and ``scan_pass1_pq`` (``PERF.md`` section 6).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CU = "kernels/csrc/scoped_topk.cu"
+PY = "kernels/scoped_topk.py"
+_EPILOGUE = ("    if (s != ns - 1) continue;\n"
+             "    // epilogue: per query, the admitted")
+
+
+def _stream(threads: int, slice_: int, stages: int = 3) -> dict:
+    return {CU: {"kStreamThreads = 128;": f"kStreamThreads = {threads};",
+                 "kStreamSlice = 64;": f"kStreamSlice = {slice_};",
+                 "kStreamStages = 3;": f"kStreamStages = {stages};"},
+            PY: {"STREAM_ROWS = 128": f"STREAM_ROWS = {threads}"}}
+
+
+# name -> {file under src/repro_torch: {text: replacement}}
+VARIANTS = {
+    "final": {},
+    # kernel 1: rows per tile (= threads), floats of a row per item, stages
+    "stream_t256_s32": _stream(256, 32),
+    "stream_t256_s16_x4": _stream(256, 16, 4),
+    "stream_t128_s128": _stream(128, 128),
+    "stream_t64_s128": _stream(64, 128),
+    # kernel 8: the lookups alone (no epilogue: the scores are summed into
+    # shared memory), and 8 warps instead of 16
+    "pq_lookups_only": {CU: {_EPILOGUE: (
+        "    if (s == ns - 1) {\n      float t = 0.0f;\n"
+        "      for (int j = 0; j < kPQMaxQ; ++j) t += acc[j];\n"
+        "      sv[threadIdx.x] += t;\n    }\n    continue;\n"
+        "    // epilogue: per query, the admitted")}},
+    "pq_w8": {CU: {"constexpr int kPQWarps = 16;":
+                   "constexpr int kPQWarps = 8;"}},
+    # kernel 8 with the code bytes taken out by shift and mask
+    "pq_shift_extract": {CU: {
+        "static_cast<int>(__byte_perm(\n"
+        "                                    wd[b >> 2], 0u, 0x4440u + (b & 3)))":
+        "((wd[b >> 2] >> (8 * (b & 3))) & 255u)"}},
+}
+UNCHECKED = ("pq_lookups_only",)    # variants whose kernel 8 is not exact
+
+
+def make(name: str) -> Path:
+    """The variant's source tree (its ``src`` directory)."""
+    src = ROOT / "build" / "variants" / name / "src"
+    shutil.rmtree(src.parent, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch", src / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for rel, subs in VARIANTS[name].items():
+        path = src / "repro_torch" / rel
+        text = path.read_text()
+        for old, new in subs.items():
+            if old not in text:
+                raise SystemExit(f"{name}: {old!r} not in {rel}")
+            text = text.replace(old, new)
+        path.write_text(text)
+    return src
+
+
+def time_here(name: str) -> dict:
+    """Kernels 1 and 8 with the ``repro_torch`` first on ``sys.path``."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, d, B, S, M = cs.MAIN_ROWS, 128, 64, 8, 32
+    X = cs.unit(torch, torch.randn(n, d, generator=g, device=dev))
+    Q1 = torch.randn(1, d, generator=g, device=dev)
+    ones = torch.ones(n, dtype=torch.int8, device=dev)
+
+    def k1():
+        return ops.scoped_topk(Q1, X, ones, 10)
+
+    cs.topk_case(ref, f"{name} kernel 1", k1(),
+                 ref.scoped_topk_ref(Q1, X, ones, 10))
+    dense = torch.rand(S, n, generator=g, device=dev) < torch.linspace(
+        0.2, 1.0, S, device=dev)[:, None]
+    dense[-1] = True
+    words = cs.words_of(torch, dense)
+    sid = (torch.arange(B, device=dev) % S).to(torch.int32)
+    lut = torch.randn(B, M, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+
+    def k8():
+        return ops.multi_scope_topk_pq(lut, codes, words, sid, 80)
+
+    checked = name not in UNCHECKED
+    if checked:
+        cs.exact_case(torch, f"{name} kernel 8", k8(),
+                      ref.multi_scope_topk_pq_ref(lut, codes, words, sid,
+                                                  80))
+    out = {"variant": name, "checked": checked}
+    for key, fn, runs in (("scoped_topk", k1, 30),
+                          ("multi_scope_topk_pq", k8, 10)):
+        out[key] = {"ms": cs.median_ms(torch, fn, runs),
+                    "device_ms": cs.device_ms(torch, fn, runs,
+                                              ("scan_pass1", "scan_pass2")),
+                    "pass1_ms": cs.device_ms(torch, fn, runs,
+                                             ("scan_pass1",))}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", nargs="+", choices=list(VARIANTS))
+    ap.add_argument("--time", help=argparse.SUPPRESS)   # one timing process
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))                       # chip_smoke.py
+    if args.time:
+        print(json.dumps(time_here(args.time)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("scan_variants: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    names = args.only or list(VARIANTS)
+    srcs = {name: make(name) for name in names}
+    builds = {name: subprocess.Popen(
+        [sys.executable, "-c",
+         "from repro_torch.kernels import _build; _build.library()"],
+        env={**os.environ, "PYTHONPATH": str(src)})
+        for name, src in srcs.items()}
+    for name, proc in builds.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"scan_variants: {name} did not build")
+    for name in names + names[::-1]:
+        run = subprocess.run(
+            [sys.executable, __file__, "--time", name],
+            env={**os.environ, "PYTHONPATH": str(srcs[name])},
+            capture_output=True, text=True)
+        if run.returncode != 0:
+            raise SystemExit(f"scan_variants: {name} failed:\n"
+                             f"{run.stderr[-3000:]}")
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+        print(json.dumps({**rec, "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
