@@ -16,9 +16,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    time and a library yardstick; at the main shapes the batched scans
    (kernels 2 and 6) also bit for bit against the dense-mask scans
    (kernels 1 and 5) query by query; the IVF kernel 9 and its int8 / PQ modes
-   at a synthetic layout of the main path's rows (64 lists, 8 probed), and
-   again after phase 5 on the inputs phase 5 gave them (the real k-means
-   layout), whose times the kernels line reports;
+   in their list form (the main path's entry point) and their candidate
+   form, held against each other, at a synthetic layout of the main path's
+   rows skewed like k-means lists (64 lists, 8 probed), and again after
+   phase 5 on the inputs phase 5 gave them (the real k-means layout), whose
+   times the kernels line reports;
 2. the main path: WIKI-Dir ingested into ``DirectoryVectorDB(device="cuda")``
    with TrieHI and the flat executor, a 64-request ``dsq_batch`` mix held
    bitwise against a loop of ``dsq``, and recall@10 against a brute force;
@@ -31,13 +33,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the fp32 rows: the fp32 device mirror is released, fp32 batches are
    served by the PQ plan equal to an explicit PQ batch, and hot scopes'
    pins cut the rescore's host fetch; then kernel 6 on the int8 batch's
-   arguments and kernel 2 on the widest of its exact rescore's launches
+   arguments, kernel 5 on the widest of its gather-plan launches and
+   kernel 2 on the widest of its exact rescore's launches
    (``gather_rescore``'s block-diagonal masks), held and timed as in 2;
 5. the IVF executor on the same database, phase 4's budget lifted first:
    ``build_ann("ivf", n_lists=64)`` twice (bitwise equal centers), the
    64-request mix at nprobe 8 with batch == loop bitwise at fp32, int8 and
    PQ (one kernel-9 launch per precision), every list probed == flat,
-   recall@10 against flat (printed at nprobe 8, gated at 48), deletes,
+   recall@10 against flat (printed at nprobe 8, gated at 48; the
+   executor calls kernel 9's list form, ``ops.ivf_probe_topk*``), deletes,
    an ingest routed by ``ivf.add``, ``repartition``, and under a byte
    budget an fp32 IVF batch == an explicit PQ IVF batch (its small scopes
    ranked from host rows);
@@ -149,8 +153,9 @@ def device_ms(torch, fn, runs: int, names=None):
     kernels whose name contains one of ``names`` (every kernel when None).
     Late in a long run the profiler has dropped kernel events (it saw 8 of
     20 calls), so a session counts only when it saw every launch: one
-    ``scan_pass1`` and one ``scan_pass2`` per scan launch that the wrappers
-    counted, and a multiple of ``runs`` of every other kernel it matched.
+    ``scan_pass1`` and one or two ``scan_pass2`` (pass 2's two levels) per
+    scan launch that the wrappers counted, and a multiple of ``runs`` of
+    every other kernel it matched.
     A session that missed some is repeated, twice with ``runs`` calls and
     then three times with a quarter of them (smaller sessions lose fewer
     events). None when no session saw every launch, or none saw device
@@ -175,10 +180,12 @@ def device_ms(torch, fn, runs: int, names=None):
         launched = scan_launches() - before
         events = [e for e in prof.key_averages()
                   if getattr(e, "device_time_total", 0.0) > 0]
-        scan = sum(e.count for e in events if "scan_pass" in e.key)
+        pass1 = sum(e.count for e in events if "scan_pass1" in e.key)
+        pass2 = sum(e.count for e in events if "scan_pass2" in e.key)
         seen = [e for e in events
                 if names is None or any(n in e.key for n in names)]
-        if seen and scan == 2 * launched and all(
+        if seen and pass1 == launched and \
+                launched <= pass2 <= 2 * launched and all(
                 e.count % runs == 0 for e in seen if "scan_pass" not in e.key):
             return sum(e.device_time_total for e in seen) / runs / 1e3
         emit({"device_ms_rejected": {"runs": runs, "scan_launches": launched,
@@ -319,6 +326,46 @@ def dense_record(torch, ops, ref, peaks, args, kw, label) -> dict:
             "shape": f"q={B} n={n} d={d} k={k} {metric} "
                      f"admitted_rows={admitted}; library: torch.matmul "
                      f"({B},{d})x({d},{n})"}
+
+
+def dense_i8_record(torch, ops, ref, peaks, args, kw, label) -> dict:
+    """Kernel 5 on the arguments of one call: held bit for bit against its
+    plain version, timed (pass 1's device time too), and bounded by the
+    rows the mask admits (codes, scale and, for l2, norm, each read once),
+    the mask, the queries and the results; ``library_ms`` is
+    ``torch._int_mm`` of the same int8 queries by the same int8 rows
+    (zero-padded to the 17 query rows and the multiple of 8 rows it
+    takes), without the scales, the mask and the top-k."""
+    a = bound_args(ops, "scoped_topk_i8", args, kw)
+    q8, qs, x8, xs, sq, mask, k, metric = (a[key] for key in (
+        "q_i8", "q_scale", "rows_i8", "row_scale", "sq", "mask", "k",
+        "metric"))
+    n, d = x8.shape
+    B = q8.shape[0]
+
+    def fn():
+        return ops.scoped_topk_i8(q8, qs, x8, xs, sq, mask, k, metric)
+
+    def plain():
+        return ref.scoped_topk_i8_ref(q8, qs, x8, xs, sq, mask, k, metric)
+
+    err = exact_case(torch, label, fn(), plain())
+    admitted = int((mask != 0).sum())
+    row_bytes = d + 4 + (4 if metric == "l2" else 0)
+    qpad = torch.nn.functional.pad(q8, (0, 0, 0, max(0, 17 - B)))
+    xpad = torch.nn.functional.pad(x8, (0, 0, 0, -n % 8))
+    return {"max_abs_err": err,
+            **timed(torch, fn, 30, ("scan_pass1", "scan_pass2")),
+            "pass1_device_ms": device_ms(torch, fn, 30, ("scan_pass1",)),
+            "plain_ms": median_ms(torch, plain, 10),
+            "library_ms": library_int_mm(torch, qpad, xpad),
+            **bound(admitted * row_bytes + n + B * (d + 4 + k * 8),
+                    2.0 * B * admitted * d, peaks, "int8"),
+            "shape": f"q={B} n={n} d={d} k={k} {metric} "
+                     f"admitted_rows={admitted}; library: torch._int_mm "
+                     f"({qpad.shape[0]},{d})x({d},{xpad.shape[0]}), zero "
+                     f"rows added to the 17 queries and the multiple of 8 "
+                     f"rows it takes, no top-k"}
 
 
 def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
@@ -812,21 +859,9 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
         del got
         cases += 4
 
-    out["scoped_topk_i8"] = {
-        "max_abs_err": 0.0,
-        **timed(torch, lambda: ops.scoped_topk_i8(q1, s1, x8, xs, None, ones,
-                                                  40), 30, names),
-        "plain_ms": median_ms(torch, lambda: ref.scoped_topk_i8_ref(
-            q1, s1, x8, xs, None, ones, 40), 10),
-        # torch._int_mm takes more than 16 rows: the query padded with zero
-        # rows to 17
-        "library_ms": library_int_mm(
-            torch, torch.nn.functional.pad(q1, (0, 0, 0, 16)), x8),
-        **bound(n * (d + 4) + n + d + 4 + 40 * 8, 2.0 * n * d, peaks,
-                "int8"),
-        "shape": f"q=1 n={n} d={d} k=40 ip, all rows admitted; library: "
-                 f"torch._int_mm (17,{d})x({d},{n}), the query padded to "
-                 f"the 17 rows it takes at least, no top-k"}
+    out["scoped_topk_i8"] = dense_i8_record(
+        torch, ops, ref, peaks, (q1, s1, x8, xs, None, ones, 40), {},
+        "scoped_topk_i8 main k=40")
     out["multi_scope_topk_i8"] = {
         "max_abs_err": 0.0,
         **timed(torch, lambda: ops.multi_scope_topk_i8(
@@ -885,24 +920,51 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
 
 IVF_LISTS = 64     # benchmarks/bench_ivf_batch.py: min(64, n / 64) lists
 IVF_NPROBE = 8     # ... probed per query
+# synthetic list weights (1 + i)^-IVF_SKEW: the widest list ~2.4x the mean,
+# as in phase 5's k-means layout (70,240 aligned rows against 30,312)
+IVF_SKEW = 0.3
 
 
-def synthetic_cand(torch, g, n, B, dev):
-    """(B, IVF_NPROBE * max_aligned) int32 candidate ids of a synthetic
-    padded-CSR layout: the n rows split at random into IVF_LISTS lists of
-    ascending ids, each padded with -1 to the widest (a multiple of 32),
-    and IVF_NPROBE distinct lists per query."""
+def synthetic_layout(torch, g, n, B, dev):
+    """A padded-CSR layout of n rows skewed like phase 5's k-means lists:
+    IVF_LISTS lists of weight (1 + i)^-IVF_SKEW in random order, random
+    rows in ascending id order within a list, each padded with -1 to a
+    multiple of 32; IVF_NPROBE distinct lists per query, drawn in
+    proportion to the lists' sizes (wide lists draw more queries). Returns
+    ((offsets, aligned, flat_ids, max_aligned), probe (B, IVF_NPROBE)
+    int32): the list-form arguments of kernel 9."""
+    w = (1.0 + torch.arange(IVF_LISTS, device=dev,
+                            dtype=torch.float64)) ** -IVF_SKEW
+    w = w[torch.randperm(IVF_LISTS, generator=g, device=dev)]
+    sizes = torch.floor(w / w.sum() * n).long()
+    sizes[0] += n - int(sizes.sum())
     perm = torch.randperm(n, generator=g, device=dev)
-    parts = [p.sort().values for p in torch.tensor_split(perm, IVF_LISTS)]
-    width = -(-max(len(p) for p in parts) // 32) * 32
-    table = torch.full((IVF_LISTS, width), -1, dtype=torch.int32,
-                       device=dev)
-    for i, p in enumerate(parts):
-        table[i, :len(p)] = p.to(torch.int32)
-    probe = torch.stack([
-        torch.randperm(IVF_LISTS, generator=g, device=dev)[:IVF_NPROBE]
-        for _ in range(B)])
-    return table[probe].reshape(B, -1)
+    aligned = (sizes + 31) // 32 * 32
+    offsets = torch.cumsum(aligned, 0) - aligned
+    starts = torch.cumsum(sizes, 0) - sizes
+    flat = torch.full((int(aligned.sum()) + 1,), -1, dtype=torch.int32,
+                      device=dev)
+    for c in range(IVF_LISTS):
+        o, s0, ln = int(offsets[c]), int(starts[c]), int(sizes[c])
+        flat[o:o + ln] = perm[s0:s0 + ln].sort().values.to(torch.int32)
+    probe = torch.multinomial(sizes.double().repeat(B, 1), IVF_NPROBE,
+                              replacement=False, generator=g)
+    return (offsets, aligned, flat, int(aligned.max())), \
+        probe.to(torch.int32)
+
+
+def expand(torch, layout, probe):
+    """The (B, nprobe * max_aligned) candidate matrix of a layout's probes:
+    probed list p's ids at positions p * max_aligned + o, -1 past its
+    region (from the layout's final -1 slot; the IVF executor's expansion,
+    which its card path never builds)."""
+    offsets, aligned, flat, max_aligned = layout
+    within = torch.arange(max_aligned, device=flat.device)
+    p = probe.long()
+    idx = offsets[p][..., None] + within
+    idx = torch.where(within < aligned[p][..., None], idx,
+                      flat.shape[0] - 1)
+    return flat[idx].reshape(probe.shape[0], -1)
 
 
 def phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid) -> int:
@@ -910,8 +972,9 @@ def phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid) -> int:
     the admitted candidates, C = 1, C not a multiple of 256, d = 3 and
     8192, position ties, ip and l2, short words, a scope id out of range),
     then the main shape: B = 64 over a synthetic layout of the main path's
-    rows (64 lists, 8 probed: C = 242,688), k = 10 and 80, timed
-    (phase5_kernels repeats the main shape on the real layout)."""
+    rows (64 lists, 8 probed: C = 242,688), k = 10 and 80, timed, and
+    the int8 mode at k = 80 in both forms (phase5_kernels repeats the main
+    shape on the real layout)."""
     dev = torch.device("cuda")
     cases = 0
     for b, c, n, d, m, k, pad, short in (
@@ -966,104 +1029,177 @@ def phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid) -> int:
                    ref.ivf_gather_topk_pq_ref(lut, codes, cand, W, s1, k))
         cases += 1
 
-    # main shape: WIKI-Dir's rows and the phase-1 scopes, 8 of 64 lists
+    # main shape: WIKI-Dir's rows and the phase-1 scopes, 8 of 64 skewed
+    # lists, the list form (the main path's) and the candidate form
     n, d, M, B = X.shape[0], X.shape[1], 32, sid.shape[0]
-    cand = synthetic_cand(torch, g, n, B, dev)
+    layout, probe = synthetic_layout(torch, g, n, B, dev)
     QB = torch.randn(B, d, generator=g, device=dev)
     qb, sb = quantize(torch, QB)
     x8, xs = quantize(torch, X)
     lut = torch.randn(B, M, 256, generator=g, device=dev)
     codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
                           dtype=torch.int32).to(torch.uint8)
-    note = f" (synthetic: n={n}, {IVF_LISTS} lists, {IVF_NPROBE} probed)"
+    note = (f" (synthetic: n={n}, {IVF_LISTS} lists of weights "
+            f"(1 + i)^-{IVF_SKEW}, {IVF_NPROBE} probed)")
+    listed = (*layout, probe, words, sid)
     rec = ivf_record(torch, ops, ref, peaks, "ivf_gather_topk",
-                     (QB, X, cand, words, sid, 10), {})
+                     (QB, X, *listed, 10), {})
     rec["k80"] = ivf_record(torch, ops, ref, peaks, "ivf_gather_topk",
-                            (QB, X, cand, words, sid, 80), {}, runs=10)
-    rec["library_ms"], lib = library_bmm(torch, X, cand, QB)
+                            (QB, X, *listed, 80), {}, runs=10)
+    rec["library_ms"], lib = library_bmm(torch, X, expand(torch, layout, probe),
+                                         QB)
     rec["shape"] += f"{note}; library: {lib}"
     out["ivf_gather_topk"] = rec
+    cand = expand(torch, layout, probe)
+    exact_case(torch, "ivf_probe_topk_i8 main k=80",
+               ops.ivf_probe_topk_i8(qb, sb, x8, xs, None, *listed, 80),
+               ref.ivf_probe_topk_i8_ref(qb, sb, x8, xs, None, *listed, 80))
     exact_case(torch, "ivf_gather_topk_i8 main k=80",
                ops.ivf_gather_topk_i8(qb, sb, x8, xs, None, cand, words,
                                       sid, 80),
                ref.ivf_gather_topk_i8_ref(qb, sb, x8, xs, None, cand, words,
                                           sid, 80))
+    del cand
     for name, args in (
-            ("ivf_gather_topk_i8", (qb, sb, x8, xs, None, cand, words, sid,
-                                    40)),
-            ("ivf_gather_topk_pq", (lut, codes, cand, words, sid, 80))):
+            ("ivf_gather_topk_i8", (qb, sb, x8, xs, None, *listed, 40)),
+            ("ivf_gather_topk_pq", (lut, codes, *listed, 80))):
         out[name] = ivf_record(torch, ops, ref, peaks, name, args, {})
         out[name]["shape"] += note
-    return cases + 5
+    return cases + 6
 
 
 IVF_KERNELS = ("ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq")
-# positions of (queries or LUT, rows or codes, cand_ids, mask_words,
-# scope_ids, k, metric) in each wrapper's arguments (PQ has no metric)
-_IVF_ARGS = {"ivf_gather_topk": (0, 1, 2, 3, 4, 5, 6),
-             "ivf_gather_topk_i8": (0, 2, 5, 6, 7, 8, 9),
-             "ivf_gather_topk_pq": (0, 1, 2, 3, 4, 5, None)}
+IVF_KIND = dict(zip(IVF_KERNELS, ("f32", "i8", "pq")))
+# each kernel-9 mode's list-form wrapper (the main path's entry point)
+IVF_LIST = {name: name.replace("gather", "probe") for name in IVF_KERNELS}
+_LAYOUT = ("offsets", "aligned", "flat_ids", "max_aligned", "probe")
 
 
 def ivf_admitted(torch, cand, words, sids):
-    """(admitted (query, candidate) pairs, distinct admitted rows): the
-    work kernel 9 must do on these inputs."""
+    """(admitted (query, candidate) pairs, distinct admitted rows, the
+    (B, C) admission mask): the work kernel 9 must do on these inputs."""
     S = words.shape[0]
     ok = (sids >= 0) & (sids < S)
     qwords = words[sids.long().clamp(0, S - 1)]
     safe = cand.clamp(min=0).long()
     bit = (torch.gather(qwords, 1, safe >> 5).long() >> (safe & 31)) & 1
     adm = (cand >= 0) & (bit != 0) & ok[:, None]
-    return int(adm.sum()), int(torch.unique(cand[adm]).numel())
+    return int(adm.sum()), int(torch.unique(cand[adm]).numel()), adm
 
 
-def ivf_record(torch, ops, ref, peaks, name, args, kw, runs=20) -> dict:
-    """Kernel 9 (or its int8 / PQ mode) ``name`` on the wrapper arguments
-    ``args`` / ``kw``: held against its plain version on the same inputs
-    (fp32 within TOL up to ties, int8 and PQ bit for bit), timed, and
-    bounded by the bytes of the candidate ids, the scope words, each
-    distinct admitted row once and the queries and results, and by the
-    operations of every admitted (query, candidate) pair."""
-    iq, ir, ic, iw, isid, ik, im = _IVF_ARGS[name]
-    rows, cand, words, sids, k = (args[i] for i in (ir, ic, iw, isid, ik))
-    metric = args[im] if im is not None and len(args) > im else "ip"
+def ivf_tiles(torch, cand, adm, probe, max_aligned, qt) -> dict:
+    """What the list form's query tiles of ``qt`` stage: each list's
+    probing queries in ascending order (the wrapper's stable sort), cut
+    into tiles of qt; a block stages each row that some query of its tile
+    admits. ``tile_rows`` counts those rows over all tiles (the distinct
+    admitted rows when no list has more than qt queries), beside the
+    probed lists with more queries than one tile holds and the distinct
+    admitted rows of those lists."""
+    B, nprobe = probe.shape
+    lists = probe.reshape(-1).long()
+    by_list, order = torch.sort(lists, stable=True)
+    first = torch.searchsorted(by_list, by_list)
+    rank = torch.empty_like(lists)
+    rank[order] = torch.arange(lists.numel(), device=lists.device) - first
+    per_list = torch.bincount(lists)
+    T = (B + qt - 1) // qt
+    tile = (lists * T + rank // qt).reshape(B, nprobe)
+    slot = torch.arange(cand.shape[1], device=cand.device) // max_aligned
+    b, c = adm.nonzero(as_tuple=True)
+    rows = cand[b, c].long()
+    key = tile[b, slot[c]] * (int(rows.max()) + 1 if rows.numel() else 1) \
+        + rows
+    wide = per_list[probe.long()[b, slot[c]]] > qt
+    return {"qt": qt, "tile_rows": int(torch.unique(key).numel()),
+            "max_list_queries": int(per_list.max()),
+            "lists_past_tile": int((per_list > qt).sum()),
+            "rows_in_lists_past_tile": int(torch.unique(rows[wide]).numel())}
+
+
+def ivf_record(torch, ops, ref, peaks, mode, args, kw, runs=20) -> dict:
+    """Kernel 9 in ``mode`` (fp32, int8 or PQ: a name of IVF_KERNELS) on
+    the list-form arguments ``args`` / ``kw`` (those of its
+    ``ivf_probe_topk*`` wrapper): the list form (the main path's) and the
+    candidate form on the expanded (B, nprobe * max_aligned) matrix, held
+    bit for bit against each other and against the plain version (fp32
+    within TOL up to ties, int8 and PQ bit for bit), both timed. Each is
+    bounded by what it must read: the list form the probes, each probed
+    list's offset, length and ids once, the candidate form its (B, C) ids;
+    both the scope words, each distinct admitted row once and the queries
+    and results; and by the operations of every admitted (query,
+    candidate) pair. The record is the list form's, with what its query
+    tiles stage under "tiles" (:func:`ivf_tiles`) and the candidate form's
+    record under "cand_form"."""
+    lname = IVF_LIST[mode]
+    a = bound_args(ops, lname, args, kw)
+    layout = tuple(a[key] for key in _LAYOUT[:4])
+    probe = a["probe"]
+    cand = expand(torch, layout, probe)
+    forms = {"list": (lname, dict(a)),
+             "cand": (mode, {**{key: v for key, v in a.items()
+                                if key not in _LAYOUT}, "cand_ids": cand})}
+    words, sids, k = a["mask_words"], a["scope_ids"], a["k"]
+    metric = a.get("metric", "ip")
+    rows = a["codes"] if mode == "ivf_gather_topk_pq" else a.get(
+        "rows", a.get("rows_i8"))
     B, C = cand.shape
-    S, n_words = words.shape
-    kernel = getattr(ops, name)
-    plain = getattr(ref, name + "_ref")
-    plain_kw = {key: v for key, v in kw.items() if key != "check_ids"}
-    pairs, uniq = ivf_admitted(torch, cand, words, sids)
-    shape = f"B={B} C={C} k={k} admitted_pairs={pairs} unique_rows={uniq}"
-    got, want = kernel(*args, **kw), plain(*args, **plain_kw)
-    if name == "ivf_gather_topk":
-        err = topk_case(ref, f"{name} {shape}", got, want)
-    else:
-        err = exact_case(torch, f"{name} {shape}", got, want)
-    del got, want
-    head = B * C * 4 + S * n_words * 4 + B * k * 8
+    S, n_words = ops.as_words(words).shape
+    pairs, uniq, adm = ivf_admitted(torch, cand, ops.as_words(words), sids)
     depth = rows.shape[1]
-    if name == "ivf_gather_topk_pq":     # codes, LUTs; one add per byte
-        row_bytes, nbytes = depth, B * depth * 256 * 4
+    if mode == "ivf_gather_topk_pq":     # codes, LUTs; one add per byte
+        row_bytes, q_bytes = depth, B * depth * 256 * 4
         ops_, kind = 1.0 * pairs * depth, "fp32"
-    elif name == "ivf_gather_topk_i8":   # codes + scale; int8 dots
-        row_bytes, nbytes = depth + 4, B * (depth + 4)
+    elif mode == "ivf_gather_topk_i8":   # codes + scale; int8 dots
+        row_bytes, q_bytes = depth + 4, B * (depth + 4)
         ops_, kind = 2.0 * pairs * depth, "int8"
     else:
-        row_bytes, nbytes = depth * 4, B * depth * 4
+        row_bytes, q_bytes = depth * 4, B * depth * 4
         ops_, kind = 2.0 * pairs * depth, "fp32"
     if metric == "l2":
         row_bytes += 4                   # the row's squared norm
-    rec = {"max_abs_err": err,
-           **timed(torch, lambda: kernel(*args, **kw), runs,
-                   ("scan_pass1", "scan_pass2")),
-           "plain_ms": median_ms(torch, lambda: plain(*args, **plain_kw), 3),
-           "library_ms": None,
-           **bound(head + nbytes + uniq * row_bytes, ops_, peaks, kind),
-           "pair_bytes": pairs * row_bytes,
-           "shape": f"{shape} depth={depth} {metric}"}
-    if name == "ivf_gather_topk_pq":
-        rec.update(lookup_bound(torch, pairs * depth))
-    return rec
+    probed = probe.long().unique()
+    id_bytes = {"list": probe.numel() * 4 + probed.numel() * 16
+                + int(layout[1][probed].sum()) * 4,
+                "cand": B * C * 4}
+    shape = (f"B={B} nprobe={probe.shape[1]} C={C} k={k} "
+             f"admitted_pairs={pairs} unique_rows={uniq}")
+    got = {}
+    recs = {}
+    for form, (name, call) in forms.items():
+        kernel = getattr(ops, name)
+        plain = getattr(ref, name + "_ref")
+        plain_kw = {key: v for key, v in call.items() if key != "check_ids"}
+        got[form] = kernel(**call)
+        want = plain(**plain_kw)
+        label = f"{name} {shape}"
+        err = (topk_case(ref, label, got[form], want)
+               if mode == "ivf_gather_topk"
+               else exact_case(torch, label, got[form], want))
+        del want
+        recs[form] = {
+            "max_abs_err": err,
+            **timed(torch, lambda: kernel(**call), runs,
+                    ("scan_pass1", "scan_pass2")),
+            "plain_ms": median_ms(torch, lambda: plain(**plain_kw), 3),
+            "library_ms": None,
+            **bound(id_bytes[form] + S * n_words * 4 + q_bytes + B * k * 8
+                    + uniq * row_bytes, ops_, peaks, kind),
+            "pair_bytes": pairs * row_bytes,
+            "shape": f"{shape} depth={depth} {metric}"}
+        if mode == "ivf_gather_topk_pq":
+            recs[form].update(lookup_bound(torch, pairs * depth))
+    check(torch.equal(got["list"][0], got["cand"][0])
+          and torch.equal(got["list"][1], got["cand"][1]),
+          f"{mode} {shape}: the list form != the candidate form")
+    import importlib                     # (the package exports a function
+    st = importlib.import_module(        # of the module's name)
+        "repro_torch.kernels.scoped_topk")
+    qt = min(B, st.LIST_Q)
+    if rows.is_cuda:                     # the plan's tile (smaller at big k)
+        qt = st.list_plan(IVF_KIND[mode], qt, depth, k).qt
+    tiles = ivf_tiles(torch, cand, adm, probe, layout[3], qt)
+    tiles["tile_bytes"] = tiles["tile_rows"] * row_bytes
+    return {**recs["list"], "tiles": tiles, "cand_form": recs["cand"]}
 
 
 def library_bmm(torch, rows, cand, queries):
@@ -1435,9 +1571,9 @@ def phase4(torch, ops, ds, db, batched):
     """int8 and PQ on the phase-2 database (after phase 3's DSM), then
     tiered storage. Every failed check is collected and reported at once.
     Returns the main path's launch counts, the arguments of the int8
-    batch's kernel-6 launch and of the PQ batch's kernel-8 launch, and of
-    every kernel-2 launch the int8 batch's exact rescore
-    (``gather_rescore``) made."""
+    batch's kernel-6 launch, of its widest kernel-5 gather-plan launch and
+    of the PQ batch's kernel-8 launch, and of every kernel-2 launch the
+    int8 batch's exact rescore (``gather_rescore``) made."""
     _, paths, rec = requests(ds)
     queries = requests(ds)[0]
     k = 10
@@ -1460,7 +1596,7 @@ def phase4(torch, ops, ds, db, batched):
     path = MainPath(ops)
     info = {"phase": 4, "int8_setup_s": t1 - t0, "pq_setup_s": t2 - t1,
             "pq_m": store.pq_codebook.m}
-    results, captured, rescores = {}, {}, []
+    results, captured, rescores, gathers = {}, {}, [], []
     for prec, rk in (("int8", None), ("pq", PQ_RESCORE_K)):
         def batch():
             return db.dsq_batch(queries, paths, k=k, recursive=rec,
@@ -1473,6 +1609,8 @@ def phase4(torch, ops, ds, db, batched):
                     ops, ("multi_scope_topk_i8",), captured))
                 stack.enter_context(recorded_calls(
                     ops, "multi_scope_topk", range(1 << 30), rescores))
+                stack.enter_context(recorded_calls(
+                    ops, "scoped_topk_i8", range(1 << 30), gathers))
             else:
                 stack.enter_context(first_calls(
                     ops, ("multi_scope_topk_pq",), captured))
@@ -1556,6 +1694,12 @@ def phase4(torch, ops, ds, db, batched):
     info["launches_phase"] = ops.launch_counts()
     info["int8_rescore_launches"] = sorted(
         int(args[0].shape[0]) for _, args, _ in rescores)
+    info["int8_gather_launches"] = sorted(
+        int(args[2].shape[0]) for _, args, _ in gathers)
+    if gathers:                 # kernel 5's widest gather-plan launch
+        widest = max(gathers, key=lambda call: call[1][2].shape[0])
+        captured["scoped_topk_i8"] = widest[1:]
+    del gathers
     info["failed"] = failed
     emit(info)
     check(not failed, "; ".join(failed))
@@ -1568,9 +1712,12 @@ def phase4_kernels(torch, ops, ref, peaks, captured, rescores,
     (their scan groups on the real scope masks, int8 rows and PQ codes),
     and kernel 2 on the widest launch that the int8 batch's exact rescore
     made (``gather_rescore``'s block-diagonal masks over the gathered
-    candidates), by :func:`batch_record`. Recorded beside phase 1's main
-    shapes; launches here are not the main path's."""
-    for name in ("multi_scope_topk_i8", "multi_scope_topk_pq"):
+    candidates), by :func:`batch_record`; kernel 5 on the widest of the
+    int8 batch's gather-plan launches (the scope's gathered int8 rows
+    under an all-ones mask), by :func:`dense_i8_record`. Recorded beside
+    phase 1's main shapes; launches here are not the main path's."""
+    for name in ("multi_scope_topk_i8", "multi_scope_topk_pq",
+                 "scoped_topk_i8"):
         check(name in captured, f"phase 4 recorded no {name} launch")
     check(len(rescores) > 0, "phase 4 recorded no rescore launch")
     recs = {}
@@ -1584,6 +1731,10 @@ def phase4_kernels(torch, ops, ref, peaks, captured, rescores,
     recs["rescore"] = batch_record(torch, ops, ref, peaks, "multi_scope_topk",
                                    args, kw, "multi_scope_topk rescore")
     measured["multi_scope_topk"]["rescore"] = recs["rescore"]
+    args, kw = captured["scoped_topk_i8"]
+    recs["scoped_topk_i8"] = dense_i8_record(
+        torch, ops, ref, peaks, args, kw, "scoped_topk_i8 int8 batch gather")
+    measured["scoped_topk_i8"]["flat_batch_gather"] = recs["scoped_topk_i8"]
     emit({"phase": "4-kernels", **recs})
 
 
@@ -1692,7 +1843,7 @@ def phase5(torch, ops, ref, ds, db):
                   rescore_k=rk)
         before = ops.launch_counts()
         ta = time.perf_counter()
-        with path.counted(), first_calls(ops, IVF_KERNELS, captured):
+        with path.counted(), first_calls(ops, IVF_LIST.values(), captured):
             b = db.dsq_batch(queries, paths, recursive=rec, **kw)
         tb = time.perf_counter()
         after = ops.launch_counts()
@@ -1841,21 +1992,28 @@ def phase5(torch, ops, ref, ds, db):
 
 def phase5_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     """Kernel 9 and its int8 / PQ modes on the inputs phase 5's main path
-    gave them (the real k-means layout: C = 8 * max_aligned, padding and
-    all), held against their plain versions and timed. These records take
-    the place of phase 1's synthetic-layout ones, which stay beside them
-    under "synthetic". Launches here are not the main path's."""
+    gave their list form (the real k-means layout and probes), by
+    :func:`ivf_record`: the list form and the candidate form on the
+    expanded matrix (C = 8 * max_aligned, padding and all), each held
+    against the other and against the plain version, and timed. These
+    records take the place of phase 1's synthetic-layout ones, which stay
+    beside them under "synthetic". Launches here are not the main
+    path's."""
     real = {}
-    for name in IVF_KERNELS:
+    for mode in IVF_KERNELS:
+        name = IVF_LIST[mode]
         check(name in captured, f"{name}: phase 5 recorded no launch")
         args, kw = captured[name]
-        rec = ivf_record(torch, ops, ref, peaks, name, args, kw)
-        if name == "ivf_gather_topk":
-            rec["library_ms"], lib = library_bmm(torch, args[1], args[2],
-                                                 args[0])
+        rec = ivf_record(torch, ops, ref, peaks, mode, args, kw)
+        if mode == "ivf_gather_topk":
+            a = bound_args(ops, name, args, kw)
+            rec["library_ms"], lib = library_bmm(
+                torch, a["rows"], expand(
+                    torch, tuple(a[key] for key in _LAYOUT[:4]), a["probe"]),
+                a["queries"])
             rec["shape"] += f"; library: {lib}"
-        real[name] = rec
-        measured[name] = {**rec, "synthetic": measured[name]}
+        real[mode] = rec
+        measured[mode] = {**rec, "synthetic": measured[mode]}
     emit({"phase": "5-kernels", **real})
 
 

@@ -42,43 +42,52 @@
 // stops reading it at its first entry that loses. Which pass 1 runs which
 // kernel:
 //
-//   scan_pass1_stream  kernel 1 (scoped_topk): fp32, one dense mask
+//   scan_pass1_stream  kernels 1, 5 (scoped_topk, _i8): fp32 / int8, one
+//                      dense mask; kernel 9 fp32 / int8 (list mode)
 //   scan_pass1_tiled   kernels 2, 6 (multi_scope_topk, _i8): scope words
-//   scan_pass1_pq      kernel 8 (multi_scope_topk_pq): PQ, scope words
-//   scan_pass1         kernels 5, 7 (scoped_topk_i8, _pq): dense mask, and
-//                      kernel 9 in all three modes (gathered)
+//   scan_pass1_pq      kernel 8 (multi_scope_topk_pq): PQ, scope words;
+//                      kernel 9 PQ (list mode)
+//   scan_pass1         kernel 7 (scoped_topk_pq): PQ, one dense mask
 //
 // scan_pass1_stream: bytes-bound (one pass over the rows).
 //   grid (query tiles of qt <= 8, row chunks): one wave of blocks of 4
-//   warps, two per SM at q = 1 (105 KB of shared memory each), so 262
-//   chunks of whole 128-row tiles over 1.94M rows; a gather plan's few
-//   thousand rows get one tile per block.
-//   staging: item = (128-row tile, 64-float depth slice); all 128 threads
-//           copy an item with 16-byte cp.async (neighbouring threads on
-//           neighbouring bytes, 256 contiguous bytes of each row; 4-byte
+//   warps, two per SM for fp32 at q = 1 (110 KB of shared memory each),
+//   so 262 chunks of whole 128-row tiles over 1.94M rows, three per SM for
+//   int8 (62 KB); a gather plan's few thousand rows get one tile per block.
+//   staging: item = (128-row tile, depth slice: 64 floats, 256 int8
+//           bytes); all 128 threads copy an item with 16-byte cp.async
+//           (neighbouring threads on neighbouring bytes; 4-byte or byte
 //           copies where rows start off 16-byte alignment), with the query
-//           tile's slice, into a ring of 3 stages of 35 KB, two items ahead
-//           of the one computed: 64 KB of rows in flight per block, 128 KB
+//           tile's slice, into a ring of 3 stages, two items ahead of the
+//           one computed: fp32 64 KB of rows in flight per block, 128 KB
 //           per SM, against the ~25 KB per SM that 3.35 TB/s x ~1 us of
-//           loaded latency needs. (tools/scan_variants.py on the H100,
+//           loaded latency needs. A tile's first item also stages the
+//           tile's mask bytes, l2 norms and int8 row scales into one of 3
+//           meta slots. (tools/scan_variants.py on the H100, kernel 1's
 //           pass 1: 256-row tiles of 32-float slices 2% slower, of
 //           16-float slices with 4 stages 50% slower; whole 128-float rows
 //           in 64-row tiles 22% slower, in 128-row tiles with one block
 //           per SM 29% slower.) Row strides are padded to an odd number of
-//           16-byte units (272 bytes), so a quarter warp's float4 reads hit
-//           8 bank groups.
-//   compute: thread t owns row t of each tile and runs its chain
-//           acc = fmaf(q[c], x[c], acc), c = 0..d-1 from 0.0f, out of
+//           16-byte units (272 bytes fp32, 144 int8), so a quarter warp's
+//           16-byte reads hit 8 bank groups.
+//   compute: thread t owns row t of each tile and runs its chain out of
 //           shared memory (the query slice is a broadcast), across the
-//           slices; kQ = 1 compiles the one-query scan of dsq alone. This
-//           is kernel 2's chain, so kernel 2 == kernel 1 bit for bit.
+//           slices; kQ = 1 compiles the one-query scan of dsq alone. fp32:
+//           acc = fmaf(q[c], x[c], acc), c = 0..d-1 from 0.0f, kernel 2's
+//           chain, so kernel 2 == kernel 1 bit for bit. int8: an int32
+//           __dp4a chain (exact in any order), then Scorer<kI8>'s finish,
+//           kernel 6's, so kernel 6 == kernel 5 bit for bit.
 //   epilogue: each warp keeps its own list per query and its tail in
-//           registers; only lanes whose score beats the tail take part,
-//           several at once through warp_merge. No barrier waits on a
-//           merge: the ring's one barrier per item is the only one, and
-//           the warps' lists are merged once, at the chunk's end. Lists
-//           live in shared memory (the tile shrinks until they fit) or,
-//           past that, as one partial per warp in device memory.
+//           registers; rows whose score beats the best of the warps'
+//           tails go to a 32-entry buffer per warp and query, merged into
+//           the list 32 at a time (warp_merge) when full. A tile's votes
+//           for all queries come first, with no branch between them, then
+//           the rare appends. No barrier waits on a merge: the ring's one
+//           barrier per item is the only one, and the warps' lists are
+//           merged once, at the chunk's end. Lists live in shared memory
+//           (the tile shrinks until they fit) or, past that, as one partial
+//           per warp in device memory. Pass 2 merges a few queries'
+//           hundreds of lists in two levels (launch_pass2).
 //
 // scan_pass1_tiled: the fp32 and int8 scans with per-query scope words
 // (multi_scope_topk, multi_scope_topk_i8), the batched scans of dsq_batch.
@@ -150,41 +159,54 @@
 //           (tools/scan_variants.py, PERF.md).
 //   epilogue: scan_pass1_tiled's (tail filter, flags per warp, 32-entry
 //           buffers merged by warp_merge, warp j serving query j).
+//   list mode (kernel 9's PQ mode): the chunk's compacted rows take 32 KB,
+//           so 4 LUTs stay resident at M = 32, k = 80.
 //
-// scan_pass1: the int8 and PQ dense-mask scans and the gathered scans.
-//   grid (query tiles of qt <= 8, row chunks). A block stages the query
-//   side of its tile in shared memory (int8 query rows, or the tile's
-//   LUTs) and sweeps its chunk 256 rows at a time: each thread scores one
-//   row against the whole tile (16-byte loads where the layout allows),
-//   rows no query of the tile admits are skipped, and warp j merges query
-//   j's 256 scores into its sorted top-k list.
+// scan_pass1: the PQ dense-mask scan (kernel 7).
+//   grid (query tiles of qt <= 8, row chunks). A block stages the tile's
+//   LUTs in shared memory and sweeps its chunk 256 rows at a time: each
+//   thread scores one row against the whole tile (4-byte code loads where
+//   the layout allows), rows the mask does not admit are skipped, and
+//   warp j merges query j's 256 scores into its sorted top-k list.
 //   any k: the insertion shifts a list 32 entries at a time from its tail,
 //          so a list has no length bound in registers; lists live in shared
 //          memory while they fit (the wrapper shrinks qt for large k) and in
 //          their partial slots in device memory past that;
-//   any depth: the query side is staged in slices of the reduction axis (d,
-//          or M for PQ) when a whole tile does not fit; each score's chain
-//          continues across slices in the same order, so its bits do not
-//          change. The wrapper prefers shrinking qt for PQ (a LUT slice per
-//          256 rows would cost more bytes than the codes).
-// Gathered mode (the IVF executor): query b sweeps candidate positions
-// c in [0, C) of its own row of a (B, C) int32 candidate-id matrix and
-// scores store row cand[b, c] (-1, CSR padding, admits nothing), read in
-// place from the (n, depth) store: the reference's (B, C, d) gathered block
-// is never built (8 GB of fp32 at WIKI-Dir scale 1.0, nprobe 8 of 64 lists,
-// B = 64). The query tile is one query (each query has its own
-// candidates); admission reads bit id & 31 of the query's scope row
-// words[sids[b]]; the top-k lists hold positions, so ties fall to the lower
-// position (probe rank, then list order), as jax.lax.top_k over the (B, C)
-// axis does, and pass 2 maps the winners back to store ids. Bound: every
-// admitted (query, candidate) pair reads its row (d * 4 bytes fp32, d + 4
-// int8, M PQ), so B * C_admitted row reads; the unique-bytes floor is each
-// distinct admitted row once plus the B * C * 4 bytes of candidate ids.
-// Overlapping probed lists are re-read from device memory (or L2) once per
-// query; sharing them across a query tile is left for a later change, as
-// is the int8 and PQ dense-mask scans' move to a streaming design.
-// The result is the exact top-k under a total order, and no atomics are
-// used: runs are bit-for-bit repeatable.
+//   any M: the LUTs are staged in slices of M when a whole tile does not
+//          fit; each score's chain continues across slices in the same
+//          order, so its bits do not change. The wrapper prefers shrinking
+//          qt (a LUT slice per 256 rows would cost more bytes than the
+//          codes).
+//
+// List mode (kernel 9, ivf_gather_topk and its int8 / PQ modes): the IVF
+// executor's padded-CSR layout read list by list. Query b probes nprobe
+// lists; position p * max_aligned + o of its candidate axis is offset o of
+// its p-th probed list (the reference's (B, nprobe * max_aligned) matrix,
+// which is never built; offsets past a list's aligned length are padding).
+// The wrapper sorts the (query, slot) pairs by list (stably, one small
+// launch) and a block of scan_pass1_stream (fp32, int8) or scan_pass1_pq
+// (PQ) owns one list's chunk of kListChunk positions and a tile of up to
+// 8 queries that probe the list (grid: lists x query tiles, chunks of the
+// widest list; blocks past a list's end or its queries return at once).
+// The block first reads the chunk's ids and each query's scope bit of
+// each, and keeps only the rows some query of the tile admits (padding,
+// -1, admits none): each admitted row is then staged once for the whole
+// tile, gathered with per-row cp.async (a row is one contiguous 512-,
+// 128- or 32-byte run), and scored for the queries that admit it. So a row
+// that several queries probe is read once per query tile, not once per
+// query, and positions that admit nothing cost 4 bytes of id. A block's
+// lists rank by (score, position) and land in the partial slot
+// (b, p, chunk); pass 2 ranks by position too -- the reference's tie rule,
+// jax.lax.top_k over the candidate axis -- skips the slots of chunks past
+// a probed list's end, and maps a winner's position back to its store id,
+// flat_ids[offsets[probe[b, p]] + o]. The (B, C) candidate form is the
+// layout whose list b is query b's C candidates, probed by b alone.
+// Bound: each probed list's ids once, the scope words, and each distinct
+// admitted row once per query tile that admits it.
+// The result is the exact top-k under a total order, and no atomics decide
+// it (a list-mode block keeps its admitted rows in arrival order, which
+// the lists' total order makes irrelevant): runs are bit-for-bit
+// repeatable.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -200,25 +222,36 @@ constexpr int kPass2SmemList = 6144;      // pass 2 keeps lists of k <= this
                                           // in shared memory (48 KB)
 
 enum Kind { kF32 = 0, kI8 = 1, kPQ = 2 };
-// how scan_pass1's query admits a row: one dense mask shared by every
-// query, or packed scope words over the query's own gathered candidates
-enum Mode { kDense = 0, kGathered = 1 };
 
+// scan_pass1's arguments (kernel 7: the PQ scan with one dense mask)
 struct Scan {
-  const void* q;           // f32 (nq, depth) | i8 (nq, depth) | LUT f32 (nq, depth, 256)
-  const float* q_scale;    // int8: (nq,)
-  const void* rows;        // f32 (n, depth) | i8 (n, depth) | u8 codes (n, depth)
-  const float* row_scale;  // int8: (n,)
-  const float* sq;         // l2: (n,)
-  const int8_t* mask;      // dense (n,) mask, or the packed words below
-  const uint32_t* words;   // (n_scopes, n_words)
-  const int* sids;         // (nq,) scope row per query
-  const int* cand;         // gathered: (nq, n) store row ids, -1 = padding
-  int n_scopes, n_words;
-  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists;  // gathered: n = C
+  const float* lut;        // (nq, depth, 256)
+  const uint8_t* codes;    // (n, depth)
+  const int8_t* mask;      // (n,), non-zero admits the row
+  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists;
   float* part_v;
   int* part_i;
 };
+
+// Kernel 9's list form (the source note's "List mode"): the padded-CSR
+// layout, each query's probed lists, and their inversion -- the pairs
+// b * nprobe + p sorted stably by the list probe[b, p] (``order``), and
+// each list's first sorted pair (``list_start``). flat_ids == nullptr
+// outside list mode.
+struct ListArgs {
+  const long long* offsets;   // (n_lists,) region start in flat_ids
+  const long long* aligned;   // (n_lists,) region length, padding included
+  const int* flat_ids;        // store ids, -1 = padding
+  const int* probe;           // (nq, nprobe) probed lists
+  const long long* order;     // (nq * nprobe,) probe pairs sorted by list
+  const int* list_start;      // (n_lists + 1,)
+  int nprobe, max_aligned;    // position p * max_aligned + o
+  int tiles;                  // query tiles per list: grid.x = lists x tiles
+  int chunk, cmax;            // positions per block; chunks of the widest
+};
+
+constexpr int kListChunk = 4096;   // list positions one block scans
+constexpr int kListQ = 8;          // largest query tile of a list block
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
@@ -237,9 +270,14 @@ constexpr int kMergeSlotsWide = 16;
 // moves down by the candidates better than it (binary search over the
 // sorted lanes) and candidate c lands at c plus the list entries better
 // than it (binary search over the list). Ranks under a total order are a
-// permutation, so the list equals the one-by-one insertion's.
+// permutation, so the list equals the one-by-one insertion's. Not inlined:
+// the streaming pass calls it from each query's branch of an unrolled
+// loop, and eight inlined copies cost more in instruction fetch than the
+// calls (tools/scan_variants.py "inline_merge" on the H100: the list
+// mode's int8 scan 2.0x and fp32 scan 1.2x slower inlined, the dense
+// scans the same).
 template <int kSlots, bool kSorted = false>
-__device__ void warp_merge(float* lv, int* li, int k, float cv, int ci,
+__device__ __noinline__ void warp_merge(float* lv, int* li, int k, float cv, int ci,
                            bool ok) {
   constexpr int kSentinel = 0x7fffffff;
   const int lane = threadIdx.x & 31;
@@ -314,7 +352,7 @@ __device__ void warp_merge(float* lv, int* li, int k, float cv, int ci,
 }
 
 // Insert the candidates of lanes ``want`` one by one, in lane order.
-__device__ void warp_insert(float* lv, int* li, int k, float cv, int ci,
+__device__ __noinline__ void warp_insert(float* lv, int* li, int k, float cv, int ci,
                             unsigned want) {
   const int lane = threadIdx.x & 31;
   while (want) {
@@ -378,10 +416,9 @@ __device__ unsigned warp_offer(float* lv, int* li, int k, float cv, int ci,
 }
 
 // ------------------------------------------------------------- scorers
-// stage():      copy the tile's query side for depth [c0, c0 + len) into
-//               shared memory, laid out (query, element);
-// accumulate(): continue row r's per-query chains over that slice;
-// finish():     the score from a finished chain.
+// finish(): the score from a finished chain (fp32 and int8: the streaming
+// and tiled passes run the chains themselves). Scorer<kPQ> also stages a
+// tile's LUT slice and continues a row's chains over it (scan_pass1).
 
 template <int kKind>
 struct Scorer;
@@ -389,47 +426,6 @@ struct Scorer;
 template <>
 struct Scorer<kF32> {
   using Acc = float;
-  __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
-                               int nqt, int c0, int len) {
-    float* dst = reinterpret_cast<float*>(qs);
-    const float* q = static_cast<const float*>(p.q);
-    for (int i = threadIdx.x; i < nqt * len; i += kThreads) {
-      const int j = i / len;
-      dst[i] = q[static_cast<size_t>(q0 + j) * p.depth + c0 + (i - j * len)];
-    }
-  }
-  template <bool kVec>
-  __device__ static void accumulate(Acc (&acc)[kWarps],
-                                    const unsigned char* qs, const Scan& p,
-                                    int r, int c0, int len, int nqt) {
-    const float* qf = reinterpret_cast<const float*>(qs);
-    const float* x = static_cast<const float*>(p.rows) +
-                     static_cast<size_t>(r) * p.depth + c0;
-    if (kVec) {
-      const float4* x4 = reinterpret_cast<const float4*>(x);
-      for (int c = 0; c < len; c += 4) {
-        const float4 xv = __ldg(x4 + (c >> 2));
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j) {
-          if (j < nqt) {
-            const float4 qv =
-                *reinterpret_cast<const float4*>(qf + j * len + c);
-            acc[j] = fmaf(qv.x, xv.x, acc[j]);
-            acc[j] = fmaf(qv.y, xv.y, acc[j]);
-            acc[j] = fmaf(qv.z, xv.z, acc[j]);
-            acc[j] = fmaf(qv.w, xv.w, acc[j]);
-          }
-        }
-      }
-    } else {
-      for (int c = 0; c < len; ++c) {
-        const float xv = __ldg(x + c);
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j)
-          if (j < nqt) acc[j] = fmaf(qf[j * len + c], xv, acc[j]);
-      }
-    }
-  }
   template <bool kL2>
   __device__ static float finish(Acc acc, float, float, float sqr) {
     return kL2 ? 2.0f * acc - sqr : acc;
@@ -439,46 +435,6 @@ struct Scorer<kF32> {
 template <>
 struct Scorer<kI8> {
   using Acc = int;
-  __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
-                               int nqt, int c0, int len) {
-    int8_t* dst = reinterpret_cast<int8_t*>(qs);
-    const int8_t* q = static_cast<const int8_t*>(p.q);
-    for (int i = threadIdx.x; i < nqt * len; i += kThreads) {
-      const int j = i / len;
-      dst[i] = q[static_cast<size_t>(q0 + j) * p.depth + c0 + (i - j * len)];
-    }
-  }
-  template <bool kVec>
-  __device__ static void accumulate(Acc (&acc)[kWarps],
-                                    const unsigned char* qs, const Scan& p,
-                                    int r, int c0, int len, int nqt) {
-    const int8_t* q8 = reinterpret_cast<const int8_t*>(qs);
-    const int8_t* x = static_cast<const int8_t*>(p.rows) +
-                      static_cast<size_t>(r) * p.depth + c0;
-    if (kVec) {
-      const int4* x16 = reinterpret_cast<const int4*>(x);
-      for (int c = 0; c < len; c += 16) {
-        const int4 xv = __ldg(x16 + (c >> 4));
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j) {
-          if (j < nqt) {
-            const int4 qv = *reinterpret_cast<const int4*>(q8 + j * len + c);
-            acc[j] = __dp4a(xv.x, qv.x, acc[j]);
-            acc[j] = __dp4a(xv.y, qv.y, acc[j]);
-            acc[j] = __dp4a(xv.z, qv.z, acc[j]);
-            acc[j] = __dp4a(xv.w, qv.w, acc[j]);
-          }
-        }
-      }
-    } else {
-      for (int c = 0; c < len; ++c) {
-        const int xv = x[c];
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j)
-          if (j < nqt) acc[j] += xv * static_cast<int>(q8[j * len + c]);
-      }
-    }
-  }
   template <bool kL2>
   __device__ static float finish(Acc acc, float qscale, float rscale,
                                  float sqr) {
@@ -490,11 +446,13 @@ struct Scorer<kI8> {
 template <>
 struct Scorer<kPQ> {
   using Acc = float;
+  // copy the tile's LUT slice for m in [c0, c0 + len) into shared memory,
+  // laid out (query, m, 256): one query's slice is len * 256 contiguous
+  // floats of its (M, 256) LUT
   __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
                                int nqt, int c0, int len) {
-    // one query's slice is len * 256 contiguous floats of its (M, 256) LUT
     float4* dst = reinterpret_cast<float4*>(qs);
-    const float4* lut = static_cast<const float4*>(p.q);
+    const float4* lut = reinterpret_cast<const float4*>(p.lut);
     const int per = len * 64;
     for (int i = threadIdx.x; i < nqt * per; i += kThreads) {
       const int j = i / per;
@@ -502,13 +460,13 @@ struct Scorer<kPQ> {
                    (i - j * per)];
     }
   }
+  // continue row r's per-query chains over that slice
   template <bool kVec>
   __device__ static void accumulate(Acc (&acc)[kWarps],
                                     const unsigned char* qs, const Scan& p,
                                     int r, int c0, int len, int nqt) {
     const float* lut = reinterpret_cast<const float*>(qs);
-    const uint8_t* code = static_cast<const uint8_t*>(p.rows) +
-                          static_cast<size_t>(r) * p.depth + c0;
+    const uint8_t* code = p.codes + static_cast<size_t>(r) * p.depth + c0;
     const int stride = len * 256;          // one query's LUT slice
     if (kVec) {
       for (int m = 0; m < len; m += 4) {
@@ -531,38 +489,24 @@ struct Scorer<kPQ> {
       }
     }
   }
-  template <bool kL2>
-  __device__ static float finish(Acc acc, float, float, float) {
-    return acc;
-  }
 };
 
-__host__ __device__ inline size_t kind_bytes(int kind) {
-  return kind == kF32 ? 4 : kind == kI8 ? 1 : 256 * 4;
-}
-
-// Shared memory of pass 1: the staged query side (rounded up to 16 bytes),
-// one sweep's scores, the tile's scope rows and, when they fit, its lists.
-__host__ __device__ inline size_t q_bytes(int kind, int qt, int slice) {
-  return (static_cast<size_t>(qt) * slice * kind_bytes(kind) + 15) / 16 * 16;
-}
-
-size_t pass1_smem(int kind, int qt, int slice, int k, int smem_lists) {
-  return q_bytes(kind, qt, slice) +
-         static_cast<size_t>(qt) * (kThreads * sizeof(float) + sizeof(int)) +
+// Shared memory of scan_pass1: the staged LUT slices (qt * slice * 1 KB),
+// one sweep's scores and, when they fit, the tile's lists.
+size_t pass1_smem(int qt, int slice, int k, int smem_lists) {
+  return static_cast<size_t>(qt) * slice * 1024 +
+         static_cast<size_t>(qt) * kThreads * sizeof(float) +
          (smem_lists ? static_cast<size_t>(qt) * k * 8 : 0);
 }
 
-template <int kKind, int kMode, bool kL2, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
-  using S = Scorer<kKind>;
-  using Acc = typename S::Acc;
+  using S = Scorer<kPQ>;
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qs = smem;                                  // query side
+  unsigned char* qs = smem;                                  // LUT slices
   float* sv = reinterpret_cast<float*>(
-      smem + q_bytes(kKind, p.qt, p.slice));                 // qt * 256
-  int* tile_sid = reinterpret_cast<int*>(sv + p.qt * kThreads);   // qt
-  float* lv_s = reinterpret_cast<float*>(tile_sid + p.qt);   // qt * k
+      smem + static_cast<size_t>(p.qt) * p.slice * 1024);    // qt * 256
+  float* lv_s = sv + p.qt * kThreads;                        // qt * k
   int* li_s = reinterpret_cast<int*>(lv_s + p.qt * p.k);     // qt * k
 
   const int k = p.k;
@@ -589,11 +533,6 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
       p.part_i[list_off(j) + s] = -1;
     }
   }
-  if (kMode != kDense && threadIdx.x < nqt)
-    tile_sid[threadIdx.x] = p.sids[q0 + threadIdx.x];
-  // gathered: the tile is query q0 alone, sweeping its candidate row
-  const int* cand =
-      kMode == kGathered ? p.cand + static_cast<size_t>(q0) * p.n : nullptr;
   const bool one_slice = p.slice >= p.depth;
   if (one_slice) S::stage(qs, p, q0, nqt, 0, p.depth);
   __syncthreads();
@@ -602,25 +541,11 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
   int* wi = p.smem_lists ? li_s + warp * k : p.part_i + list_off(warp);
 
   for (int base = r_begin; base < r_end; base += kThreads) {
-    const int c = base + threadIdx.x;        // sweep position
-    int r = c;                               // the row it reads
-    unsigned admit = 0;                      // bit j: query j admits row r
-    if (c < r_end) {
-      if (kMode == kGathered) {
-        r = cand[c];
-        const int s = tile_sid[0];
-        if (r >= 0 && s >= 0 && s < p.n_scopes) {
-          const uint32_t w =
-              p.words[static_cast<size_t>(s) * p.n_words + (r >> 5)];
-          admit = (w >> (r & 31)) & 1u;
-        }
-      } else if (p.mask[r]) {
-        admit = (1u << nqt) - 1u;
-      }
-    }
-    Acc acc[kWarps];
+    const int r = base + threadIdx.x;
+    const bool admit = r < r_end && p.mask[r] != 0;
+    float acc[kWarps];
 #pragma unroll
-    for (int j = 0; j < kWarps; ++j) acc[j] = Acc(0);
+    for (int j = 0; j < kWarps; ++j) acc[j] = 0.0f;
     for (int c0 = 0; c0 < p.depth; c0 += p.slice) {
       const int len = min(p.slice, p.depth - c0);
       if (!one_slice) {                      // block-uniform
@@ -630,20 +555,9 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
       }
       if (admit) S::template accumulate<kVec>(acc, qs, p, r, c0, len, nqt);
     }
-    const float rscale =
-        (kKind == kI8 && admit) ? p.row_scale[r] : 1.0f;
-    const float sqr = (kL2 && admit) ? p.sq[r] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < kWarps; ++j) {
-      if (j < nqt) {
-        float s = kNegInf;
-        if ((admit >> j) & 1u) {
-          const float qscale = kKind == kI8 ? p.q_scale[q0 + j] : 1.0f;
-          s = S::template finish<kL2>(acc[j], qscale, rscale, sqr);
-        }
-        sv[j * kThreads + threadIdx.x] = s;
-      }
-    }
+    for (int j = 0; j < kWarps; ++j)
+      if (j < nqt) sv[j * kThreads + threadIdx.x] = admit ? acc[j] : kNegInf;
     __syncthreads();
     if (warp < nqt) {
       for (int t = 0; t < kThreads; t += 32) {
@@ -673,8 +587,12 @@ __global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
 // merge in a tree of log2(nw) rounds. nw = 16 for 32 lists or more, else
 // 8, while the warps' lists fit kPass2SmemList entries, else one warp
 // whose list lives in shared memory for k <= kPass2SmemList, else in the
-// output row. Gathered mode (``cand`` non-null) ranks positions and
-// writes the store ids at them, cand[qi, pos].
+// output row. In list mode (``la.flat_ids`` non-null) the lists rank
+// positions: partial (p, c, w) of query qi holds a list only when chunk c
+// of its probed list probe[qi, p] exists (the others are skipped unread),
+// and a winning position p * max_aligned + o becomes the store id
+// flat_ids[offsets[probe[qi, p]] + o]. ``slot_lists`` is the partials per
+// (p, c): 1, or one per warp of the streaming pass.
 constexpr int kPass2Warps = 16;
 
 // the lane's entry of a sorted list's first 32 (-FLT_MAX, -1 past k)
@@ -712,40 +630,69 @@ __device__ void merge_sorted(float* lv, int* li, int k,
   merge_sorted(lv, li, k, sv, si, v0, i0);
 }
 
+// One pass 2 block merges partials [g * group, (g + 1) * group) of query
+// qi (block qi * groups + g): each query's partials are ``q_stride``
+// entries apart, partial c at c * k; the block's list lands at
+// out + qi * out_stride + g * k. ``skip_dead``: list mode's unwritten
+// slots are skipped; ``map_ids``: list mode's positions become store ids.
+struct Pass2 {
+  const float* part_v;
+  const int* part_i;
+  size_t q_stride, out_stride;
+  int n_chunks, group, k, slot_lists;
+  bool skip_dead, map_ids;
+  float* out_v;
+  int* out_i;
+};
+
 __global__ void __launch_bounds__(kPass2Warps * 32)
-scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
-           int n_chunks, int k, const int* __restrict__ cand, int n_cand,
-           float* __restrict__ out_v, int* __restrict__ out_i) {
+scan_pass2(const Pass2 p, const ListArgs la) {
   extern __shared__ float smem2[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const size_t qi = blockIdx.x;
+  const int k = p.k;
+  const int groups = (p.n_chunks + p.group - 1) / p.group;
+  const size_t qi = blockIdx.x / groups;
+  const int g = static_cast<int>(blockIdx.x - qi * groups);
+  const int c0 = g * p.group;
+  const int c1 = min(p.n_chunks, c0 + p.group);
   const bool in_smem = static_cast<size_t>(nw) * k <= kPass2SmemList;
+  float* out_v = p.out_v + qi * p.out_stride + static_cast<size_t>(g) * k;
+  int* out_i = p.out_i + qi * p.out_stride + static_cast<size_t>(g) * k;
   float* lists_v = smem2;
   int* lists_i = reinterpret_cast<int*>(smem2 + static_cast<size_t>(nw) * k);
-  float* lv = in_smem ? lists_v + static_cast<size_t>(warp) * k
-                      : out_v + qi * k;
-  int* li = in_smem ? lists_i + static_cast<size_t>(warp) * k
-                    : out_i + qi * k;
+  float* lv = in_smem ? lists_v + static_cast<size_t>(warp) * k : out_v;
+  int* li = in_smem ? lists_i + static_cast<size_t>(warp) * k : out_i;
   for (int j = lane; j < k; j += 32) {
     lv[j] = kNegInf;
     li[j] = -1;
   }
-  const size_t total = static_cast<size_t>(n_chunks) * k;
-  const float* pv = part_v + qi * total;
-  const int* pi = part_i + qi * total;
+  const float* pv = p.part_v + qi * p.q_stride;
+  const int* pi = p.part_i + qi * p.q_stride;
+  // the head of partial c, or an empty head for a list-mode slot whose
+  // chunk lies past its probed list's end (never written)
+  auto head = [&](int c, float& v, int& id) {
+    if (p.skip_dead) {
+      const int s = c / p.slot_lists;
+      const int pp = s / la.cmax;
+      const long long o0 = static_cast<long long>(s - pp * la.cmax) * la.chunk;
+      if (o0 >= la.aligned[la.probe[qi * la.nprobe + pp]]) {
+        v = kNegInf;
+        id = -1;
+        return;
+      }
+    }
+    list_head(pv + static_cast<size_t>(c) * k, pi + static_cast<size_t>(c) * k,
+              k, v, id);
+  };
   float hv = kNegInf;           // the head of the warp's next list
   int hi = -1;
-  if (warp < n_chunks)
-    list_head(pv + static_cast<size_t>(warp) * k,
-              pi + static_cast<size_t>(warp) * k, k, hv, hi);
-  for (int c = warp; c < n_chunks; c += nw) {
+  if (c0 + warp < c1) head(c0 + warp, hv, hi);
+  for (int c = c0 + warp; c < c1; c += nw) {
     const float v0 = hv;
     const int i0 = hi;
-    if (c + nw < n_chunks)
-      list_head(pv + static_cast<size_t>(c + nw) * k,
-                pi + static_cast<size_t>(c + nw) * k, k, hv, hi);
+    if (c + nw < c1) head(c + nw, hv, hi);
     merge_sorted(lv, li, k, pv + static_cast<size_t>(c) * k,
                  pi + static_cast<size_t>(c) * k, v0, i0);
   }
@@ -760,9 +707,13 @@ scan_pass2(const float* __restrict__ part_v, const int* __restrict__ part_i,
   for (int j = lane; j < k; j += 32) {      // each lane its own entries
     const float v = lv[j];
     int id = li[j];
-    if (cand != nullptr && id >= 0) id = cand[qi * n_cand + id];
-    out_v[qi * k + j] = v;
-    out_i[qi * k + j] = id;
+    if (p.map_ids && id >= 0) {
+      const int pp = id / la.max_aligned;
+      const int o = id - pp * la.max_aligned;
+      id = la.flat_ids[la.offsets[la.probe[qi * la.nprobe + pp]] + o];
+    }
+    out_v[j] = v;
+    out_i[j] = id;
   }
 }
 
@@ -924,6 +875,145 @@ __device__ void zero_cols(unsigned char* dst, int stride, int nrows, int from,
     const int r = i / w;
     dst[r * stride + from + (i - r * w)] = 0;
   }
+}
+
+// Copy bytes [col, col + len) of ``nrows`` rows of ``src``, row i being
+// source row idx[i] (rows ``row_bytes`` apart), into shared rows
+// ``dst_stride`` apart: stage_copy's copies, gathered row by row
+__device__ void stage_gather(unsigned char* dst, int dst_stride,
+                             const unsigned char* src, size_t row_bytes,
+                             const int* idx, int nrows, int col, int len,
+                             int width) {
+  const int per = len / width;
+  const int total = nrows * per;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / per;
+    const int c = (i - r * per) * width;
+    unsigned char* d = dst + r * dst_stride + c;
+    const unsigned char* s =
+        src + static_cast<size_t>(idx[r]) * row_bytes + col + c;
+    if (width == 16)
+      cp_async16(d, s);
+    else if (width == 4)
+      cp_async4(d, s);
+    else
+      *d = __ldg(s);
+  }
+}
+
+// Copy ``nbytes`` contiguous bytes to 16-byte aligned shared memory:
+// cp.async of 16 or 4 bytes as far as ``src``'s alignment allows, byte
+// loads for the rest
+__device__ void stage_span(void* dst_ptr, const void* src_ptr, int nbytes) {
+  unsigned char* dst = static_cast<unsigned char*>(dst_ptr);
+  const unsigned char* src = static_cast<const unsigned char*>(src_ptr);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const int width = a % 16 == 0 ? 16 : a % 4 == 0 ? 4 : 1;
+  const int units = width == 1 ? 0 : nbytes / width;
+  for (int i = threadIdx.x; i < units; i += blockDim.x) {
+    if (width == 16)
+      cp_async16(dst + 16 * i, src + 16 * i);
+    else
+      cp_async4(dst + 4 * i, src + 4 * i);
+  }
+  for (int i = units * width + threadIdx.x; i < nbytes; i += blockDim.x)
+    dst[i] = __ldg(src + i);
+}
+
+// ------------------------------------------------------------ list mode
+// A list-mode block's work: query tile blockIdx.x % tiles of list
+// l = blockIdx.x / tiles (sorted pairs list_start[l] + t * qt, ...) and
+// positions [o0, o1) of chunk blockIdx.y of the list, which starts at
+// flat_ids[base].
+struct ListWork {
+  int nqt, o0, o1;
+  long long base;
+};
+
+// Fill ``lw``; threads j < nqt write query j's row ``qid[j]``, its
+// position base qkey[j] = p * max_aligned and its partial slot
+// (b * nprobe + p) * cmax + chunk. False (block-uniform) when the tile has
+// no query or the chunk starts past the list's end: the block has no work.
+// (Such blocks cost little: a grid of only the tiles that exist, mapped by
+// a one-block kernel, ran kernel 9 no faster on the H100, PERF.md.)
+__device__ bool list_work(const ListArgs& a, int qt, ListWork& lw, int* qid,
+                          int* qkey, long long* qslot) {
+  const int l = blockIdx.x / a.tiles;
+  const int s0 = a.list_start[l] + (blockIdx.x - l * a.tiles) * qt;
+  lw.nqt = min(qt, a.list_start[l + 1] - s0);
+  const long long al = a.aligned[l];
+  lw.o0 = blockIdx.y * a.chunk;
+  if (lw.nqt <= 0 || lw.o0 >= al) return false;
+  lw.o1 = static_cast<int>(
+      min(al, static_cast<long long>(lw.o0) + a.chunk));
+  lw.base = a.offsets[l];
+  if (threadIdx.x < lw.nqt) {
+    const long long pair = a.order[s0 + threadIdx.x];
+    const int b = static_cast<int>(pair / a.nprobe);
+    const int pp = static_cast<int>(pair - static_cast<long long>(b) *
+                                               a.nprobe);
+    qid[threadIdx.x] = b;
+    qkey[threadIdx.x] = pp * a.max_aligned;
+    qslot[threadIdx.x] =
+        (static_cast<long long>(b) * a.nprobe + pp) * a.cmax + blockIdx.y;
+  }
+  return true;
+}
+
+// Read the ids of the block's positions [o0, o1) and each tile query's
+// scope bit of each (bit id & 31 of word id >> 5 of its scope row; -1,
+// padding, and a scope id out of range admit nothing), and keep the rows
+// some query admits: cid[i] the store row, cmeta[i] its position past o0
+// (low 16 bits) and the queries that admit it (bit 16 + j). Each thread
+// takes kCompactU positions a round, so their loads are in flight
+// together. Returns the count, the same in every thread. The kept rows'
+// order is the warps' arrival order; nothing computed depends on it.
+constexpr int kCompactU = 8;
+__device__ int list_compact(const ListArgs& a, const ListWork& lw,
+                            const uint32_t* words, int n_scopes, int n_words,
+                            const int* qsid, int* cid, unsigned* cmeta,
+                            int* counter) {
+  const int lane = threadIdx.x & 31;
+  const int npos = lw.o1 - lw.o0;
+  const int* ids = a.flat_ids + lw.base + lw.o0;
+  if (threadIdx.x == 0) *counter = 0;
+  __syncthreads();
+  for (int i0 = 0; i0 < npos; i0 += kCompactU * blockDim.x) {
+    int id[kCompactU];
+    unsigned m[kCompactU];
+#pragma unroll
+    for (int u = 0; u < kCompactU; ++u) {
+      const int i = i0 + u * blockDim.x + threadIdx.x;
+      id[u] = i < npos ? __ldg(ids + i) : -1;
+      m[u] = 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kListQ; ++j) {
+      const int s = j < lw.nqt ? qsid[j] : -1;
+      const bool ok = s >= 0 && s < n_scopes;
+      const uint32_t* row = words + static_cast<size_t>(ok ? s : 0) * n_words;
+#pragma unroll
+      for (int u = 0; u < kCompactU; ++u)
+        if (ok && id[u] >= 0)
+          m[u] |= ((__ldg(row + (id[u] >> 5)) >> (id[u] & 31)) & 1u) << j;
+    }
+#pragma unroll
+    for (int u = 0; u < kCompactU; ++u) {
+      const bool keep = m[u] != 0u;
+      const unsigned bal = __ballot_sync(kAll, keep);
+      int at = 0;
+      if (lane == 0 && bal != 0u) at = atomicAdd(counter, __popc(bal));
+      at = __shfl_sync(kAll, at, 0) + __popc(bal & ((1u << lane) - 1u));
+      if (keep) {
+        cid[at] = id[u];
+        cmeta[at] =
+            static_cast<unsigned>(i0 + u * blockDim.x + threadIdx.x) |
+            (m[u] << 16);
+      }
+    }
+  }
+  __syncthreads();
+  return *counter;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
@@ -1379,16 +1469,24 @@ cudaError_t launch_tiled(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// ------------------------------------------ streaming pass 1 (dense fp32)
+// ------------------------------------------ streaming pass 1 (fp32, int8)
 constexpr int kStreamThreads = 128;
 constexpr int kStreamWarps = kStreamThreads / 32;
 constexpr int kStreamRows = kStreamThreads;   // rows per tile: one a thread
 constexpr int kStreamStages = 3;          // ring: 2 items in flight
-constexpr int kStreamSlice = 64;          // floats of a row per item
 constexpr int kStreamBlocks = 4;          // most blocks an SM is planned for
 constexpr int kStreamQ = 8;               // largest query tile
 constexpr int kSmemPerSM = 233472;        // shared memory of one SM
 constexpr int kSmemPerBlock = 1024;       // ... the system keeps per block
+// a meta slot: the tile's mask bytes, l2 norms and int8 row scales
+constexpr int kStreamMeta = kStreamRows * 9;
+constexpr int kStreamMisc = 256;          // the query tile's ids, keys, ...
+
+// depth one item holds: 64 floats (fp32; 32 in list mode, whose compacted
+// rows take shared memory too), 256 int8 bytes
+__host__ __device__ constexpr int stream_slice(int kind, int list) {
+  return kind == kF32 ? (list ? 32 : 64) : 256;
+}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -1396,49 +1494,63 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 struct StreamScan {
-  const float* q;          // (nq, depth)
-  const float* rows;       // (n, depth)
+  const void* q;           // f32 | i8 (nq, depth)
+  const float* q_scale;    // int8: (nq,)
+  const void* rows;        // f32 | i8 (n, depth)
+  const float* row_scale;  // int8: (n,)
   const float* sq;         // l2: (n,)
-  const int8_t* mask;      // (n,), non-zero admits the row
+  const int8_t* mask;      // dense mode: (n,), non-zero admits the row
+  const uint32_t* words;   // list mode: (n_scopes, n_words)
+  const int* sids;         // list mode: (nq,)
+  ListArgs la;             // list mode
+  int n_scopes, n_words;
   int nq, n, depth, slice, k, qt, chunk_rows, smem_lists, lists;
-  int row_width, q_width;  // copy width in bytes: 16 or 4
+  int row_width, q_width;  // copy width in bytes: 16, 4 or 1
   float* part_v;
   int* part_i;
 };
 
 // Shared memory of the streaming pass 1: the ring (each stage a row tile's
 // depth slice and the query tile's, rows padded to an odd number of
-// 16-byte units), then per warp and query a top-k list when they fit.
+// 16-byte units), kStreamStages meta slots, in list mode the chunk's
+// compacted rows (ids and (position, queries) words), the query tile's
+// misc, per warp and query a 32-entry candidate buffer and its list's
+// tail, then per warp and query a top-k list when they fit.
 struct StreamLayout {
   int r_stride;
-  size_t stage, lists, total;
+  size_t stage, compact, bufs, lists, total;
 };
 
-__host__ __device__ inline StreamLayout stream_layout(int qt, int slice,
+__host__ __device__ inline StreamLayout stream_layout(int kind, int list,
+                                                      int qt, int slice,
                                                       int k,
                                                       int smem_lists) {
   StreamLayout L;
-  L.r_stride = pad_stride(depth_pad(kF32, slice));
+  L.r_stride = pad_stride(depth_pad(kind, slice));
   L.stage = static_cast<size_t>(kStreamRows + qt) * L.r_stride;
+  L.compact = list ? static_cast<size_t>(kListChunk) * 8 : 0;
+  L.bufs = static_cast<size_t>(kStreamWarps) * qt * (32 * 8 + 8);
   L.lists = smem_lists ? static_cast<size_t>(kStreamWarps) * qt * k * 8 : 0;
-  L.total = kStreamStages * L.stage + L.lists;
+  L.total = kStreamStages * (L.stage + kStreamMeta) + L.compact +
+            kStreamMisc + L.bufs + L.lists;
   return L;
 }
 
 // The largest query tile up to ``qt_cap`` whose per-warp lists fit shared
 // memory beside the ring; past that the lists live in device memory, one
 // partial per warp (``lists`` partials per chunk). ``blocks``: how many
-// such blocks one SM holds (1 or 2), which the wrapper sizes the grid by.
+// such blocks one SM holds (1 to 4), which the wrapper sizes the grid by.
 struct StreamPlan {
   int qt, slice, smem_lists, lists, blocks;
   size_t smem;
 };
 
-StreamPlan stream_plan(int qt_cap, int depth, int k) {
-  StreamPlan P{qt_cap, depth < kStreamSlice ? depth : kStreamSlice, 0,
-               kStreamWarps, 1, 0};
+StreamPlan stream_plan(int kind, int list, int qt_cap, int depth, int k) {
+  const int slice = stream_slice(kind, list);
+  StreamPlan P{qt_cap, depth < slice ? depth : slice, 0, kStreamWarps, 1,
+               0};
   for (int qt = qt_cap; qt >= 1; --qt) {
-    const size_t smem = stream_layout(qt, P.slice, k, 1).total;
+    const size_t smem = stream_layout(kind, list, qt, P.slice, k, 1).total;
     if (smem <= static_cast<size_t>(kSmemLimit)) {
       P.qt = qt;
       P.smem_lists = 1;
@@ -1447,58 +1559,128 @@ StreamPlan stream_plan(int qt_cap, int depth, int k) {
       break;
     }
   }
-  if (P.smem == 0) P.smem = stream_layout(qt_cap, P.slice, k, 0).total;
+  if (P.smem == 0)
+    P.smem = stream_layout(kind, list, qt_cap, P.slice, k, 0).total;
   const int fit = kSmemPerSM / static_cast<int>(P.smem + kSmemPerBlock);
   P.blocks = fit < 1 ? 1 : fit > kStreamBlocks ? kStreamBlocks : fit;
   return P;
 }
 
-// Kernel 1 (scoped_topk): query tile of qt <= 8 (kQ = 1 compiles the
-// q = 1 scan alone) x row chunk. Item = (128-row tile, 64-float depth
+// Kernels 1 and 5 (scoped_topk, _i8), and kernel 9 fp32 / int8 in list
+// mode: query tile of qt <= 8 (kQ = 1 compiles the q = 1 scan alone) x
+// row chunk (dense) or list chunk (kList). Item = (128-row tile, depth
 // slice), copied with cp.async into ring stage item % 3 by all threads
-// (neighbouring threads on neighbouring 16 bytes), two items ahead of the
-// one computed. Thread t owns row t of every tile: its chain
-// acc = fmaf(q[c], x[c], acc), c = 0..d-1 from 0.0f, continues across the
-// slices out of shared memory (the query slice is a broadcast). At a
-// tile's end each warp offers its 32 rows' scores to its own per-query
-// lists: only lanes that beat the list's tail (kept in registers) take
-// part, and several winners merge at once (warp_merge). No block barrier
-// waits on a merge; the warps' lists are merged once at the chunk's end.
-template <bool kL2, int kQ, bool kWide>
-__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks)
+// (neighbouring threads on neighbouring 16 bytes; list mode gathers each
+// row from its id), two items ahead of the one computed; a tile's first
+// item also stages its meta. Thread t owns row t of every tile: its chain
+// (fp32 fmaf, int8 __dp4a) continues across the slices out of shared
+// memory (the query slice is a broadcast). At a tile's end each warp
+// appends the scores of its 32 rows that beat the best of the warps'
+// tails of the query's lists to the query's 32-entry buffer, and merges a
+// buffer into its list (warp_merge, 32 candidates at once) only when the
+// next tile's winners would overflow it: a warp merges about once per
+// 32 winners, not once per tile and query. (A warp's tail is the k-th
+// best of rows the block has seen, so a row that does not beat some
+// warp's tail is out of the block's top-k; each warp publishes its tails
+// as one 8-byte word, read whole.) No block barrier waits on a merge; the
+// warps' lists are merged once at the chunk's end. A list rank's key is
+// the row (dense) or the position p * max_aligned + o (list mode).
+template <int kKind, bool kL2, int kQ, bool kWide, bool kList>
+__global__ void __launch_bounds__(kStreamThreads,
+                                  kQ == 1 ? kStreamBlocks : 2)
 scan_pass1_stream(const StreamScan p) {
+  using Acc = typename Scorer<kKind>::Acc;
+  constexpr int kEb = kKind == kF32 ? 4 : 1;    // bytes per element
   extern __shared__ __align__(16) unsigned char smem[];
-  const StreamLayout L = stream_layout(p.qt, p.slice, p.k, p.smem_lists);
+  const StreamLayout L =
+      stream_layout(kKind, kList, p.qt, p.slice, p.k, p.smem_lists);
   unsigned char* ring = smem;
-  float* lv_s = reinterpret_cast<float*>(smem + kStreamStages * L.stage);
+  unsigned char* meta = ring + kStreamStages * L.stage;
+  int* cid = reinterpret_cast<int*>(meta + kStreamStages * kStreamMeta);
+  unsigned* cmeta = reinterpret_cast<unsigned*>(cid + L.compact / 8);
+  unsigned char* misc = reinterpret_cast<unsigned char*>(cid) + L.compact;
+  long long* qslot = reinterpret_cast<long long*>(misc);  // kStreamQ each
+  int* qid = reinterpret_cast<int*>(qslot + kStreamQ);
+  int* qkey = qid + kStreamQ;
+  int* qsid = qkey + kStreamQ;
+  float* qsc = reinterpret_cast<float*>(qsid + kStreamQ);
+  int* counter = reinterpret_cast<int*>(qsc + kStreamQ);
+  int2* wt_s = reinterpret_cast<int2*>(misc + kStreamMisc);  // tails
+  float* bv_s = reinterpret_cast<float*>(wt_s + kStreamWarps * p.qt);
+  int* bi_s = reinterpret_cast<int*>(bv_s + kStreamWarps * p.qt * 32);
+  float* lv_s = reinterpret_cast<float*>(bi_s + kStreamWarps * p.qt * 32);
   int* li_s = reinterpret_cast<int*>(
       lv_s + static_cast<size_t>(kStreamWarps) * p.qt * p.k);
 
   const int k = p.k;
-  const int q0 = blockIdx.x * p.qt;
-  const int nqt = min(p.qt, p.nq - q0);
-  const int chunk = blockIdx.y;
-  const int r_begin = chunk * p.chunk_rows;
-  const int r_end = min(p.n, r_begin + p.chunk_rows);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const size_t row_bytes = static_cast<size_t>(p.depth) * 4;
-  // warp w's list of query j: in shared memory, or partial w of the chunk
+  const size_t row_bytes = static_cast<size_t>(p.depth) * kEb;
+  int nqt, count = 0, r_begin = 0;   // count: the block's rows
+  ListWork lw{};
+  if constexpr (kList) {
+    if (!list_work(p.la, p.qt, lw, qid, qkey, qslot)) return;
+    nqt = lw.nqt;
+    if (threadIdx.x < nqt) qsid[threadIdx.x] = p.sids[qid[threadIdx.x]];
+  } else {
+    const int q0 = blockIdx.x * p.qt;
+    nqt = min(p.qt, p.nq - q0);
+    r_begin = blockIdx.y * p.chunk_rows;
+    count = max(0, min(p.n, r_begin + p.chunk_rows) - r_begin);
+    if (threadIdx.x < nqt) {
+      qid[threadIdx.x] = q0 + threadIdx.x;
+      qslot[threadIdx.x] =
+          static_cast<long long>(q0 + threadIdx.x) * gridDim.y + blockIdx.y;
+    }
+  }
+  if (threadIdx.x < nqt)
+    qsc[threadIdx.x] = kKind == kI8 ? p.q_scale[qid[threadIdx.x]] : 1.0f;
+  __syncthreads();
+  if constexpr (kList)
+    count = list_compact(p.la, lw, p.words, p.n_scopes, p.n_words, qsid, cid,
+                         cmeta, counter);
+
+  // warp w's list of query j: in shared memory, or partial w of its slot
   auto list_at = [&](int w, int j) {
     return p.smem_lists
                ? (static_cast<size_t>(w) * p.qt + j) * k
-               : ((static_cast<size_t>(q0 + j) * gridDim.y + chunk) *
-                      p.lists + w) * k;
+               : (static_cast<size_t>(qslot[j]) * p.lists + w) * k;
   };
   float* const lv = p.smem_lists ? lv_s : p.part_v;
   int* const li = p.smem_lists ? li_s : p.part_i;
   float tv[kQ];                 // the warp's lists' tails
   int ti[kQ];
+  int bc[kQ];                   // ... and its buffers' fill (warp-uniform)
 #pragma unroll
   for (int j = 0; j < kQ; ++j) {
     tv[j] = kNegInf;
     ti[j] = -1;
+    bc[j] = 0;
   }
+  // the warp publishes its list tail of query j to the other warps
+  auto publish = [&](int j) {
+    if (lane == 0)
+      wt_s[warp * p.qt + j] = make_int2(__float_as_int(tv[j]), ti[j]);
+  };
+  if (lane == 0)                // empty lists' tails
+    for (int j = 0; j < nqt; ++j)
+      wt_s[warp * p.qt + j] = make_int2(__float_as_int(kNegInf), -1);
+  // merge the warp's buffer of query j into its list, then read the tail
+  auto flush = [&](int j) {
+    __syncwarp();
+    float* wl = lv + list_at(warp, j);
+    int* wi = li + list_at(warp, j);
+    const float* bv = bv_s + (warp * p.qt + j) * 32;
+    const int* bi = bi_s + (warp * p.qt + j) * 32;
+    const bool in = lane < bc[j];
+    warp_offer<kWide ? kMergeSlotsWide : kMergeSlots>(
+        wl, wi, k, in ? bv[lane] : kNegInf, in ? bi[lane] : -1, in);
+    __syncwarp();
+    tv[j] = wl[k - 1];
+    ti[j] = wi[k - 1];
+    bc[j] = 0;
+    publish(j);
+  };
   for (int j = 0; j < nqt; ++j)
     for (int e = lane; e < k; e += 32) {
       lv[list_at(warp, j) + e] = kNegInf;
@@ -1507,31 +1689,51 @@ scan_pass1_stream(const StreamScan p) {
   __syncwarp();
 
   const int ns = (p.depth + p.slice - 1) / p.slice;
-  const int n_tiles = r_end > r_begin
-                          ? (r_end - r_begin + kStreamRows - 1) / kStreamRows
-                          : 0;
+  const int n_tiles = (count + kStreamRows - 1) / kStreamRows;
   const int total = n_tiles * ns;
-  const unsigned char* r_src = reinterpret_cast<const unsigned char*>(p.rows);
-  const unsigned char* q_src =
-      reinterpret_cast<const unsigned char*>(p.q) + q0 * row_bytes;
+  const unsigned char* r_src = static_cast<const unsigned char*>(p.rows) +
+                               static_cast<size_t>(r_begin) * row_bytes;
+  const unsigned char* q_src = static_cast<const unsigned char*>(p.q);
   auto issue = [&](int item) {
     if (item < total) {
       const int t = item / ns;
       const int s = item - t * ns;
-      const int r0 = r_begin + t * kStreamRows;
+      const int i0 = t * kStreamRows;
+      const int nr = min(kStreamRows, count - i0);
       const int c0 = s * p.slice;
-      const int len = min(p.slice, p.depth - c0);
-      const int padb = depth_pad(kF32, len);
+      const int lenb = min(p.slice, p.depth - c0) * kEb;
+      const int padb = depth_pad(kKind, min(p.slice, p.depth - c0));
       unsigned char* stage = ring + (item % kStreamStages) * L.stage;
       unsigned char* qs = stage + kStreamRows * L.r_stride;
-      stage_copy(stage, L.r_stride, r_src + r0 * row_bytes + c0 * 4,
-                 row_bytes, min(kStreamRows, r_end - r0), len * 4,
-                 p.row_width);
-      stage_copy(qs, L.r_stride, q_src + c0 * 4, row_bytes, nqt, len * 4,
-                 p.q_width);
-      if (padb > len * 4) {     // fp32 pads must be 0 (0 * NaN is NaN)
-        zero_cols(stage, L.r_stride, kStreamRows, len * 4, padb);
-        zero_cols(qs, L.r_stride, nqt, len * 4, padb);
+      if (kList)
+        stage_gather(stage, L.r_stride, r_src, row_bytes, cid + i0, nr,
+                     c0 * kEb, lenb, p.row_width);
+      else
+        stage_copy(stage, L.r_stride, r_src + i0 * row_bytes + c0 * kEb,
+                   row_bytes, nr, lenb, p.row_width);
+      stage_gather(qs, L.r_stride, q_src, row_bytes, qid, nqt, c0 * kEb,
+                   lenb, p.q_width);
+      if (padb > lenb) {        // pads are 0 (fp32: 0 * NaN is NaN; int8:
+        if (kKind == kF32)      // a zero query byte makes any row byte's
+          zero_cols(stage, L.r_stride, kStreamRows, lenb, padb);  // term 0)
+        zero_cols(qs, L.r_stride, nqt, lenb, padb);
+      }
+      if (s == 0) {             // the tile's meta, read at its end
+        unsigned char* m = meta + (t % kStreamStages) * kStreamMeta;
+        float* sqs = reinterpret_cast<float*>(m + kStreamRows);
+        float* scs = sqs + kStreamRows;
+        if constexpr (kList) {
+          for (int i = threadIdx.x; i < nr; i += kStreamThreads) {
+            const int id = cid[i0 + i];
+            if (kL2) cp_async4(sqs + i, p.sq + id);
+            if (kKind == kI8) cp_async4(scs + i, p.row_scale + id);
+          }
+        } else {
+          const int r0 = r_begin + i0;
+          stage_span(m, p.mask + r0, nr);
+          if (kL2) stage_span(sqs, p.sq + r0, nr * 4);
+          if (kKind == kI8) stage_span(scs, p.row_scale + r0, nr * 4);
+        }
       }
     }
     cp_async_commit();          // empty groups keep the count uniform
@@ -1539,64 +1741,133 @@ scan_pass1_stream(const StreamScan p) {
 #pragma unroll
   for (int i = 0; i < kStreamStages - 1; ++i) issue(i);
 
-  float acc[kQ];
-  float sqr = 0.0f;
-  int8_t mk = 0;
-  const int qs4 = L.r_stride / 4;
+  Acc acc[kQ];
   for (int item = 0; item < total; ++item) {
     cp_async_wait<kStreamStages - 2>();  // item's stage has landed ...
     __syncthreads();            // ... for all, and item - 1 is consumed
     issue(item + kStreamStages - 1);
     const int t = item / ns;
     const int s = item - t * ns;
-    const int r = r_begin + t * kStreamRows + threadIdx.x;
     const int len = min(p.slice, p.depth - s * p.slice);
     const unsigned char* stage = ring + (item % kStreamStages) * L.stage;
-    if (s == 0) {               // a new tile; its mask and norm are read
-#pragma unroll                  // here and used at its end
-      for (int j = 0; j < kQ; ++j) acc[j] = 0.0f;
-      mk = r < r_end ? p.mask[r] : 0;
-      if (kL2) sqr = r < r_end ? p.sq[r] : 0.0f;
-    }
-    const float* xr =
-        reinterpret_cast<const float*>(stage + threadIdx.x * L.r_stride);
-    const float* qv0 =
-        reinterpret_cast<const float*>(stage + kStreamRows * L.r_stride);
-    const int len4 = depth_pad(kF32, len) / 4;
-    for (int c = 0; c < len4; c += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+    if (s == 0) {
 #pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        if (kQ == 1 || j < nqt) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(qv0 + j * qs4 + c);
-          acc[j] = fmaf(qv.x, xv.x, acc[j]);
-          acc[j] = fmaf(qv.y, xv.y, acc[j]);
-          acc[j] = fmaf(qv.z, xv.z, acc[j]);
-          acc[j] = fmaf(qv.w, xv.w, acc[j]);
+      for (int j = 0; j < kQ; ++j) acc[j] = Acc(0);
+    }
+    if constexpr (kKind == kF32) {
+      const float* xr =
+          reinterpret_cast<const float*>(stage + threadIdx.x * L.r_stride);
+      const float* qv0 =
+          reinterpret_cast<const float*>(stage + kStreamRows * L.r_stride);
+      const int qs4 = L.r_stride / 4;
+      const int len4 = depth_pad(kF32, len) / 4;
+      for (int c = 0; c < len4; c += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          if (kQ == 1 || j < nqt) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qv0 + j * qs4 + c);
+            acc[j] = fmaf(qv.x, xv.x, acc[j]);
+            acc[j] = fmaf(qv.y, xv.y, acc[j]);
+            acc[j] = fmaf(qv.z, xv.z, acc[j]);
+            acc[j] = fmaf(qv.w, xv.w, acc[j]);
+          }
+        }
+      }
+    } else {
+      const int4* xr =
+          reinterpret_cast<const int4*>(stage + threadIdx.x * L.r_stride);
+      const int4* qv0 =
+          reinterpret_cast<const int4*>(stage + kStreamRows * L.r_stride);
+      const int qs16 = L.r_stride / 16;
+      const int len16 = depth_pad(kI8, len) / 16;
+      for (int c = 0; c < len16; ++c) {
+        const int4 xv = xr[c];
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          if (kQ == 1 || j < nqt) {
+            const int4 qv = qv0[j * qs16 + c];
+            acc[j] = __dp4a(xv.x, qv.x, acc[j]);
+            acc[j] = __dp4a(xv.y, qv.y, acc[j]);
+            acc[j] = __dp4a(xv.z, qv.z, acc[j]);
+            acc[j] = __dp4a(xv.w, qv.w, acc[j]);
+          }
         }
       }
     }
     if (s != ns - 1) continue;
-    const bool adm = mk != 0;
+    // the tile's end: the thread's row i of the block's rows, which
+    // queries admit it, and its rank key
+    const int i = t * kStreamRows + threadIdx.x;
+    const bool in = i < count;
+    const unsigned char* m = meta + (t % kStreamStages) * kStreamMeta;
+    const float sqr =
+        (kL2 && in) ? reinterpret_cast<const float*>(m + kStreamRows)
+                          [threadIdx.x]
+                    : 0.0f;
+    const float rs =
+        (kKind == kI8 && in)
+            ? reinterpret_cast<const float*>(m + 5 * kStreamRows)[threadIdx.x]
+            : 1.0f;
+    unsigned adm;
+    int key0;
+    if constexpr (kList) {
+      const unsigned cm = in ? cmeta[i] : 0u;
+      adm = cm >> 16;
+      key0 = lw.o0 + static_cast<int>(cm & 0xffffu);
+    } else {
+      adm = (in && m[threadIdx.x] != 0) ? kAll : 0u;
+      key0 = r_begin + i;
+    }
+    // every query's vote first -- its score against the best of the
+    // warps' tails, loads and selects with no branch between queries --
+    // then the appends and merges of the queries that have winners
+    unsigned bal[kQ];
+    unsigned any = 0u;
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
+      bal[j] = 0u;
       if (kQ == 1 || j < nqt) {
-        const float sc =
-            Scorer<kF32>::template finish<kL2>(acc[j], 1.0f, 1.0f, sqr);
-        const bool win = adm && better(sc, r, tv[j], ti[j]);
-        if (__any_sync(kAll, win)) {
-          float* wl = lv + list_at(warp, j);
-          int* wi = li + list_at(warp, j);
-          warp_offer<kWide ? kMergeSlotsWide : kMergeSlots>(wl, wi, k, sc,
-                                                            r, win);
-          __syncwarp();
-          tv[j] = wl[k - 1];
-          ti[j] = wi[k - 1];
+        const float sc = Scorer<kKind>::template finish<kL2>(acc[j], qsc[j],
+                                                             rs, sqr);
+        float cut_v = tv[j];
+        int cut_i = ti[j];
+#pragma unroll
+        for (int w = 0; w < kStreamWarps; ++w) {
+          const int2 t = wt_s[w * p.qt + j];
+          if (better(__int_as_float(t.x), t.y, cut_v, cut_i)) {
+            cut_v = __int_as_float(t.x);
+            cut_i = t.y;
+          }
+        }
+        bal[j] = __ballot_sync(
+            kAll, ((adm >> j) & 1u) &&
+                      better(sc, kList ? qkey[j] + key0 : key0, cut_v,
+                             cut_i));
+        any |= bal[j];
+      }
+    }
+    if (any) {
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        if (bal[j]) {
+          if (bc[j] + __popc(bal[j]) > 32) flush(j);
+          if ((bal[j] >> lane) & 1u) {
+            const int at = (warp * p.qt + j) * 32 + bc[j] +
+                           __popc(bal[j] & ((1u << lane) - 1u));
+            bv_s[at] = Scorer<kKind>::template finish<kL2>(acc[j], qsc[j],
+                                                           rs, sqr);
+            bi_s[at] = kList ? qkey[j] + key0 : key0;
+          }
+          bc[j] += __popc(bal[j]);
         }
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < kQ; ++j)
+    if ((kQ == 1 || j < nqt) && bc[j] > 0) flush(j);
   cp_async_wait_all();
   if (!p.smem_lists) return;    // each warp's list is a partial of its own
   __syncthreads();
@@ -1606,7 +1877,7 @@ scan_pass1_stream(const StreamScan p) {
     for (int w = 1; w < kStreamWarps; ++w)
       merge_sorted(lv0, li0, k, lv_s + list_at(w, j), li_s + list_at(w, j));
     __syncwarp();
-    const size_t off = (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
+    const size_t off = static_cast<size_t>(qslot[j]) * k;
     for (int e = lane; e < k; e += 32) {
       p.part_v[off + e] = lv0[e];
       p.part_i[off + e] = li0[e];
@@ -1614,17 +1885,42 @@ scan_pass1_stream(const StreamScan p) {
   }
 }
 
-template <bool kL2, int kQ>
+template <int kKind, bool kL2, int kQ, bool kList>
 cudaError_t launch_stream(dim3 grid, size_t smem, cudaStream_t stream,
                           const StreamScan& p) {
-  auto kern = p.k > 32 * kMergeSlots ? scan_pass1_stream<kL2, kQ, true>
-                                     : scan_pass1_stream<kL2, kQ, false>;
+  auto kern = p.k > 32 * kMergeSlots
+                  ? scan_pass1_stream<kKind, kL2, kQ, true, kList>
+                  : scan_pass1_stream<kKind, kL2, kQ, false, kList>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kern<<<grid, kStreamThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the streaming pass's variant for kind (fp32, int8), metric, query tile
+// (1: kQ = 1) and mode
+template <bool kList>
+cudaError_t dispatch_stream(int kind, bool l2, dim3 grid, size_t smem,
+                            cudaStream_t stream, const StreamScan& p) {
+  const bool one = p.qt == 1;
+  if (kind == kF32) {
+    if (l2)
+      return one ? launch_stream<kF32, true, 1, kList>(grid, smem, stream, p)
+                 : launch_stream<kF32, true, kStreamQ, kList>(grid, smem,
+                                                              stream, p);
+    return one ? launch_stream<kF32, false, 1, kList>(grid, smem, stream, p)
+               : launch_stream<kF32, false, kStreamQ, kList>(grid, smem,
+                                                             stream, p);
+  }
+  if (l2)
+    return one ? launch_stream<kI8, true, 1, kList>(grid, smem, stream, p)
+               : launch_stream<kI8, true, kStreamQ, kList>(grid, smem, stream,
+                                                           p);
+  return one ? launch_stream<kI8, false, 1, kList>(grid, smem, stream, p)
+             : launch_stream<kI8, false, kStreamQ, kList>(grid, smem, stream,
+                                                          p);
 }
 
 // ------------------------------------------- tiled pass 1 (PQ, scope words)
@@ -1634,12 +1930,14 @@ constexpr int kPQRows = kPQThreads;       // rows per tile: one per thread
 constexpr int kPQMaxQ = 8;                // largest query tile
 constexpr int kPQStages = 2;
 constexpr int kPQWords = kPQRows / 32;    // scope words per query and tile
+constexpr int kPQMisc = 256;              // the query tile's ids, keys, ...
 
 struct PQScan {
   const float* lut;        // (nq, depth, 256)
   const uint8_t* codes;    // (n, depth)
   const uint32_t* words;   // (n_scopes, n_words)
   const int* sids;         // (nq,)
+  ListArgs la;             // list mode
   int n_scopes, n_words;
   int nq, n, depth, slice, k, qt, resident, chunk_rows, smem_lists;
   int code_width, lut_width;   // copy width in bytes: 16, 4 or 1
@@ -1653,14 +1951,15 @@ struct PQScan {
 // query tile's LUT slice when not resident, and the tile's scope words),
 // the winners' scores, per query its flags (one word per warp), list tail
 // (value, id), scope id, candidate count and 32-entry candidate buffer,
-// then the lists. Every part but the lists is a multiple of 16 bytes.
+// in list mode the chunk's compacted rows, the query tile's misc, then the
+// lists. Every part but the lists is a multiple of 16 bytes.
 struct PQLayout {
   int c_stride;
-  size_t lut, codes, lut_slice, stage, sv, misc, lists, total;
+  size_t lut, codes, lut_slice, stage, sv, misc, compact, lists, total;
 };
 
-__host__ __device__ inline PQLayout pq_layout(int qt, int depth, int slice,
-                                              int resident, int k,
+__host__ __device__ inline PQLayout pq_layout(int list, int qt, int depth,
+                                              int slice, int resident, int k,
                                               int smem_lists) {
   PQLayout L;
   L.c_stride = pad_stride(slice);
@@ -1670,8 +1969,10 @@ __host__ __device__ inline PQLayout pq_layout(int qt, int depth, int slice,
   L.stage = L.codes + L.lut_slice + static_cast<size_t>(qt) * kPQWords * 4;
   L.sv = static_cast<size_t>(qt) * kPQRows * 4;
   L.misc = static_cast<size_t>(qt) * (kPQWords + 4 + 64) * 4;
+  L.compact = list ? static_cast<size_t>(kListChunk) * 8 : 0;
   L.lists = smem_lists ? static_cast<size_t>(qt) * k * 8 : 0;
-  L.total = L.lut + kPQStages * L.stage + L.sv + L.misc + L.lists;
+  L.total = L.lut + kPQStages * L.stage + L.sv + L.misc + L.compact +
+            kPQMisc + L.lists;
   return L;
 }
 
@@ -1685,39 +1986,43 @@ struct PQPlan {
   size_t smem;
 };
 
-PQPlan pq_plan(int qt_cap, int depth, int k) {
+PQPlan pq_plan(int list, int qt_cap, int depth, int k) {
   const size_t limit = static_cast<size_t>(kSmemLimit);
   if (qt_cap > kPQMaxQ) qt_cap = kPQMaxQ;
   for (int lists = 1; lists >= 0; --lists)
     for (int qt = qt_cap; qt >= 1; --qt) {
-      const size_t smem = pq_layout(qt, depth, depth, 1, k, lists).total;
+      const size_t smem =
+          pq_layout(list, qt, depth, depth, 1, k, lists).total;
       if (smem <= limit) return PQPlan{qt, depth, 1, lists, smem};
     }
   for (int lists = 1; lists >= 0; --lists)
     for (int slice = depth - 1; slice >= 1; --slice) {
       if (slice > 16 && slice % 16 != 0) continue;
-      const size_t smem = pq_layout(1, depth, slice, 0, k, lists).total;
+      const size_t smem =
+          pq_layout(list, 1, depth, slice, 0, k, lists).total;
       if (smem <= limit) return PQPlan{1, slice, 0, lists, smem};
     }
   return PQPlan{1, 1, 0, 0, 0};
 }
 
-// Kernel 8 (multi_scope_topk_pq): query tile of qt <= 8 x row chunk, 16
-// warps. The tile's LUTs are copied once into shared memory; code rows
-// (and the tile's scope words) come through a two-stage cp.async ring,
-// 512 rows a tile, thread t owning row t. A thread looks up only the
-// queries that admit its row, acc += lut[j, m, code[m]] for m = 0..M-1 in
-// order from 0.0f (Scorer<kPQ>'s chain); a warp whose rows no query of the
-// tile admits skips the tile. Epilogue as scan_pass1_tiled's: scores that
-// beat the list's tail go to shared memory, flagged per warp; warp j then
-// gathers query j's into its 32-entry buffer and merges full buffers with
-// warp_merge.
-template <bool kWide>
+// Kernel 8 (multi_scope_topk_pq), and kernel 9's PQ mode in list mode:
+// query tile of qt <= 8 x row chunk (list mode: x list chunk), 16 warps.
+// The tile's LUTs are copied once into shared memory; code rows (and the
+// tile's scope words) come through a two-stage cp.async ring, 512 rows a
+// tile, thread t owning row t (list mode: the chunk's admitted rows,
+// gathered by id). A thread looks up only the queries that admit its row,
+// acc += lut[j, m, code[m]] for m = 0..M-1 in order from 0.0f (Scorer<kPQ>'s
+// chain); a warp whose rows no query of the tile admits skips the tile.
+// Epilogue as scan_pass1_tiled's: scores that beat the list's tail go to
+// shared memory, flagged per warp; warp j then gathers query j's into its
+// 32-entry buffer and merges full buffers with warp_merge. A list's rank
+// key is the row, or in list mode the position p * max_aligned + o.
+template <bool kWide, bool kList>
 __global__ void __launch_bounds__(kPQThreads, 1)
 scan_pass1_pq(const PQScan p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const PQLayout L =
-      pq_layout(p.qt, p.depth, p.slice, p.resident, p.k, p.smem_lists);
+  const PQLayout L = pq_layout(kList, p.qt, p.depth, p.slice, p.resident,
+                               p.k, p.smem_lists);
   float* lut_res = reinterpret_cast<float*>(smem);
   unsigned char* ring = smem + L.lut;
   float* sv = reinterpret_cast<float*>(ring + kPQStages * L.stage);
@@ -1728,22 +2033,48 @@ scan_pass1_pq(const PQScan p) {
   int* bcnt = sid_s + p.qt;
   float* buf_v = reinterpret_cast<float*>(bcnt + p.qt);
   int* buf_i = reinterpret_cast<int*>(buf_v + p.qt * 32);
-  float* lv_s = reinterpret_cast<float*>(buf_i + p.qt * 32);
+  int* cid = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(sv) +
+                                    L.sv + L.misc);
+  unsigned* cmeta = reinterpret_cast<unsigned*>(cid + L.compact / 8);
+  unsigned char* misc = reinterpret_cast<unsigned char*>(cid) + L.compact;
+  long long* qslot = reinterpret_cast<long long*>(misc);  // kPQMaxQ each
+  int* qid = reinterpret_cast<int*>(qslot + kPQMaxQ);
+  int* qkey = qid + kPQMaxQ;
+  int* counter = qkey + kPQMaxQ;
+  float* lv_s = reinterpret_cast<float*>(misc + kPQMisc);
   int* li_s = reinterpret_cast<int*>(lv_s + p.qt * p.k);
 
   const int k = p.k;
-  const int q0 = blockIdx.x * p.qt;
-  const int nqt = min(p.qt, p.nq - q0);
-  const int chunk = blockIdx.y;
-  const int r_begin = chunk * p.chunk_rows;
-  const int r_end = min(p.n, r_begin + p.chunk_rows);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const size_t lut_bytes = static_cast<size_t>(p.depth) * 1024;  // a query's
-  auto list_off = [&](int j) {
-    return (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
-  };
-
+  int nqt, count = 0, r_begin = 0;   // count: the block's rows
+  ListWork lw{};
+  if constexpr (kList) {
+    if (!list_work(p.la, p.qt, lw, qid, qkey, qslot)) return;
+    nqt = lw.nqt;
+  } else {
+    const int q0 = blockIdx.x * p.qt;
+    nqt = min(p.qt, p.nq - q0);
+    r_begin = blockIdx.y * p.chunk_rows;
+    count = max(0, min(p.n, r_begin + p.chunk_rows) - r_begin);
+    if (threadIdx.x < nqt) {
+      qid[threadIdx.x] = q0 + threadIdx.x;
+      qslot[threadIdx.x] =
+          static_cast<long long>(q0 + threadIdx.x) * gridDim.y + blockIdx.y;
+    }
+  }
+  for (int j = threadIdx.x; j < p.qt; j += kPQThreads) {
+    tail_v[j] = kNegInf;        // an empty list's tail
+    tail_i[j] = -1;
+    bcnt[j] = 0;
+    sid_s[j] = j < nqt ? p.sids[qid[j]] : -1;
+  }
+  __syncthreads();              // qid, qslot, sid_s
+  if constexpr (kList)
+    count = list_compact(p.la, lw, p.words, p.n_scopes, p.n_words, sid_s,
+                         cid, cmeta, counter);
+  auto list_off = [&](int j) { return static_cast<size_t>(qslot[j]) * k; };
   for (int i = threadIdx.x; i < nqt * k; i += kPQThreads) {
     const int j = i / k;
     const int s = i - j * k;
@@ -1755,44 +2086,40 @@ scan_pass1_pq(const PQScan p) {
       p.part_i[list_off(j) + s] = -1;
     }
   }
-  for (int j = threadIdx.x; j < p.qt; j += kPQThreads) {
-    tail_v[j] = kNegInf;        // an empty list's tail
-    tail_i[j] = -1;
-    bcnt[j] = 0;
-    sid_s[j] = j < nqt ? p.sids[q0 + j] : -1;
-  }
-  __syncthreads();              // sid_s before the first words copy
-  const unsigned char* lut_src =
-      reinterpret_cast<const unsigned char*>(p.lut) + q0 * lut_bytes;
+  const unsigned char* lut_src = reinterpret_cast<const unsigned char*>(p.lut);
   if (p.resident)               // joins the first item's group
-    stage_copy(smem, static_cast<int>(lut_bytes), lut_src, lut_bytes, nqt,
-               static_cast<int>(lut_bytes), p.lut_width);
+    stage_gather(smem, static_cast<int>(lut_bytes), lut_src, lut_bytes, qid,
+                 nqt, 0, static_cast<int>(lut_bytes), p.lut_width);
 
   const int ns = (p.depth + p.slice - 1) / p.slice;
-  const int n_tiles =
-      r_end > r_begin ? (r_end - r_begin + kPQRows - 1) / kPQRows : 0;
+  const int n_tiles = (count + kPQRows - 1) / kPQRows;
   const int total = n_tiles * ns;
   auto issue = [&](int item) {
     if (item < total) {
       const int t = item / ns;
       const int s = item - t * ns;
-      const int r0 = r_begin + t * kPQRows;
+      const int i0 = t * kPQRows;
+      const int nr = min(kPQRows, count - i0);
       const int c0 = s * p.slice;
       const int len = min(p.slice, p.depth - c0);
       unsigned char* stage = ring + (item % kPQStages) * L.stage;
-      stage_copy(stage, L.c_stride,
-                 p.codes + static_cast<size_t>(r0) * p.depth + c0, p.depth,
-                 min(kPQRows, r_end - r0), len, p.code_width);
+      if (kList)
+        stage_gather(stage, L.c_stride, p.codes, p.depth, cid + i0, nr, c0,
+                     len, p.code_width);
+      else
+        stage_copy(stage, L.c_stride,
+                   p.codes + static_cast<size_t>(r_begin + i0) * p.depth +
+                       c0,
+                   p.depth, nr, len, p.code_width);
       if (!p.resident)
-        stage_copy(stage + L.codes, p.slice * 1024,
-                   lut_src + static_cast<size_t>(c0) * 1024, lut_bytes, nqt,
-                   len * 1024, p.lut_width);
-      if (s == 0) {
+        stage_gather(stage + L.codes, p.slice * 1024, lut_src, lut_bytes,
+                     qid, nqt, c0 * 1024, len * 1024, p.lut_width);
+      if (!kList && s == 0) {
         uint32_t* ws =
             reinterpret_cast<uint32_t*>(stage + L.codes + L.lut_slice);
         for (int i = threadIdx.x; i < p.qt * kPQWords; i += kPQThreads) {
           const int sid = sid_s[i / kPQWords];
-          const int wi = (r0 >> 5) + i % kPQWords;
+          const int wi = ((r_begin + i0) >> 5) + i % kPQWords;
           if (sid >= 0 && sid < p.n_scopes && wi < p.n_words)
             cp_async4(ws + i,
                       p.words + static_cast<size_t>(sid) * p.n_words + wi);
@@ -1823,29 +2150,44 @@ scan_pass1_pq(const PQScan p) {
     }
     __syncwarp();
   };
+  // the rank key of the block's row i for query j
+  auto key_of = [&](int j, int i) {
+    return kList ? qkey[j] + lw.o0 + static_cast<int>(cmeta[i] & 0xffffu)
+                 : r_begin + i;
+  };
 
   float acc[kPQMaxQ];
   unsigned admit = 0;           // bit j: query j admits this thread's row
+  int key0 = 0;                 // the row's key past its query's base
   for (int item = 0; item < total; ++item) {
     cp_async_wait_all();        // item's stage has landed ...
     __syncthreads();            // ... for every thread, and item - 1 is done
     issue(item + 1);
     const int t = item / ns;
     const int s = item - t * ns;
-    const int r0 = r_begin + t * kPQRows;
-    const int r = r0 + threadIdx.x;
+    const int i0 = t * kPQRows;
+    const int i = i0 + threadIdx.x;
     const int c0 = s * p.slice;
     const int len = min(p.slice, p.depth - c0);
     const unsigned char* stage = ring + (item % kPQStages) * L.stage;
     if (s == 0) {               // a new tile: which queries admit the row
-      const uint32_t* ws =
-          reinterpret_cast<const uint32_t*>(stage + L.codes + L.lut_slice);
       admit = 0u;
 #pragma unroll
-      for (int j = 0; j < kPQMaxQ; ++j) {
-        acc[j] = 0.0f;
-        if (j < nqt && r < r_end)
-          admit |= ((ws[j * kPQWords + warp] >> lane) & 1u) << j;
+      for (int j = 0; j < kPQMaxQ; ++j) acc[j] = 0.0f;
+      if constexpr (kList) {
+        if (i < count) {
+          const unsigned cm = cmeta[i];
+          admit = cm >> 16;
+          key0 = lw.o0 + static_cast<int>(cm & 0xffffu);
+        }
+      } else {
+        const uint32_t* ws =
+            reinterpret_cast<const uint32_t*>(stage + L.codes + L.lut_slice);
+        key0 = r_begin + i;
+#pragma unroll
+        for (int j = 0; j < kPQMaxQ; ++j)
+          if (j < nqt && i < count)
+            admit |= ((ws[j * kPQWords + warp] >> lane) & 1u) << j;
       }
     }
     // query by query: a lane runs query j's chain only when j admits its
@@ -1887,7 +2229,8 @@ scan_pass1_pq(const PQScan p) {
     for (int j = 0; j < kPQMaxQ; ++j) {
       if (j < nqt) {
         float v = kNegInf;
-        if (((admit >> j) & 1u) && better(acc[j], r, tail_v[j], tail_i[j]))
+        const int key = kList ? qkey[j] + key0 : key0;
+        if (((admit >> j) & 1u) && better(acc[j], key, tail_v[j], tail_i[j]))
           v = acc[j];
         const unsigned bal = __ballot_sync(kAll, v > kNegInf);
         if (bal) sv[j * kPQRows + threadIdx.x] = v;
@@ -1912,7 +2255,7 @@ scan_pass1_pq(const PQScan p) {
         if ((f >> lane) & 1u) {
           const int pos = cnt + __popc(f & ((1u << lane) - 1u));
           buf_v[j * 32 + pos] = sv[j * kPQRows + 32 * w + lane];
-          buf_i[j * 32 + pos] = r0 + 32 * w + lane;
+          buf_i[j * 32 + pos] = key_of(j, i0 + 32 * w + lane);
         }
         cnt += __popc(f);
       }
@@ -1935,10 +2278,11 @@ scan_pass1_pq(const PQScan p) {
   }
 }
 
+template <bool kList>
 cudaError_t launch_pq(dim3 grid, size_t smem, cudaStream_t stream,
                       const PQScan& p) {
-  auto kern = p.k > 32 * kMergeSlots ? scan_pass1_pq<true>
-                                     : scan_pass1_pq<false>;
+  auto kern = p.k > 32 * kMergeSlots ? scan_pass1_pq<true, kList>
+                                     : scan_pass1_pq<false, kList>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1949,31 +2293,59 @@ cudaError_t launch_pq(dim3 grid, size_t smem, cudaStream_t stream,
 
 // the widest copy (16, 4 or 1 bytes) that every row start and slice start
 // of ``base`` allows
-int copy_width(const void* base, int row_bytes, int slice_bytes) {
+int copy_width(const void* base, size_t row_bytes, size_t slice_bytes) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(base);
   if (a % 16 == 0 && row_bytes % 16 == 0 && slice_bytes % 16 == 0) return 16;
   if (a % 4 == 0 && row_bytes % 4 == 0 && slice_bytes % 4 == 0) return 4;
   return 1;
 }
 
+// Pass 2 over (nq, n_chunks, k) partials into (nq, k) outputs. With
+// ``groups`` > 1 it runs in two levels: ``groups`` blocks per query each
+// merge a share of the query's partials into a list of its own, written
+// past all the partials (the wrapper allocates nq * groups more lists),
+// then one block per query merges those -- so a few queries' hundreds of
+// partials are merged by many blocks, not by one each.
 cudaError_t launch_pass2(const float* part_v, const int* part_i, int nq,
-                         int n_chunks, int k, const int* cand, int n_cand,
-                         float* out_v, int* out_i, cudaStream_t stream) {
-  int nw = n_chunks >= 2 * kPass2Warps ? kPass2Warps : kWarps;
-  if (static_cast<size_t>(nw) * k > kPass2SmemList)
-    nw = static_cast<size_t>(kWarps) * k <= kPass2SmemList ? kWarps : 1;
-  const size_t smem2 = static_cast<size_t>(nw) * k <= kPass2SmemList
-                           ? sizeof(float) * 2 * nw * k
-                           : 0;
-  scan_pass2<<<nq, 32 * nw, smem2, stream>>>(part_v, part_i, n_chunks, k,
-                                             cand, n_cand, out_v, out_i);
-  return cudaGetLastError();
+                         int n_chunks, int k, const ListArgs& la,
+                         int slot_lists, float* out_v, int* out_i,
+                         cudaStream_t stream, int groups = 1) {
+  auto run = [&](const Pass2& p, int blocks) {
+    int nw = p.group >= 2 * kPass2Warps ? kPass2Warps : kWarps;
+    if (static_cast<size_t>(nw) * k > kPass2SmemList)
+      nw = static_cast<size_t>(kWarps) * k <= kPass2SmemList ? kWarps : 1;
+    const size_t smem2 = static_cast<size_t>(nw) * k <= kPass2SmemList
+                             ? sizeof(float) * 2 * nw * k
+                             : 0;
+    scan_pass2<<<blocks, 32 * nw, smem2, stream>>>(p, la);
+    return cudaGetLastError();
+  };
+  const bool listed = la.flat_ids != nullptr;
+  const size_t per_query = static_cast<size_t>(n_chunks) * k;
+  if (groups <= 1)
+    return run(Pass2{part_v, part_i, per_query, static_cast<size_t>(k),
+                     n_chunks, n_chunks, k, slot_lists, listed, listed,
+                     out_v, out_i},
+               nq);
+  const int group = (n_chunks + groups - 1) / groups;
+  groups = (n_chunks + group - 1) / group;
+  const size_t mid_stride = static_cast<size_t>(groups) * k;
+  float* mid_v = const_cast<float*>(part_v) + nq * per_query;
+  int* mid_i = const_cast<int*>(part_i) + nq * per_query;
+  cudaError_t err = run(Pass2{part_v, part_i, per_query, mid_stride,
+                              n_chunks, group, k, slot_lists, listed, false,
+                              mid_v, mid_i},
+                        nq * groups);
+  if (err != cudaSuccess) return err;
+  return run(Pass2{mid_v, mid_i, mid_stride, static_cast<size_t>(k), groups,
+                   groups, k, 1, false, listed, out_v, out_i},
+             nq);
 }
 
-template <int kKind, int kMode, bool kL2, bool kVec>
+template <bool kVec>
 cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t stream,
                          const Scan& p) {
-  auto kern = scan_pass1<kKind, kMode, kL2, kVec>;
+  auto kern = scan_pass1<kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1982,132 +2354,111 @@ cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <int kKind, int kMode>
-cudaError_t dispatch_pass1(bool l2, bool vec, dim3 grid, size_t smem,
-                           cudaStream_t stream, const Scan& p) {
-  if constexpr (kKind == kPQ) {              // metric-free: no l2 variant
-    if (vec) return launch_pass1<kKind, kMode, false, true>(grid, smem, stream, p);
-    return launch_pass1<kKind, kMode, false, false>(grid, smem, stream, p);
-  } else {
-    if (l2) {
-      if (vec) return launch_pass1<kKind, kMode, true, true>(grid, smem, stream, p);
-      return launch_pass1<kKind, kMode, true, false>(grid, smem, stream, p);
-    }
-    if (vec) return launch_pass1<kKind, kMode, false, true>(grid, smem, stream, p);
-    return launch_pass1<kKind, kMode, false, false>(grid, smem, stream, p);
-  }
-}
+// the list form's plan: the streaming pass's (fp32, int8) or the PQ pass's
+// with room for a chunk's compacted rows
+struct ListPlan {
+  int qt, lists, blocks;
+  size_t smem;
+};
 
-// scan_pass1 runs the gathered scans of every kind and the int8 and PQ
-// dense-mask scans; the fp32 dense scan and every scoped scan have passes
-// of their own
-template <int kKind>
-cudaError_t dispatch_mode(int mode, bool l2, bool vec, dim3 grid,
-                          size_t smem, cudaStream_t stream, const Scan& p) {
-  if (mode == kGathered)
-    return dispatch_pass1<kKind, kGathered>(l2, vec, grid, smem, stream, p);
-  if constexpr (kKind != kF32) {
-    if (mode == kDense)
-      return dispatch_pass1<kKind, kDense>(l2, vec, grid, smem, stream, p);
+ListPlan list_plan(int kind, int qt_cap, int depth, int k) {
+  if (qt_cap > kListQ) qt_cap = kListQ;
+  if (kind == kPQ) {
+    const PQPlan plan = pq_plan(1, qt_cap, depth, k);
+    return ListPlan{plan.qt, 1, 1, plan.smem};
   }
-  return cudaErrorInvalidValue;
+  const StreamPlan plan = stream_plan(kind, 1, qt_cap, depth, k);
+  return ListPlan{plan.qt, plan.lists, plan.blocks, plan.smem};
 }
 
 }  // namespace
 
 extern "C" {
 
-// The entry point of scan_pass1's five scans (kind 0 fp32, 1 int8, 2 PQ):
-// the int8 and PQ scans with one dense (n,) int8 ``mask`` shared by every
-// query (scoped_topk_i8, scoped_topk_pq), and the gathered scans of every
-// kind (ivf_gather_topk*): a non-null ``cand`` (nq, n) selects gathered
-// mode, n is then the candidate count C per query, ``words`` (packed
-// (n_scopes, n_words) masks, row sids[i] for query i) is required and qt
-// must be 1. ``slice`` is the depth staged at once (depth = d, or M for
-// PQ), ``qt`` the query tile, ``smem_lists`` whether the tile's lists fit
-// in shared memory; the partials are (nq, n_chunks, k).
-int repro_scan_topk(int kind, const void* q, const float* q_scale,
-                    const void* rows, const float* row_scale, const float* sq,
-                    const int8_t* mask, const uint32_t* words,
-                    const int* sids, const int* cand, int n_scopes,
-                    int n_words, int nq, int n,
-                    int depth, int slice, int k, int l2, int qt,
-                    int chunk_rows, int n_chunks, int smem_lists,
-                    float* part_v, int* part_i, float* out_v, int* out_i,
-                    void* stream_ptr) {
+// Kernel 7, the PQ scan with one dense (n,) int8 ``mask`` shared by every
+// query (scoped_topk_pq): scan_pass1, then pass 2. ``lut`` (nq, depth, 256),
+// ``codes`` (n, depth); ``slice`` is the depth staged at once, ``qt`` the
+// query tile (<= 8), ``smem_lists`` whether the tile's lists fit in shared
+// memory; the partials are (nq, n_chunks, k).
+int repro_scan_topk_pq(const float* lut, const uint8_t* codes,
+                       const int8_t* mask, int nq, int n, int depth,
+                       int slice, int k, int qt, int chunk_rows,
+                       int n_chunks, int smem_lists, float* part_v,
+                       int* part_i, float* out_v, int* out_i,
+                       void* stream_ptr) {
   if (nq <= 0) return cudaSuccess;
-  const bool gathered = cand != nullptr;
-  if (kind < kF32 || kind > kPQ || k < 1 || qt < 1 || qt > kWarps ||
-      depth < 1 || slice < 1 || slice > depth || chunk_rows < 1 ||
-      n_chunks < 1 || n_chunks > 65535 ||
-      (gathered ? (words == nullptr || mask != nullptr || qt != 1 || n < 1)
-                : (mask == nullptr || words != nullptr || kind == kF32)))
+  if (k < 1 || qt < 1 || qt > kWarps || depth < 1 || slice < 1 ||
+      slice > depth || chunk_rows < 1 || n_chunks < 1 || n_chunks > 65535 ||
+      mask == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Scan p{q, q_scale, rows, row_scale, sq, mask, words, sids, cand, n_scopes,
-         n_words, nq, n, depth, slice, k, qt, chunk_rows, smem_lists,
-         part_v, part_i};
-  const uintptr_t base = reinterpret_cast<uintptr_t>(rows);
-  const int unit = kind == kF32 ? 4 : kind == kI8 ? 16 : 4;
-  const bool vec = depth % unit == 0 && slice % unit == 0 &&
-                   base % (kind == kPQ ? 4 : 16) == 0;
-  const size_t smem1 = pass1_smem(kind, qt, slice, k, smem_lists);
+  Scan p{lut, codes, mask, nq, n, depth, slice, k, qt, chunk_rows,
+         smem_lists, part_v, part_i};
+  const bool vec = depth % 4 == 0 && slice % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+  const size_t smem1 = pass1_smem(qt, slice, k, smem_lists);
   const dim3 grid1((nq + qt - 1) / qt, n_chunks);
-  const int mode = gathered ? kGathered : kDense;
-  cudaError_t err =
-      kind == kF32 ? dispatch_mode<kF32>(mode, l2, vec, grid1, smem1, stream, p)
-      : kind == kI8 ? dispatch_mode<kI8>(mode, l2, vec, grid1, smem1, stream, p)
-                    : dispatch_mode<kPQ>(mode, false, vec, grid1, smem1, stream, p);
+  cudaError_t err = vec ? launch_pass1<true>(grid1, smem1, stream, p)
+                        : launch_pass1<false>(grid1, smem1, stream, p);
   if (err != cudaSuccess) return err;
-  return launch_pass2(part_v, part_i, nq, n_chunks, k, cand, n, out_v, out_i,
-                      stream);
+  return launch_pass2(part_v, part_i, nq, n_chunks, k, ListArgs{}, 1, out_v,
+                      out_i, stream);
 }
 
-// The streaming pass 1's plan (kernel 1) for a query tile of at most
-// ``qt_cap`` <= 8, depth ``depth`` and lists of ``k``: writes the query tile
-// to ``qt``, the partial lists per chunk to ``lists`` (1, or 8 when the
-// warps' lists live in device memory) and the blocks one SM holds to
-// ``blocks``; returns the shared memory a block takes, 0 for bad arguments.
-int repro_stream_plan(int qt_cap, int depth, int k, int* qt, int* lists,
-                      int* blocks) {
-  if (qt_cap < 1 || qt_cap > kStreamQ || depth < 1 || k < 1) return 0;
-  const StreamPlan plan = stream_plan(qt_cap, depth, k);
+// The streaming pass 1's plan for kind 0 (fp32, kernel 1) or 1 (int8,
+// kernel 5), a query tile of at most ``qt_cap`` <= 8, depth ``depth`` and
+// lists of ``k``: writes the query tile to ``qt``, the partial lists per
+// chunk to ``lists`` (1, or 4 when the warps' lists live in device memory)
+// and the blocks one SM holds to ``blocks``; returns the shared memory a
+// block takes, 0 for bad arguments.
+int repro_stream_plan(int kind, int qt_cap, int depth, int k, int* qt,
+                      int* lists, int* blocks) {
+  if ((kind != kF32 && kind != kI8) || qt_cap < 1 || qt_cap > kStreamQ ||
+      depth < 1 || k < 1)
+    return 0;
+  const StreamPlan plan = stream_plan(kind, 0, qt_cap, depth, k);
   *qt = plan.qt;
   *lists = plan.lists;
   *blocks = plan.blocks;
   return static_cast<int>(plan.smem);
 }
 
-// Kernel 1, the fp32 scan with one dense (n,) int8 ``mask`` shared by every
-// query (scoped_topk): scan_pass1_stream, then pass 2. ``qt_cap`` <= 8
-// caps the query tile (stream_plan picks it); the partials are
-// (nq, n_chunks * lists, k) for the plan's ``lists``.
-int repro_scan_topk_stream(const float* q, const float* rows, const float* sq,
-                           const int8_t* mask, int nq, int n, int depth,
-                           int k, int l2, int qt_cap, int chunk_rows,
-                           int n_chunks, float* part_v, int* part_i,
-                           float* out_v, int* out_i, void* stream_ptr) {
+// Kernels 1 and 5, the fp32 / int8 scans (kind 0 / 1) with one dense (n,)
+// int8 ``mask`` shared by every query (scoped_topk, scoped_topk_i8):
+// scan_pass1_stream, then pass 2. ``q_scale`` and ``row_scale`` are read
+// for int8, ``sq`` for l2. ``qt_cap`` <= 8 caps the query tile
+// (stream_plan picks it); the partials are (nq, n_chunks * lists, k) for
+// the plan's ``lists``, and pass 2 merges each query's in ``groups``
+// blocks first when ``groups`` > 1 (launch_pass2), writing nq * groups
+// lists of k past them.
+int repro_scan_topk_stream(int kind, const void* q, const float* q_scale,
+                           const void* rows, const float* row_scale,
+                           const float* sq, const int8_t* mask, int nq, int n,
+                           int depth, int k, int l2, int qt_cap,
+                           int chunk_rows, int n_chunks, int groups,
+                           float* part_v, int* part_i, float* out_v,
+                           int* out_i, void* stream_ptr) {
   if (nq <= 0) return cudaSuccess;
-  if (k < 1 || qt_cap < 1 || qt_cap > kStreamQ || depth < 1 ||
-      chunk_rows < 1 || n_chunks < 1 || n_chunks > 65535 || mask == nullptr ||
-      (l2 && sq == nullptr))
+  if ((kind != kF32 && kind != kI8) || k < 1 || qt_cap < 1 ||
+      qt_cap > kStreamQ || depth < 1 || chunk_rows < 1 || n_chunks < 1 ||
+      n_chunks > 65535 || groups < 1 || mask == nullptr ||
+      (l2 && sq == nullptr) ||
+      (kind == kI8 && (q_scale == nullptr || row_scale == nullptr)))
     return cudaErrorInvalidValue;
-  const StreamPlan plan = stream_plan(qt_cap, depth, k);
-  StreamScan p{q, rows, sq, mask, nq, n, depth, plan.slice, k, plan.qt,
+  const StreamPlan plan = stream_plan(kind, 0, qt_cap, depth, k);
+  const size_t eb = kind == kF32 ? 4 : 1;
+  StreamScan p{q, q_scale, rows, row_scale, sq, mask, nullptr, nullptr,
+               ListArgs{}, 0, 0, nq, n, depth, plan.slice, k, plan.qt,
                chunk_rows, plan.smem_lists, plan.lists,
-               copy_width(rows, depth * 4, plan.slice * 4),
-               copy_width(q, depth * 4, plan.slice * 4), part_v, part_i};
+               copy_width(rows, depth * eb, plan.slice * eb),
+               copy_width(q, depth * eb, plan.slice * eb), part_v, part_i};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const dim3 grid((nq + plan.qt - 1) / plan.qt, n_chunks);
   cudaError_t err =
-      plan.qt == 1
-          ? (l2 ? launch_stream<true, 1>(grid, plan.smem, stream, p)
-                : launch_stream<false, 1>(grid, plan.smem, stream, p))
-          : (l2 ? launch_stream<true, kStreamQ>(grid, plan.smem, stream, p)
-                : launch_stream<false, kStreamQ>(grid, plan.smem, stream, p));
+      dispatch_stream<false>(kind, l2 != 0, grid, plan.smem, stream, p);
   if (err != cudaSuccess) return err;
-  return launch_pass2(part_v, part_i, nq, n_chunks * plan.lists, k, nullptr,
-                      n, out_v, out_i, stream);
+  return launch_pass2(part_v, part_i, nq, n_chunks * plan.lists, k,
+                      ListArgs{}, 1, out_v, out_i, stream, groups);
 }
 
 // The tiled passes' plan for kind 0 (fp32), 1 (int8) or 2 (PQ), a query
@@ -2120,7 +2471,7 @@ int repro_tiled_plan(int kind, int qt_cap, int depth, int k, int* qt) {
       depth < 1 || k < 1)
     return 0;
   if (kind == kPQ) {
-    const PQPlan plan = pq_plan(qt_cap, depth, k);
+    const PQPlan plan = pq_plan(0, qt_cap, depth, k);
     *qt = plan.qt;
     return static_cast<int>(plan.smem);
   }
@@ -2154,15 +2505,15 @@ int repro_scan_topk_tiled(int kind, const void* q, const float* q_scale,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
   if (kind == kPQ) {
-    const PQPlan plan = pq_plan(qt_cap, depth, k);
+    const PQPlan plan = pq_plan(0, qt_cap, depth, k);
     if (plan.smem == 0) return cudaErrorInvalidValue;
     PQScan p{static_cast<const float*>(q), static_cast<const uint8_t*>(rows),
-             words, sids, n_scopes, n_words, nq, n, depth, plan.slice, k,
-             plan.qt, plan.resident, chunk_rows, plan.smem_lists,
-             copy_width(rows, depth, plan.slice),
+             words, sids, ListArgs{}, n_scopes, n_words, nq, n, depth,
+             plan.slice, k, plan.qt, plan.resident, chunk_rows,
+             plan.smem_lists, copy_width(rows, depth, plan.slice),
              copy_width(q, depth * 1024, plan.slice * 1024), part_v, part_i};
-    err = launch_pq(dim3((nq + plan.qt - 1) / plan.qt, n_chunks), plan.smem,
-                    stream, p);
+    err = launch_pq<false>(dim3((nq + plan.qt - 1) / plan.qt, n_chunks),
+                           plan.smem, stream, p);
   } else {
     const TiledPlan plan = tiled_plan(kind, qt_cap, depth, k);
     if (plan.smem == 0) return cudaErrorInvalidValue;
@@ -2180,8 +2531,100 @@ int repro_scan_topk_tiled(int kind, const void* q, const float* q_scale,
                     : launch_tiled<kI8, false>(grid, plan.smem, stream, p));
   }
   if (err != cudaSuccess) return err;
-  return launch_pass2(part_v, part_i, nq, n_chunks, k, nullptr, n, out_v,
+  return launch_pass2(part_v, part_i, nq, n_chunks, k, ListArgs{}, 1, out_v,
                       out_i, stream);
+}
+
+// The list form's plan (kernel 9) for kind 0 (fp32), 1 (int8) or 2 (PQ), a
+// query tile of at most ``qt_cap`` <= 8, depth ``depth`` (M for PQ) and
+// lists of ``k``: writes the query tile to ``qt``, the partials per
+// (probe slot, chunk) to ``lists``, the blocks one SM holds to ``blocks``
+// and the list positions one block scans to ``chunk``; returns the shared
+// memory a block takes, 0 when nothing fits or for bad arguments.
+int repro_list_plan(int kind, int qt_cap, int depth, int k, int* qt,
+                    int* lists, int* blocks, int* chunk) {
+  if (kind < kF32 || kind > kPQ || qt_cap < 1 || qt_cap > kListQ ||
+      depth < 1 || k < 1)
+    return 0;
+  const ListPlan plan = list_plan(kind, qt_cap, depth, k);
+  *qt = plan.qt;
+  *lists = plan.lists;
+  *blocks = plan.blocks;
+  *chunk = kListChunk;
+  return static_cast<int>(plan.smem);
+}
+
+// Kernel 9 in its list form, all three kinds (0 fp32 and 1 int8:
+// scan_pass1_stream; 2 PQ: scan_pass1_pq, ``q`` the LUTs and ``rows`` the
+// codes), then pass 2. Query b probes lists probe[b, 0..nprobe) of the
+// padded-CSR layout (offsets, aligned, flat_ids; each row of probe holds
+// distinct lists); ``order`` (nq * nprobe,) int64 are the pairs
+// b * nprobe + p sorted stably by probe[b, p], ``list_start`` (n_lists + 1)
+// each list's first sorted pair; no list is probed by more than
+// ``per_list`` queries (nq, or 1 for a candidate matrix's one-query
+// lists: only the off-path candidate form passes 1, to trim the grid's
+// empty query tiles). Query b admits store row r where bit r % 32 of
+// words[sids[b], r / 32] is set. Ranks by (score, position
+// p * max_aligned + o); returns store ids. The partials are
+// (nq, nprobe * cmax * lists, k), cmax = max(1, ceil(max_aligned / chunk))
+// for the plan's chunk and lists.
+int repro_scan_topk_list(int kind, const void* q, const float* q_scale,
+                         const void* rows, const float* row_scale,
+                         const float* sq, const uint32_t* words,
+                         const int* sids, int n_scopes, int n_words, int nq,
+                         int depth, int k, int l2, const long long* offsets,
+                         const long long* aligned, const int* flat_ids,
+                         const int* probe, const long long* order,
+                         const int* list_start, int n_lists, int nprobe,
+                         int max_aligned, int qt_cap, int per_list,
+                         float* part_v, int* part_i, float* out_v,
+                         int* out_i, void* stream_ptr) {
+  if (nq <= 0) return cudaSuccess;
+  if (kind < kF32 || kind > kPQ || k < 1 || qt_cap < 1 || qt_cap > kListQ ||
+      per_list < 1 || depth < 1 || n_lists < 1 || nprobe < 1 ||
+      max_aligned < 0 ||
+      static_cast<long long>(nprobe) * max_aligned > 0x7fffffffLL ||
+      words == nullptr || sids == nullptr || offsets == nullptr ||
+      aligned == nullptr || flat_ids == nullptr || probe == nullptr ||
+      order == nullptr || list_start == nullptr ||
+      (kind == kI8 && (q_scale == nullptr || row_scale == nullptr)) ||
+      (kind != kPQ && l2 && sq == nullptr))
+    return cudaErrorInvalidValue;
+  const ListPlan plan = list_plan(kind, qt_cap, depth, k);
+  if (plan.smem == 0) return cudaErrorInvalidValue;
+  const int cmax = max_aligned > 0
+                       ? (max_aligned + kListChunk - 1) / kListChunk
+                       : 1;
+  const int tiles = ((per_list < nq ? per_list : nq) + plan.qt - 1) / plan.qt;
+  if (cmax > 65535 || static_cast<long long>(n_lists) * tiles > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const ListArgs la{offsets, aligned, flat_ids, probe, order, list_start,
+                    nprobe, max_aligned > 0 ? max_aligned : 1, tiles,
+                    kListChunk, cmax};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const dim3 grid(n_lists * tiles, cmax);
+  cudaError_t err;
+  if (kind == kPQ) {
+    const PQPlan pq = pq_plan(1, plan.qt, depth, k);
+    PQScan p{static_cast<const float*>(q), static_cast<const uint8_t*>(rows),
+             words, sids, la, n_scopes, n_words, nq, 0, depth, pq.slice, k,
+             pq.qt, pq.resident, 0, pq.smem_lists,
+             copy_width(rows, depth, pq.slice),
+             copy_width(q, depth * 1024, pq.slice * 1024), part_v, part_i};
+    err = launch_pq<true>(grid, pq.smem, stream, p);
+  } else {
+    const StreamPlan sp = stream_plan(kind, 1, plan.qt, depth, k);
+    const size_t eb = kind == kF32 ? 4 : 1;
+    StreamScan p{q, q_scale, rows, row_scale, sq, nullptr, words, sids, la,
+                 n_scopes, n_words, nq, 0, depth, sp.slice, k, sp.qt, 0,
+                 sp.smem_lists, sp.lists,
+                 copy_width(rows, depth * eb, sp.slice * eb),
+                 copy_width(q, depth * eb, sp.slice * eb), part_v, part_i};
+    err = dispatch_stream<true>(kind, l2 != 0, grid, sp.smem, stream, p);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_pass2(part_v, part_i, nq, nprobe * cmax * plan.lists, k, la,
+                      plan.lists, out_v, out_i, stream);
 }
 
 }  // extern "C"

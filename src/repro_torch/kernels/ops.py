@@ -264,13 +264,15 @@ def ivf_gather_topk(queries: torch.Tensor, rows: torch.Tensor,
                     scope_ids: torch.Tensor, k: int = 10, metric: str = "ip",
                     sq: Optional[torch.Tensor] = None, check_ids: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The IVF executor's scoring launch: query b ranks the store rows
+    """Kernel 9 over a candidate matrix: query b ranks the store rows
     ``cand_ids[b]`` ((B, C) int32, -1 = CSR padding) that its scope row
     ``mask_words[scope_ids[b]]`` admits, reading them from ``rows`` (n, d)
     in place. Returns (vals (B, k) f32, ids (B, k) int32 store ids), ties
     ranked by the lower candidate position; ``finfo.min`` / -1 when
-    empty. The kernel checks that every id lies in [-1, n) unless
-    ``check_ids`` is False (ids from an already checked table)."""
+    empty. The wrapper checks that every id lies in [-1, n) unless
+    ``check_ids`` is False (ids from an already checked table). On the card
+    it runs the list form (:func:`ivf_probe_topk`) on the layout in which
+    query b alone probes one list, its row."""
     mask_words = _pad_words(mask_words, rows.shape[0])
     dev = _device_of(queries, rows, cand_ids, mask_words, scope_ids, sq)
     if metric == "l2" and sq is None:
@@ -292,8 +294,8 @@ def ivf_gather_topk_i8(q_i8: torch.Tensor, q_scale: torch.Tensor,
                        k: int = 10, metric: str = "ip",
                        check_ids: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int8 twin of :func:`ivf_gather_topk` (the phase-1 scan of the IVF
-    int8 plan; scores as :func:`scoped_topk_i8`)."""
+    """int8 twin of :func:`ivf_gather_topk` (scores as
+    :func:`scoped_topk_i8`)."""
     mask_words = _pad_words(mask_words, rows_i8.shape[0])
     dev = _device_of(q_i8, q_scale, rows_i8, row_scale, sq, cand_ids,
                      mask_words, scope_ids)
@@ -314,8 +316,8 @@ def ivf_gather_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
                        scope_ids: torch.Tensor, k: int = 10,
                        check_ids: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PQ/ADC twin of :func:`ivf_gather_topk` (the phase-1 scan of the IVF
-    PQ plan; scores as :func:`scoped_topk_pq`)."""
+    """PQ/ADC twin of :func:`ivf_gather_topk` (scores as
+    :func:`scoped_topk_pq`)."""
     mask_words = _pad_words(mask_words, codes.shape[0])
     dev = _device_of(lut, codes, cand_ids, mask_words, scope_ids)
     if dev.type == "cpu":
@@ -326,6 +328,94 @@ def ivf_gather_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
                                   mask_words.contiguous(),
                                   scope_ids.to(torch.int32).contiguous(), k,
                                   check_ids)
+
+
+def _probe32(probe: torch.Tensor) -> torch.Tensor:
+    return probe.to(torch.int32).contiguous()
+
+
+def ivf_probe_topk(queries: torch.Tensor, rows: torch.Tensor,
+                   offsets: torch.Tensor, aligned: torch.Tensor,
+                   flat_ids: torch.Tensor, max_aligned: int,
+                   probe: torch.Tensor, mask_words: torch.Tensor,
+                   scope_ids: torch.Tensor, k: int = 10, metric: str = "ip",
+                   sq: Optional[torch.Tensor] = None, check_ids: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 9's list form, the IVF executor's scoring launch: query b
+    ranks the rows of its probed lists ``probe[b]`` ((B, nprobe), distinct
+    lists per row) of the padded-CSR layout (``offsets`` / ``aligned``
+    int64 per list, ``flat_ids`` int32 with -1 padding, ``max_aligned`` the
+    widest region) that its scope row ``mask_words[scope_ids[b]]`` admits,
+    reading them from ``rows`` (n, d) in place. Returns what
+    :func:`ivf_gather_topk` returns on the expanded (B, nprobe *
+    max_aligned) candidate matrix: (vals (B, k) f32, ids (B, k) int32 store
+    ids), ties ranked by the lower position p * max_aligned + o.
+    ``check_ids=False`` skips the checks of the probes and ids (a caller
+    whose come from an already checked layout)."""
+    mask_words = _pad_words(mask_words, rows.shape[0])
+    dev = _device_of(queries, rows, offsets, aligned, flat_ids, probe,
+                     mask_words, scope_ids, sq)
+    if metric == "l2" and sq is None:
+        sq = row_sq_norms(rows)
+    if dev.type == "cpu":
+        return ref.ivf_probe_topk_ref(queries, rows, offsets, aligned,
+                                      flat_ids, max_aligned, probe,
+                                      mask_words, scope_ids, k, metric, sq)
+    return _st.ivf_probe_topk(
+        queries.float().contiguous(), rows,
+        _st.Layout(offsets, aligned, flat_ids, int(max_aligned)),
+        _probe32(probe), mask_words.contiguous(),
+        scope_ids.to(torch.int32).contiguous(), k, metric, sq, check_ids)
+
+
+def ivf_probe_topk_i8(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                      rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                      sq: Optional[torch.Tensor], offsets: torch.Tensor,
+                      aligned: torch.Tensor, flat_ids: torch.Tensor,
+                      max_aligned: int, probe: torch.Tensor,
+                      mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                      k: int = 10, metric: str = "ip", check_ids: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 mode of :func:`ivf_probe_topk` (the phase-1 scan of the IVF
+    int8 plan; scores as :func:`scoped_topk_i8`)."""
+    mask_words = _pad_words(mask_words, rows_i8.shape[0])
+    dev = _device_of(q_i8, q_scale, rows_i8, row_scale, sq, offsets,
+                     aligned, flat_ids, probe, mask_words, scope_ids)
+    _i8_sq(metric, sq)
+    if dev.type == "cpu":
+        return ref.ivf_probe_topk_i8_ref(q_i8, q_scale, rows_i8, row_scale,
+                                         sq, offsets, aligned, flat_ids,
+                                         max_aligned, probe, mask_words,
+                                         scope_ids, k, metric)
+    return _st.ivf_probe_topk_i8(
+        q_i8.to(torch.int8).contiguous(), q_scale.float().contiguous(),
+        rows_i8, row_scale, sq,
+        _st.Layout(offsets, aligned, flat_ids, int(max_aligned)),
+        _probe32(probe), mask_words.contiguous(),
+        scope_ids.to(torch.int32).contiguous(), k, metric, check_ids)
+
+
+def ivf_probe_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
+                      offsets: torch.Tensor, aligned: torch.Tensor,
+                      flat_ids: torch.Tensor, max_aligned: int,
+                      probe: torch.Tensor, mask_words: torch.Tensor,
+                      scope_ids: torch.Tensor, k: int = 10,
+                      check_ids: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PQ/ADC mode of :func:`ivf_probe_topk` (the phase-1 scan of the IVF
+    PQ plan; scores as :func:`scoped_topk_pq`)."""
+    mask_words = _pad_words(mask_words, codes.shape[0])
+    dev = _device_of(lut, codes, offsets, aligned, flat_ids, probe,
+                     mask_words, scope_ids)
+    if dev.type == "cpu":
+        return ref.ivf_probe_topk_pq_ref(lut, codes, offsets, aligned,
+                                         flat_ids, max_aligned, probe,
+                                         mask_words, scope_ids, k)
+    return _st.ivf_probe_topk_pq(
+        lut.float().contiguous(), codes,
+        _st.Layout(offsets, aligned, flat_ids, int(max_aligned)),
+        _probe32(probe), mask_words.contiguous(),
+        scope_ids.to(torch.int32).contiguous(), k, check_ids)
 
 
 def bitmap_patch(masks, delta, op_signs) -> torch.Tensor:
@@ -374,6 +464,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 __all__ = ["scoped_topk", "multi_scope_topk", "scoped_topk_i8",
            "multi_scope_topk_i8", "scoped_topk_pq", "multi_scope_topk_pq",
            "ivf_gather_topk", "ivf_gather_topk_i8", "ivf_gather_topk_pq",
+           "ivf_probe_topk", "ivf_probe_topk_i8", "ivf_probe_topk_pq",
            "bitmap_patch", "mask_and_popcount", "flash_decode",
            "set_block_overrides", "get_block_overrides",
            "launch_counts", "reset_launch_counts", "as_words", "ref"]

@@ -41,7 +41,8 @@ __all__ = ["NEG_INF", "stable_topk", "row_sq_norms", "row_scores",
            "multi_scope_topk_i8_ref", "scoped_topk_pq_ref",
            "multi_scope_topk_pq_ref", "ivf_gather_topk_ref",
            "ivf_gather_topk_i8_ref", "ivf_gather_topk_pq_ref",
-           "bitmap_patch_ref", "popcount32",
+           "ivf_probe_topk_ref", "ivf_probe_topk_i8_ref",
+           "ivf_probe_topk_pq_ref", "bitmap_patch_ref", "popcount32",
            "mask_and_popcount_ref", "flash_decode_ref", "topk_disagreement"]
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -258,6 +259,98 @@ def ivf_gather_topk_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
     def score(b, safe):
         return pq_scores(lut[b:b + 1], codes[safe])
     return _gathered_topk(cand_ids, mask_words, scope_ids, k, score)
+
+
+def _listed_topk(offsets: torch.Tensor, aligned: torch.Tensor,
+                 flat_ids: torch.Tensor, max_aligned: int,
+                 probe: torch.Tensor, mask_words: torch.Tensor,
+                 scope_ids: torch.Tensor, k: int, score_of
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list-form (IVF) contract shared by the three plain versions, one
+    query at a time: query b's candidates are the regions of its probed
+    lists ``probe[b]``, list ``probe[b, p]``'s offset o at position
+    ``p * max_aligned + o`` (offsets past a list's ``aligned`` length are
+    padding). It admits the ids that are not padding (>= 0) and whose bit
+    is set in its scope row (a scope id out of range admits nothing),
+    scores them ``score_of(b, ids)`` -> (1, A), ranks them by (score
+    descending, position ascending) and returns the winners' store ids."""
+    B = probe.shape[0]
+    dev = flat_ids.device
+    vals = torch.full((B, k), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    for b in range(B):
+        s = int(scope_ids[b])
+        if not 0 <= s < mask_words.shape[0]:
+            continue
+        cand, pos = [], []
+        for p, lst in enumerate(probe[b].tolist()):
+            start, width = int(offsets[lst]), int(aligned[lst])
+            cand.append(flat_ids[start:start + width].long())
+            pos.append(p * max_aligned + torch.arange(width, device=dev))
+        cand, pos = torch.cat(cand), torch.cat(pos)
+        safe = cand.clamp(min=0)
+        bit = (mask_words[s][safe >> 5].long() >> (safe & 31)) & 1
+        keep = (cand >= 0) & (bit != 0)
+        cand, pos = cand[keep], pos[keep]
+        if cand.numel() == 0:
+            continue
+        # positions ascend along ``cand``, so the stable sort's ties fall
+        # to the lower position
+        v, at = stable_topk(score_of(b, cand), k)
+        vals[b] = v[0]
+        ids[b] = torch.where(at[0] >= 0, cand[at[0].long().clamp(min=0)],
+                             torch.full_like(cand[:1], -1)).to(torch.int32)
+    return vals, ids
+
+
+def ivf_probe_topk_ref(queries: torch.Tensor, rows: torch.Tensor,
+                       offsets: torch.Tensor, aligned: torch.Tensor,
+                       flat_ids: torch.Tensor, max_aligned: int,
+                       probe: torch.Tensor, mask_words: torch.Tensor,
+                       scope_ids: torch.Tensor, k: int = 10,
+                       metric: str = "ip", sq: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 9's list form at fp32: query b ranks the admitted rows of its
+    probed lists of the padded-CSR layout (offsets, aligned, flat_ids);
+    equal to :func:`ivf_gather_topk_ref` on the expanded (B, nprobe *
+    max_aligned) candidate matrix."""
+    def score(b, ids):
+        return row_scores(queries[b:b + 1], rows[ids], metric,
+                          None if sq is None else sq[ids])
+    return _listed_topk(offsets, aligned, flat_ids, max_aligned, probe,
+                        mask_words, scope_ids, k, score)
+
+
+def ivf_probe_topk_i8_ref(q_i8: torch.Tensor, q_scale: torch.Tensor,
+                          rows_i8: torch.Tensor, row_scale: torch.Tensor,
+                          sq: Optional[torch.Tensor], offsets: torch.Tensor,
+                          aligned: torch.Tensor, flat_ids: torch.Tensor,
+                          max_aligned: int, probe: torch.Tensor,
+                          mask_words: torch.Tensor, scope_ids: torch.Tensor,
+                          k: int = 10, metric: str = "ip"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 mode of :func:`ivf_probe_topk_ref` (scores as
+    :func:`i8_scores`)."""
+    def score(b, ids):
+        return i8_scores(q_i8[b:b + 1], q_scale[b:b + 1], rows_i8[ids],
+                         row_scale[ids], metric,
+                         None if sq is None else sq[ids])
+    return _listed_topk(offsets, aligned, flat_ids, max_aligned, probe,
+                        mask_words, scope_ids, k, score)
+
+
+def ivf_probe_topk_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
+                          offsets: torch.Tensor, aligned: torch.Tensor,
+                          flat_ids: torch.Tensor, max_aligned: int,
+                          probe: torch.Tensor, mask_words: torch.Tensor,
+                          scope_ids: torch.Tensor, k: int = 10
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PQ/ADC mode of :func:`ivf_probe_topk_ref` (scores as
+    :func:`pq_scores`)."""
+    def score(b, ids):
+        return pq_scores(lut[b:b + 1], codes[ids])
+    return _listed_topk(offsets, aligned, flat_ids, max_aligned, probe,
+                        mask_words, scope_ids, k, score)
 
 
 def bitmap_patch_ref(masks: torch.Tensor, delta: torch.Tensor,

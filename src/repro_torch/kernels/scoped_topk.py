@@ -1,8 +1,9 @@
 """ctypes launch wrappers of the masked scan + top-k kernels
 (``csrc/scoped_topk.cu``): the fp32, int8 and PQ scans, each with one dense
 mask (``scoped_topk*``), packed per-query scope masks
-(``multi_scope_topk*``), or packed scope masks over each query's own
-gathered IVF candidates (``ivf_gather_topk*``).
+(``multi_scope_topk*``), or packed scope masks over the IVF executor's
+probed lists (kernel 9: ``ivf_probe_topk*``, and ``ivf_gather_topk*`` over
+a (B, C) candidate matrix).
 
 They take CUDA tensors only (``ops.py`` routes CPU tensors to ``ref.py``),
 check what the kernel cannot take, allocate outputs and scratch with
@@ -15,11 +16,18 @@ and any depth (d, or M for PQ) are taken. Which pass 1 runs:
   (query tiles of up to 64 fp32 / int8 or 8 PQ queries, rows staged through
   a shared-memory ring; :func:`tiled_plan` asks the C entry for the tile,
   :func:`tiled_geometry` sizes the grid);
-* the fp32 dense-mask scan (``scoped_topk``) runs the streaming pass
-  (query tiles of up to 8; :func:`stream_plan`, :func:`stream_geometry`);
-* the int8 and PQ dense-mask scans and the gathered scans run the per-row
-  pass 1, whose query tile (<= 8), list placement and depth slice
-  :func:`geometry` picks.
+* the fp32 and int8 dense-mask scans (:data:`STREAMED`: ``scoped_topk``,
+  ``scoped_topk_i8``) run the streaming pass (query tiles of up to 8;
+  :func:`stream_plan`, :func:`stream_geometry`);
+* the PQ dense-mask scan (``scoped_topk_pq``) runs the per-row pass 1,
+  whose query tile (<= 8), list placement and depth slice :func:`geometry`
+  picks;
+* kernel 9 runs the list form (:func:`list_plan`): the streaming pass
+  (fp32, int8) or the PQ tiled pass in list mode, a block per (probed
+  list's chunk, tile of up to 8 queries that probe the list). The wrapper
+  inverts the probes on the device (a stable sort of the (query, slot)
+  pairs by list, and each list's first pair). Both forms count their
+  launches under the ``ivf_gather_topk*`` names: they are one kernel.
 """
 from __future__ import annotations
 
@@ -39,20 +47,19 @@ LIST_SMEM = 64 * 1024  # shared memory a block's top-k lists may take
 _BLOCKS_PER_SM = 4     # target pass-1 blocks per SM when block_n is auto
 
 KINDS = {"f32": 0, "i8": 1, "pq": 2}
-# bytes one depth element of one query takes when staged, and the depth
-# granularity that keeps the kernel's wide loads aligned
-_DEPTH_BYTES = {"f32": 4, "i8": 1, "pq": 256 * 4}
-_DEPTH_UNIT = {"f32": 4, "i8": 16, "pq": 4}
 
 # the tiled passes (scan_pass1_tiled, scan_pass1_pq): largest query tile
 # asked for (the PQ plan takes at most 8), rows per row tile
 TILE_Q = 64
 TILE_R = {"f32": 256, "i8": 128, "pq": 512}
 TILED = ("multi_scope_topk", "multi_scope_topk_i8", "multi_scope_topk_pq")
-# the streaming pass 1 of the fp32 dense scan (scan_pass1_stream): largest
-# query tile, rows per row tile
+# the streaming pass 1 of the fp32 and int8 dense scans
+# (scan_pass1_stream): largest query tile, rows per row tile
+STREAMED = ("scoped_topk", "scoped_topk_i8")
 STREAM_Q = 8
 STREAM_ROWS = 128
+# kernel 9's list form: largest query tile of a list block
+LIST_Q = 8
 
 launches = {name: 0 for name in (
     "scoped_topk", "multi_scope_topk", "scoped_topk_i8",
@@ -96,45 +103,42 @@ class Geometry(NamedTuple):
     n_chunks: int
 
 
-def smem_bytes(kind: str, qt: int, slice_: int, k: int,
-               smem_lists: bool) -> int:
-    """Pass-1 shared memory, as ``pass1_smem`` in the CUDA source."""
-    q = _ceil(qt * slice_ * _DEPTH_BYTES[kind], 16) * 16
-    return q + qt * (THREADS * 4 + 4) + (qt * k * 8 if smem_lists else 0)
+def smem_bytes(qt: int, slice_: int, k: int, smem_lists: bool) -> int:
+    """The per-row pass 1's shared memory, as ``pass1_smem`` in the CUDA
+    source: the tile's LUT slices, one sweep's scores, the lists."""
+    return qt * slice_ * 1024 + qt * THREADS * 4 + (
+        qt * k * 8 if smem_lists else 0)
 
 
-def geometry(kind: str, nq: int, n: int, depth: int, k: int, block_q: int,
+def geometry(nq: int, n: int, m: int, k: int, block_q: int,
              block_n: Optional[int], sms: int = 132) -> Geometry:
-    """Pass-1 launch shape for any k >= 1 and depth >= 1.
+    """Launch shape of the per-row pass 1 (the PQ dense scan, kernel 7)
+    for any k >= 1 and M >= 1.
 
     The query tile starts at ``min(block_q, nq)``. Top-k lists stay in
     shared memory while the tile's lists fit ``LIST_SMEM`` (the tile
     shrinks for large k) and move to their partial slots in device memory
-    past ``k * 8 > LIST_SMEM``. The query side is staged whole when it
-    fits; PQ first shrinks the tile to fit whole LUTs, since re-staging a
-    LUT slice every 256 rows would cost more bytes than the codes. What
-    still does not fit is staged in slices of the depth."""
+    past ``k * 8 > LIST_SMEM``. The tile shrinks to fit whole LUTs, since
+    re-staging a LUT slice every 256 rows would cost more bytes than the
+    codes; a LUT that still does not fit is staged in slices of M."""
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
-    if depth < 1:
-        raise ValueError(f"depth={depth} must be >= 1")
+    if m < 1:
+        raise ValueError(f"M={m} must be >= 1")
     if not 1 <= block_q <= MAX_BLOCK_Q:
         raise ValueError(f"block_q={block_q} outside [1, {MAX_BLOCK_Q}]")
     qt = max(1, min(block_q, nq))
     smem_lists = k * 8 <= LIST_SMEM
     if smem_lists:
         qt = max(1, min(qt, LIST_SMEM // (k * 8)))
-    per = _DEPTH_BYTES[kind]
 
     def room(qt: int) -> int:
-        return SMEM_LIMIT - smem_bytes(kind, qt, 0, k, smem_lists) - 16
+        return SMEM_LIMIT - smem_bytes(qt, 0, k, smem_lists)
 
-    if kind == "pq":
-        while qt > 1 and qt * depth * per > room(qt):
-            qt -= 1
-    fit = room(qt) // (qt * per)
-    unit = _DEPTH_UNIT[kind]
-    slice_ = depth if fit >= depth else max(1, fit // unit * unit)
+    while qt > 1 and qt * m * 1024 > room(qt):
+        qt -= 1
+    fit = room(qt) // (qt * 1024)
+    slice_ = m if fit >= m else max(1, fit // 4 * 4)
     if block_n is None:
         chunks = max(1, _ceil(_BLOCKS_PER_SM * sms, _ceil(max(nq, 1), qt)))
         block_n = max(_ceil(max(n, 1), chunks), k)
@@ -190,20 +194,56 @@ class StreamPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def stream_plan(qt_cap: int, depth: int, k: int) -> StreamPlan:
+def stream_plan(qt_cap: int, depth: int, k: int,
+                kind: str = "f32") -> StreamPlan:
     """The C entry's plan for the streaming pass 1 of ``scoped_topk``
-    (``stream_plan`` in the CUDA source, which alone holds its layout): the
-    largest query tile up to ``qt_cap`` whose per-warp lists fit shared
-    memory beside the ring (else the lists go to device memory, one partial
-    per warp), and how many blocks an SM holds. Builds the library; plans
-    are remembered."""
+    (``kind`` "f32") or ``scoped_topk_i8`` ("i8") (``stream_plan`` in the
+    CUDA source, which alone holds its layout): the largest query tile up
+    to ``qt_cap`` whose per-warp lists fit shared memory beside the ring
+    (else the lists go to device memory, one partial per warp), and how
+    many blocks an SM holds. Builds the library; plans are remembered."""
     if not 1 <= qt_cap <= STREAM_Q:
         raise ValueError(f"qt_cap={qt_cap} outside [1, {STREAM_Q}]")
+    if kind not in ("f32", "i8"):
+        raise ValueError(f"no streaming pass for kind {kind!r}")
     qt, lists, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     smem = _build.library().repro_stream_plan(
-        qt_cap, depth, k, ctypes.byref(qt), ctypes.byref(lists),
+        KINDS[kind], qt_cap, depth, k, ctypes.byref(qt), ctypes.byref(lists),
         ctypes.byref(blocks))
     return StreamPlan(qt.value, lists.value, blocks.value, smem)
+
+
+class ListPlan(NamedTuple):
+    qt: int            # query tile of a list block (<= 8)
+    lists: int         # partials per (probe slot, chunk): 1, or 4 per warp
+    blocks: int        # blocks one SM holds
+    chunk: int         # list positions one block scans
+    smem: int          # dynamic shared memory of a block, 0: nothing fits
+
+
+@functools.lru_cache(maxsize=256)
+def list_plan(kind: str, qt_cap: int, depth: int, k: int) -> ListPlan:
+    """The C entry's plan for kernel 9's list form (``list_plan`` in the
+    CUDA source): the streaming pass's (fp32, int8) or the PQ tiled pass's
+    with room for a chunk's compacted rows. Builds the library; plans are
+    remembered."""
+    if not 1 <= qt_cap <= LIST_Q:
+        raise ValueError(f"qt_cap={qt_cap} outside [1, {LIST_Q}]")
+    out = [ctypes.c_int(0) for _ in range(4)]
+    smem = _build.library().repro_list_plan(
+        KINDS[kind], qt_cap, depth, k, *map(ctypes.byref, out))
+    return ListPlan(*(v.value for v in out), smem)
+
+
+def list_grid(nq: int, n_lists: int, max_aligned: int, qt: int,
+              chunk: int) -> Tuple[int, int, int]:
+    """The list form's grid for the plan's query tile ``qt`` and ``chunk``:
+    (query tiles per list, chunks of the widest list ``cmax``, blocks).
+    A list is probed at most once per query, so by at most ``nq`` of them;
+    blocks past a list's queries or its end return at once."""
+    tiles = _ceil(max(nq, 1), qt)
+    cmax = max(1, _ceil(max_aligned, chunk))
+    return tiles, cmax, n_lists * tiles * cmax
 
 
 def stream_geometry(nq: int, n: int, qt: int, blocks: int,
@@ -224,54 +264,36 @@ def stream_geometry(nq: int, n: int, qt: int, blocks: int,
     return TiledGeometry(qt, block_n, max(1, _ceil(n, block_n)))
 
 
+def pass2_groups(nq: int, lists: int, sms: int = 132) -> int:
+    """Blocks per query of pass 2's first level for ``lists`` partial lists
+    a query (the streaming pass's): one (a single level) while the queries
+    alone fill half the card or a query has fewer than 64 lists, else about
+    32 lists a block, at most one wave."""
+    if 2 * nq > sms or lists < 64:
+        return 1
+    return max(1, min(lists // 32, sms // nq))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_cand(cand: torch.Tensor, nq: int, n: int,
-                device: torch.device, check_ids: bool) -> int:
-    """Gathered mode's (nq, C) int32 candidate ids: C >= 1 and, with
-    ``check_ids``, every id in [-1, n) (a reduction over the ids and a
-    device-to-host read; a caller whose ids come from an already checked
-    table passes False). Returns C."""
-    _check(cand, "cand_ids", torch.int32, 2, device)
-    if cand.shape[0] != nq:
-        raise ValueError(f"{cand.shape[0]} candidate rows for {nq} queries")
-    if cand.shape[1] < 1:
-        raise ValueError("cand_ids has no candidate column (C = 0)")
-    if check_ids and cand.numel():
-        lo, hi = (int(v) for v in torch.aminmax(cand))
-        if lo < -1 or hi >= n:
-            raise ValueError(f"cand_ids in [{lo}, {hi}], outside [-1, {n})")
-    return cand.shape[1]
-
-
-def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
-            row_scale, sq, mask, words, sids, depth: int, k: int, l2: bool,
-            block_q: int, block_n: Optional[int], cand=None,
-            check_ids: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shared launch of every scan. The wrappers named in :data:`TILED` run
-    the tiled passes, ``scoped_topk`` the streaming pass 1, the others the
-    per-row pass 1. With ``cand`` (gathered mode) the sweep runs over
-    each query's C candidate positions instead of the n rows, one query per
-    block (``block_q`` 1)."""
+def _launch(name: str, kind: str, q: torch.Tensor, q_scale,
+            rows: torch.Tensor, row_scale, sq, mask, words, sids, depth: int,
+            k: int, l2: bool, block_q: int, block_n: Optional[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared launch of the dense-mask and scope-word scans. The wrappers
+    named in :data:`TILED` run the tiled passes, those in :data:`STREAMED`
+    the streaming pass 1, ``scoped_topk_pq`` the per-row pass 1."""
     dev = q.device
     nq, n = q.shape[0], rows.shape[0]
-    sweep = n if cand is None else _check_cand(cand, nq, n, dev, check_ids)
     if l2:
         _check(sq, "sq", torch.float32, 1, dev)
         if sq.shape[0] < n:
             raise ValueError(f"sq has {sq.shape[0]} norms for {n} rows")
     if words is not None:
-        _check(words, "mask_words", torch.int32, 2, dev)
-        _check(sids, "scope_ids", torch.int32, 1, dev)
-        if words.shape[1] * 32 < n:
-            raise ValueError(f"{words.shape[1]} mask words cover fewer than "
-                             f"{n} rows")
-        if sids.shape[0] != nq:
-            raise ValueError(f"{sids.shape[0]} scope ids for {nq} queries")
-        n_scopes, n_words = words.shape
+        n_scopes, n_words = _check_words(words, sids, nq, n, dev)
     else:
         _check(mask, "mask", torch.int8, 1, dev)
         if mask.shape[0] != n:
@@ -280,21 +302,18 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
     sms = _sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
     tiled = name in TILED
-    streaming = name == "scoped_topk"
+    streaming = name in STREAMED
     lists = 1                          # partial lists per chunk
-    if streaming:
+    if streaming or tiled:
         if block_q < 1:
             raise ValueError(f"block_q={block_q} must be >= 1")
         if k < 1:
             raise ValueError(f"k={k} must be >= 1")
-        plan = stream_plan(max(1, min(block_q, nq, STREAM_Q)), depth, k)
+    if streaming:
+        plan = stream_plan(max(1, min(block_q, nq, STREAM_Q)), depth, k, kind)
         geo = stream_geometry(nq, n, plan.qt, plan.blocks, block_n, sms)
         lists = plan.lists
     elif tiled:
-        if block_q < 1:
-            raise ValueError(f"block_q={block_q} must be >= 1")
-        if k < 1:
-            raise ValueError(f"k={k} must be >= 1")
         qt, smem = tiled_plan(kind, max(1, min(block_q, nq, TILE_Q)), depth,
                               k)
         if smem == 0:
@@ -302,14 +321,18 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
                              f"depth={depth} k={k}")
         geo = tiled_geometry(kind, nq, n, k, qt, block_n, sms)
     else:
-        geo = geometry(kind, nq, sweep, depth, k, block_q, block_n, sms)
+        geo = geometry(nq, n, depth, k, block_q, block_n, sms)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_i
-    part_v = torch.empty((nq, geo.n_chunks * lists, k),
-                         dtype=torch.float32, device=dev)
-    part_i = torch.empty((nq, geo.n_chunks * lists, k), dtype=torch.int32,
+    slots = geo.n_chunks * lists
+    groups = pass2_groups(nq, slots, sms) if streaming else 1
+    # (nq, slots, k) partials, then pass 2's nq * groups first-level lists
+    extra = nq * groups * k if groups > 1 else 0
+    part_v = torch.empty(nq * slots * k + extra, dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty(nq * slots * k + extra, dtype=torch.int32,
                          device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -317,9 +340,10 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
         if streaming:
             rc = lib.repro_scan_topk_stream(
-                _ptr(q), _ptr(rows), _ptr(sq if l2 else None), _ptr(mask),
-                nq, n, depth, k, int(l2), geo.qt, geo.chunk_rows,
-                geo.n_chunks, _ptr(part_v), _ptr(part_i), _ptr(out_v),
+                KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
+                _ptr(row_scale), _ptr(sq if l2 else None), _ptr(mask), nq, n,
+                depth, k, int(l2), geo.qt, geo.chunk_rows, geo.n_chunks,
+                groups, _ptr(part_v), _ptr(part_i), _ptr(out_v),
                 _ptr(out_i), cuda_stream)
         elif tiled:
             rc = lib.repro_scan_topk_tiled(
@@ -329,13 +353,146 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale, rows: torch.Tensor,
                 geo.qt, geo.chunk_rows, geo.n_chunks, _ptr(part_v),
                 _ptr(part_i), _ptr(out_v), _ptr(out_i), cuda_stream)
         else:
-            rc = lib.repro_scan_topk(
-                KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
-                _ptr(row_scale), _ptr(sq if l2 else None), _ptr(mask),
-                _ptr(words), _ptr(sids), _ptr(cand), n_scopes, n_words, nq,
-                sweep, depth, geo.slice, k, int(l2), geo.qt, geo.chunk_rows,
-                geo.n_chunks, int(geo.smem_lists), _ptr(part_v),
-                _ptr(part_i), _ptr(out_v), _ptr(out_i), cuda_stream)
+            rc = lib.repro_scan_topk_pq(
+                _ptr(q), _ptr(rows), _ptr(mask), nq, n, depth, geo.slice, k,
+                geo.qt, geo.chunk_rows, geo.n_chunks, int(geo.smem_lists),
+                _ptr(part_v), _ptr(part_i), _ptr(out_v), _ptr(out_i),
+                cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+    count_launch(launches, name)
+    return out_v, out_i
+
+
+def _check_words(words, sids, nq: int, n: int,
+                 dev: torch.device) -> Tuple[int, int]:
+    """Packed (S, W) int32 scope words covering n rows and (nq,) int32
+    scope ids; returns (S, W)."""
+    _check(words, "mask_words", torch.int32, 2, dev)
+    _check(sids, "scope_ids", torch.int32, 1, dev)
+    if words.shape[1] * 32 < n:
+        raise ValueError(f"{words.shape[1]} mask words cover fewer than "
+                         f"{n} rows")
+    if sids.shape[0] != nq:
+        raise ValueError(f"{sids.shape[0]} scope ids for {nq} queries")
+    return words.shape[0], words.shape[1]
+
+
+class Layout(NamedTuple):
+    """Kernel 9's padded-CSR layout: list c holds positions
+    [0, aligned[c]) at flat_ids[offsets[c]:], -1 = padding."""
+    offsets: torch.Tensor    # (n_lists,) int64
+    aligned: torch.Tensor    # (n_lists,) int64
+    flat_ids: torch.Tensor   # int32 store ids
+    max_aligned: int         # widest region: a probe slot's positions
+
+
+def cand_layout(cand: torch.Tensor) -> Tuple[Layout, torch.Tensor]:
+    """The layout and (B, 1) probes in which query b alone probes one list
+    of C positions, its row of the (B, C) candidate matrix ``cand``."""
+    B, C = cand.shape
+    dev = cand.device
+    offsets = torch.arange(B, dtype=torch.int64, device=dev) * C
+    aligned = torch.full((B,), C, dtype=torch.int64, device=dev)
+    probe = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    return Layout(offsets, aligned, cand.reshape(-1), C), probe
+
+
+def _check_layout(lay: Layout, probe: torch.Tensor, nq: int, n: int,
+                  dev: torch.device, check_ids: bool) -> Tuple[int, int]:
+    """The layout's tensors and the (nq, nprobe) int32 probes; with
+    ``check_ids`` also (reductions and a device-to-host read) every probed
+    list in range and distinct within its row, every id in [-1, n), and
+    ``max_aligned`` the widest region (the IVF executor's come from its
+    checked layout and a sort, and it passes False). Returns
+    (n_lists, nprobe)."""
+    _check(lay.offsets, "offsets", torch.int64, 1, dev)
+    _check(lay.aligned, "aligned", torch.int64, 1, dev)
+    _check(lay.flat_ids, "flat_ids", torch.int32, 1, dev)
+    _check(probe, "probe", torch.int32, 2, dev)
+    n_lists = lay.offsets.shape[0]
+    if lay.aligned.shape[0] != n_lists or n_lists < 1:
+        raise ValueError(f"{n_lists} offsets, {lay.aligned.shape[0]} "
+                         f"lengths: one each per list, at least one list")
+    if probe.shape[0] != nq or probe.shape[1] < 1:
+        raise ValueError(f"probe {tuple(probe.shape)} for {nq} queries")
+    nprobe = probe.shape[1]
+    if nprobe * lay.max_aligned >= 2 ** 31:
+        raise ValueError(f"{nprobe} x {lay.max_aligned} positions exceed "
+                         f"int32")
+    if check_ids and probe.numel():
+        lo, hi = (int(v) for v in torch.aminmax(probe))
+        if lo < 0 or hi >= n_lists:
+            raise ValueError(f"probe in [{lo}, {hi}], outside "
+                             f"[0, {n_lists})")
+        srt = probe.sort(dim=1).values
+        if bool((srt[:, 1:] == srt[:, :-1]).any()):
+            raise ValueError("a row of probe repeats a list")
+        if int(lay.aligned.max()) > lay.max_aligned:
+            raise ValueError(f"a list is wider than max_aligned "
+                             f"{lay.max_aligned}")
+        if lay.flat_ids.numel():
+            lo, hi = (int(v) for v in torch.aminmax(lay.flat_ids))
+            if lo < -1 or hi >= n:
+                raise ValueError(f"flat_ids in [{lo}, {hi}], outside "
+                                 f"[-1, {n})")
+    return n_lists, nprobe
+
+
+def _launch_list(name: str, kind: str, q: torch.Tensor, q_scale,
+                 rows: torch.Tensor, row_scale, sq, words, sids, depth: int,
+                 k: int, l2: bool, lay: Layout, probe: torch.Tensor,
+                 check_ids: bool, per_list: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 9 in its list form (any kind): the probes' inversion on the
+    device (a stable sort of the pairs by list and each list's first
+    pair), pass 1 over (list x query tile, list chunk) blocks, pass 2.
+    ``per_list`` bounds the queries that probe one list (default nq; 1 for
+    a candidate matrix, whose tiles then hold one query). It serves only
+    the candidate form (``ivf_gather_topk*``), which no executor calls: it
+    trims the grid's empty query tiles of B one-query lists."""
+    dev = q.device
+    nq, n = q.shape[0], rows.shape[0]
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    if l2:
+        _check(sq, "sq", torch.float32, 1, dev)
+        if sq.shape[0] < n:
+            raise ValueError(f"sq has {sq.shape[0]} norms for {n} rows")
+    n_scopes, n_words = _check_words(words, sids, nq, n, dev)
+    n_lists, nprobe = _check_layout(lay, probe, nq, n, dev, check_ids)
+    per_list = nq if per_list is None else per_list
+    plan = list_plan(kind, max(1, min(nq, per_list, LIST_Q)), depth, k)
+    if plan.smem == 0:
+        raise ValueError(f"no list plan fits shared memory: {name} "
+                         f"depth={depth} k={k}")
+    _, cmax, _ = list_grid(min(nq, per_list), n_lists, lay.max_aligned,
+                           plan.qt, plan.chunk)
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out_v, out_i
+    slots = nprobe * cmax * plan.lists
+    part_v = torch.empty((nq, slots, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nq, slots, k), dtype=torch.int32, device=dev)
+    # the inversion: pairs b * nprobe + p sorted stably by list, and each
+    # list's first sorted pair
+    by_list, order = torch.sort(probe.reshape(-1), stable=True)
+    list_start = torch.searchsorted(
+        by_list, torch.arange(n_lists + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        cuda_stream = ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.repro_scan_topk_list(
+            KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows), _ptr(row_scale),
+            _ptr(sq if l2 else None), _ptr(words), _ptr(sids), n_scopes,
+            n_words, nq, depth, k, int(l2), _ptr(lay.offsets),
+            _ptr(lay.aligned), _ptr(lay.flat_ids), _ptr(probe), _ptr(order),
+            _ptr(list_start), n_lists, nprobe, lay.max_aligned, plan.qt,
+            per_list, _ptr(part_v), _ptr(part_i), _ptr(out_v), _ptr(out_i),
+            cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
     count_launch(launches, name)
@@ -443,36 +600,74 @@ def multi_scope_topk_pq(lut, codes, mask_words, scope_ids, k,
                    block_n)
 
 
+def _cand(cand_ids) -> Tuple[Layout, torch.Tensor]:
+    _check(cand_ids, "cand_ids", torch.int32, 2, cand_ids.device)
+    if cand_ids.shape[1] < 1:
+        raise ValueError("cand_ids has no candidate column (C = 0)")
+    return cand_layout(cand_ids)
+
+
+def ivf_probe_topk(queries, rows, layout: Layout, probe, mask_words,
+                   scope_ids, k, metric="ip", sq=None, check_ids=True):
+    """Kernel 9 (fp32), the IVF executor's scoring launch: query b scores
+    the rows of its probed lists ``probe[b]`` ((B, nprobe) int32) of the
+    padded-CSR ``layout`` that bit r%32 of ``mask_words[scope_ids[b],
+    r // 32]`` admits, reading rows (n, d) f32 in place. Returns (vals (B, k)
+    f32, ids (B, k) int32 store ids), ties ranked by the lower position
+    p * max_aligned + o. ``check_ids=False`` skips the range checks of the
+    probes and ids (the IVF executor's come from its checked layout)."""
+    d = _f32(queries, rows)
+    return _launch_list("ivf_gather_topk", "f32", queries, None, rows, None,
+                        sq, mask_words, scope_ids, d, k, _metric_l2(metric),
+                        layout, probe, check_ids)
+
+
+def ivf_probe_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, layout: Layout,
+                      probe, mask_words, scope_ids, k, metric="ip",
+                      check_ids=True):
+    """int8 mode of :func:`ivf_probe_topk` (scores as
+    :func:`scoped_topk_i8`)."""
+    d = _i8(q_i8, q_scale, rows_i8, row_scale)
+    return _launch_list("ivf_gather_topk_i8", "i8", q_i8, q_scale, rows_i8,
+                        row_scale, sq, mask_words, scope_ids, d, k,
+                        _metric_l2(metric), layout, probe, check_ids)
+
+
+def ivf_probe_topk_pq(lut, codes, layout: Layout, probe, mask_words,
+                      scope_ids, k, check_ids=True):
+    """PQ/ADC mode of :func:`ivf_probe_topk` (scores as
+    :func:`scoped_topk_pq`)."""
+    m = _pq(lut, codes)
+    return _launch_list("ivf_gather_topk_pq", "pq", lut, None, codes, None,
+                        None, mask_words, scope_ids, m, k, False, layout,
+                        probe, check_ids)
+
+
 def ivf_gather_topk(queries, rows, cand_ids, mask_words, scope_ids, k,
                     metric="ip", sq=None, check_ids=True):
-    """Gathered fp32 scan of the IVF executor: query b scores store rows
-    ``cand_ids[b, c]`` (cand_ids (B, C) int32, -1 = padding) of rows (n, d)
-    f32 that bit r%32 of ``mask_words[scope_ids[b], r // 32]`` admits.
-    Returns (vals (B, k) f32, ids (B, k) int32 store ids), ties ranked by
-    the lower candidate position. ``check_ids=False`` skips the range check
-    of the ids (the IVF executor's come from its checked CSR layout)."""
+    """Kernel 9 over a (B, C) int32 candidate matrix (-1 = padding): the
+    list form on the layout in which query b alone probes its row, one
+    query a tile. Ties rank by the lower candidate position."""
     d = _f32(queries, rows)
-    return _launch("ivf_gather_topk", "f32", queries, None, rows, None, sq,
-                   None, mask_words, scope_ids, d, k, _metric_l2(metric), 1,
-                   None, cand=cand_ids, check_ids=check_ids)
+    return _launch_list("ivf_gather_topk", "f32", queries, None, rows, None,
+                        sq, mask_words, scope_ids, d, k, _metric_l2(metric),
+                        *_cand(cand_ids), check_ids, per_list=1)
 
 
 def ivf_gather_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, cand_ids,
                        mask_words, scope_ids, k, metric="ip", check_ids=True):
-    """int8 twin of :func:`ivf_gather_topk` (scores as
-    :func:`scoped_topk_i8`)."""
+    """int8 twin of :func:`ivf_gather_topk`."""
     d = _i8(q_i8, q_scale, rows_i8, row_scale)
-    return _launch("ivf_gather_topk_i8", "i8", q_i8, q_scale, rows_i8,
-                   row_scale, sq, None, mask_words, scope_ids, d, k,
-                   _metric_l2(metric), 1, None, cand=cand_ids,
-                   check_ids=check_ids)
+    return _launch_list("ivf_gather_topk_i8", "i8", q_i8, q_scale, rows_i8,
+                        row_scale, sq, mask_words, scope_ids, d, k,
+                        _metric_l2(metric), *_cand(cand_ids), check_ids,
+                        per_list=1)
 
 
 def ivf_gather_topk_pq(lut, codes, cand_ids, mask_words, scope_ids, k,
                        check_ids=True):
-    """PQ/ADC twin of :func:`ivf_gather_topk` (scores as
-    :func:`scoped_topk_pq`)."""
+    """PQ/ADC twin of :func:`ivf_gather_topk`."""
     m = _pq(lut, codes)
-    return _launch("ivf_gather_topk_pq", "pq", lut, None, codes, None, None,
-                   None, mask_words, scope_ids, m, k, False, 1, None,
-                   cand=cand_ids, check_ids=check_ids)
+    return _launch_list("ivf_gather_topk_pq", "pq", lut, None, codes, None,
+                        None, mask_words, scope_ids, m, k, False,
+                        *_cand(cand_ids), check_ids, per_list=1)

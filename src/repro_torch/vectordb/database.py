@@ -237,7 +237,7 @@ class DirectoryVectorDB:
         ``multi_scope_topk`` launch and each gather-plan scope is one
         ``scoped_topk`` launch over its candidate rows; on the IVF executor
         every request sharing an ``nprobe`` and a precision rides one
-        ``ivf_gather_topk*`` launch (``nprobe`` may be one value or one per
+        ``ivf_probe_topk*`` launch (``nprobe`` may be one value or one per
         request). Results are bit-identical to calling :meth:`dsq` per
         request, but the directory and kernel work is amortized (see
         ``DSQResult.batch``). Executor params the planner cannot plan (e.g. a
@@ -336,7 +336,7 @@ class DirectoryVectorDB:
         """Batched IVF DSQ: unique scopes resolve once through the
         epoch-validated mask cache, their packed words stack into one mask
         matrix, and all requests sharing an ``nprobe`` and a precision ride
-        ONE probe -> ``ivf_gather_topk*`` launch (one launch per distinct
+        ONE probe -> ``ivf_probe_topk*`` launch (one launch per distinct
         per-request ``nprobe`` when a sequence is passed)."""
         B = queries.shape[0]
         # clamp to the effective range up front so values the executor

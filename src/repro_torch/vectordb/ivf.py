@@ -4,12 +4,14 @@ K-means (Lloyd) runs on the store's device. Partitions live in a
 device-resident **padded-CSR layout**: one flat int32 id array where every
 list occupies a TILE-aligned region (padding slots hold -1), plus per-list
 offsets and lengths. Search is batched end to end: query-to-centroid
-distances and ``nprobe`` selection for the whole batch, the expansion of
-each query's probed regions into one (B, C) candidate-id matrix, then ONE
-``ivf_gather_topk*`` launch that reads the candidate rows from the store in
-place, ANDs in each query's packed scope words, scores at fp32, int8 or PQ
-and keeps the top-k. The reference feeds its Pallas kernel a gathered
-(B, C, d) block; nothing of that size is allocated here.
+distances and ``nprobe`` selection for the whole batch, then ONE
+``ivf_probe_topk*`` launch that reads the probed lists' ids from the layout
+and their rows from the store in place, ANDs in each query's packed scope
+words, scores at fp32, int8 or PQ and keeps the top-k. The reference
+expands each query's probed regions into a (B, nprobe * max_aligned)
+candidate matrix and feeds its Pallas kernel a gathered (B, C, d) block;
+the card path builds neither (the tiered fork and the tests still expand,
+:func:`_expand`).
 
 Bitwise contracts (``dsq_batch`` == a loop of ``dsq``, and a replayed
 ``repartition`` == the first): the probe distances are elementwise and
@@ -98,9 +100,9 @@ class CSRLayout:
     that out-of-region expansion clamps to, holding -1 (the reference holds
     the store size there and maps it to -1 before its kernel).
 
-    Every probed list expands to ``max_aligned`` slots, so batch cost
-    scales with the *widest* partition: heavily skewed k-means degrades
-    the batched path toward a full scan."""
+    A query's candidate axis gives every probed list ``max_aligned``
+    positions (the reference's expansion); the card path reads each probed
+    list's own region only, once per tile of the queries that probe it."""
     offsets: torch.Tensor    # (n_lists,) int64, TILE-aligned region starts
     aligned: torch.Tensor    # (n_lists,) int64, padded region lengths
     flat_ids: torch.Tensor   # (sum(aligned) + 1,) int32
@@ -108,19 +110,24 @@ class CSRLayout:
     n: int                   # store size the layout was built for
 
 
-def _probe_and_expand(queries: torch.Tensor, centers: torch.Tensor,
-                      lay: CSRLayout, nprobe: int) -> torch.Tensor:
-    """Whole-batch probe selection and candidate expansion: (B, C) int32
-    store ids, C = nprobe * max_aligned, -1 for padding. ``nprobe`` centers
-    by ascending distance, ties to the lower center index (a stable sort,
-    as ``lax.top_k(-d2)``)."""
+def _probe(queries: torch.Tensor, centers: torch.Tensor,
+           nprobe: int) -> torch.Tensor:
+    """Whole-batch probe selection: (B, nprobe) int64 center ids by
+    ascending distance, ties to the lower center index (a stable sort, as
+    ``lax.top_k(-d2)``)."""
     d2 = probe_distances(queries, centers)
-    probe = torch.sort(d2, dim=1, stable=True).indices[:, :nprobe]
-    within = torch.arange(lay.max_aligned, device=queries.device)
+    return torch.sort(d2, dim=1, stable=True).indices[:, :nprobe]
+
+
+def _expand(lay: CSRLayout, probe: torch.Tensor) -> torch.Tensor:
+    """The reference's candidate expansion: (B, C) int32 store ids,
+    C = nprobe * max_aligned, probed list p's region at positions
+    p * max_aligned + o, -1 for padding."""
+    within = torch.arange(lay.max_aligned, device=probe.device)
     idx = lay.offsets[probe][..., None] + within
     idx = torch.where(within < lay.aligned[probe][..., None], idx,
                       lay.flat_ids.shape[0] - 1)     # clamp to the sentinel
-    return lay.flat_ids[idx].reshape(queries.shape[0], -1)
+    return lay.flat_ids[idx].reshape(probe.shape[0], -1)
 
 
 def _admitted(cand: torch.Tensor, words: torch.Tensor,
@@ -430,31 +437,36 @@ class IVFIndex:
             words = words & self._to_dev(alive.view(np.int32))[None, :]
         sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
         q = self._to_dev(queries)
-        cand = _probe_and_expand(q, self._centers_device(), lay, nprobe)
+        probe = _probe(q, self._centers_device(), nprobe)
+        # the layout's ids were checked when it was built, and the probes
+        # are distinct center ids (by ascending distance)
+        listed = (lay.offsets, lay.aligned, lay.flat_ids, lay.max_aligned,
+                  probe)
         l2 = st.metric == "l2"
         if precision != "fp32":
             r = min(resolve_rescore_k(k, rescore_k, n), C)
             if precision == "int8":
                 q_i8, q_s = quantize_rows(queries)
-                _, top = kops.ivf_gather_topk_i8(
+                _, top = kops.ivf_probe_topk_i8(
                     self._to_dev(q_i8), self._to_dev(q_s),
                     st.device_q_vectors(), st.device_q_scales(),
-                    st.device_q_sq_norms() if l2 else None, cand, words,
+                    st.device_q_sq_norms() if l2 else None, *listed, words,
                     sids, r, st.metric, check_ids=False)
             else:
-                _, top = kops.ivf_gather_topk_pq(
+                _, top = kops.ivf_probe_topk_pq(
                     self._to_dev(st.pq_lut(queries)), st.device_pq_codes(),
-                    cand, words, sids, r, check_ids=False)
+                    *listed, words, sids, r, check_ids=False)
             return gather_rescore(st, queries,
                                   top.cpu().numpy().astype(np.int64), k)
         if st.tiered_active():
             # the fp32 rows live in host RAM: rank the admitted candidates'
             # rows in candidate order (the same scores and tie rule)
-            return gather_rescore(st, queries, _admitted(cand, words, sids),
+            return gather_rescore(st, queries,
+                                  _admitted(_expand(lay, probe), words, sids),
                                   k, fetch=False)
         kk = min(k, C)
-        vals, ids = kops.ivf_gather_topk(
-            q, st.device_vectors(), cand, words, sids, kk, st.metric,
+        vals, ids = kops.ivf_probe_topk(
+            q, st.device_vectors(), *listed, words, sids, kk, st.metric,
             sq=st.device_sq_norms() if l2 else None, check_ids=False)
         return pad_topk(*_to_host(vals, ids), k)
 

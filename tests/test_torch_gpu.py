@@ -710,3 +710,231 @@ def test_pq_plan_fits_shared_memory(q, n, m, k):
     if n == _MAIN:
         assert qt == 5
         assert geo.n_chunks * -(-q // qt) <= 132
+
+
+# ------------------------------------------- kernel 5 (streaming int8)
+# (q, n, d, k, metric, mask, offset): q = 1 and q <= 8, n never a multiple
+# of the 128-row tile (4000: a gather plan's launch, all rows admitted);
+# d = 13 takes byte copies and a padded depth, d = 300 two slices, d = 32768
+# 128 of them; ``offset`` rows start ``offset`` bytes past a 16-byte
+# boundary; k = 320 takes the wide merge, k = 4096 at q = 5 puts the
+# per-warp lists in device memory
+I8_STREAM_CASES = [
+    (1, 2081, 128, 40, "ip", "dense", 0),
+    (1, 4000, 128, 40, "l2", "ones", 0),
+    (1, 137, 16, 200, "ip", "few", 0),
+    (1, 3001, 64, 10, "ip", "empty", 0),
+    (8, 2081, 16, 40, "l2", "dense", 0),
+    (5, 3001, 13, 17, "l2", "dense", 1),
+    (3, 1000, 300, 320, "ip", "dense", 4),
+    (5, 20_000, 64, 4096, "ip", "dense", 0),
+    (2, 2000, 32768, 10, "l2", "dense", 0),
+    (7, 70_001, 128, 80, "ip", "dense", 0),
+]
+I8_STREAM_LAUNCHES = sorted({(q, n, d, k) for q, n, d, k, *_ in
+                             I8_STREAM_CASES} | {(1, _MAIN, 128, 40),
+                                                 (1, 4000, 128, 40)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k,metric,mask,offset", I8_STREAM_CASES)
+def test_i8_stream_scan_matches_plain_version_and_kernel_6(q, n, d, k,
+                                                          metric, mask,
+                                                          offset):
+    """Kernel 5 (the streaming pass 1 at int8) bit for bit against its
+    plain version, and kernel 6 given the same mask as one scope row bit
+    for bit against it (the int8 batch == a loop of dsq)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(q * 19 + n + d + k)
+    q8, qs, x8, xs, sq = _i8_inputs(g, q, n, d, dev)
+    if offset:                                 # rows off 16-byte alignment
+        buf = torch.empty(n * d + offset, dtype=torch.int8, device=dev)
+        buf[offset:] = x8.reshape(-1)
+        x8 = buf[offset:].view(n, d)
+    _, _, _, dense = _stream_inputs(1, n, 4, mask, 0, q + n)
+    m8 = dense.to(torch.int8)
+    ops.reset_launch_counts()
+    got = ops.scoped_topk_i8(q8, qs, x8, xs, sq, m8, k, metric)
+    assert ops.launch_counts()["scoped_topk_i8"] == 1
+    want = ref.scoped_topk_i8_ref(q8, qs, x8, xs, sq, m8, k, metric)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    words = _words(dense[None])
+    sid = torch.zeros(q, dtype=torch.int32, device=dev)
+    six = ops.multi_scope_topk_i8(q8, qs, x8, xs, sq, words, sid, k, metric)
+    assert torch.equal(got[1], six[1]) and torch.equal(got[0], six[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k", I8_STREAM_LAUNCHES)
+def test_i8_stream_plan_fits_shared_memory(q, n, d, k):
+    """The C entry's plan for kernel 5 fits a block's 232,448 bytes and
+    plans itself again; at the main shape (q = 1, d = 128, k = 40) three
+    blocks share an SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    st = ops._st
+    plan = st.stream_plan(min(q, st.STREAM_Q), d, k, "i8")
+    assert 0 < plan.smem <= st.SMEM_LIMIT and 1 <= plan.qt <= min(q, 8)
+    assert 1 <= plan.blocks <= 4 and plan.lists in (1, 4)
+    assert st.stream_plan(plan.qt, d, k, "i8") == plan
+    geo = st.stream_geometry(q, n, plan.qt, plan.blocks, None)
+    assert 1 <= geo.n_chunks <= 65535
+    if (d, k) == (128, 40) and q == 1:
+        assert (plan.qt, plan.lists, plan.blocks) == (1, 1, 3)
+
+
+# ------------------------------------------------ kernel 9, list form
+def _list_inputs(b, n_lists, nprobe, n, d, m, seed, metric, empty=1,
+                 pad=0.1):
+    """A skewed padded-CSR layout of n rows over ``n_lists`` lists (a few
+    wide ones, ``empty`` empty ones; list c's rows ascending, ``pad`` of
+    its slots -1, padded with -1 to a multiple of 32), distinct probes per
+    query, and the inputs of the three kinds; query 0's first two probed
+    lists hold a tie that list order and id order rank differently, its
+    two rows the query's best (the query itself for l2, 4x it for ip)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = 1.0 / (1.0 + torch.arange(n_lists, device=dev).double()) ** 0.8
+    w = w[torch.randperm(n_lists, generator=g, device=dev)]
+    sizes = torch.floor(w / w.sum() * n * 0.95).long()
+    sizes[torch.argsort(sizes)[:empty]] = 0
+    perm = torch.randperm(n, generator=g, device=dev)
+    aligned = (sizes + 31) // 32 * 32
+    offsets = torch.cumsum(aligned, 0) - aligned
+    flat = torch.full((int(aligned.sum()) + 1,), -1, dtype=torch.int32,
+                      device=dev)
+    start = 0
+    for c in range(n_lists):
+        ln = int(sizes[c])
+        rows = perm[start:start + ln].sort().values.to(torch.int32)
+        rows[torch.rand(ln, generator=g, device=dev) < pad] = -1
+        flat[int(offsets[c]):int(offsets[c]) + ln] = rows
+        start += ln
+    probe = torch.stack([torch.randperm(n_lists, generator=g, device=dev)
+                         [:nprobe] for _ in range(b)]).to(torch.int32)
+    Q = torch.randn(b, d, generator=g, device=dev)
+    X = torch.randn(n, d, generator=g, device=dev)
+    dense = torch.rand(2, n, generator=g, device=dev) < 0.6
+    sid = (torch.arange(b, device=dev) % 2).to(torch.int32)
+    if b > 2:
+        sid[-1] = 7                                         # out of range
+    a = flat[int(offsets[probe[0, 0]]):][:int(aligned[probe[0, 0]])]
+    z = flat[int(offsets[probe[0, 1]]):][:int(aligned[probe[0, 1]])]
+    a, z = a[a >= 0], z[z >= 0]
+    if len(a) and len(z) and int(a.max()) > int(z.min()):
+        X[int(a.max())] = X[int(z.min())] = Q[0] * (     # the tie
+            1.0 if metric == "l2" else 4.0)
+        dense[:, [int(a.max()), int(z.min())]] = True
+    q8, qs, x8, xs, sq8 = _i8_inputs(g, b, n, d, dev)
+    lut, codes = _pq_inputs(g, b, n, m, dev)
+    layout = (offsets, aligned, flat, int(aligned.max()))
+    return Q, X, (q8, qs, x8, xs, sq8), (lut, codes), layout, probe, \
+        _words(dense), sid
+
+
+def _expand(layout, probe):
+    """The (B, nprobe * max_aligned) candidate matrix of a layout."""
+    offsets, aligned, flat, ma = layout
+    within = torch.arange(ma, device=probe.device)
+    p = probe.long()
+    idx = offsets[p][..., None] + within
+    idx = torch.where(within < aligned[p][..., None], idx, flat.shape[0] - 1)
+    return flat[idx].reshape(probe.shape[0], -1)
+
+
+# (b, n_lists, nprobe, n, d, m, k, metric): list chunks past 4096
+# positions, lists that more than 8 queries probe (several query tiles),
+# d = 13 (byte copies), d sliced, k past 256 (wide merges) and k = 3000
+# (the streaming pass's lists in device memory)
+LIST_CASES = [
+    (5, 7, 3, 5000, 64, 16, 10, "ip"),
+    (64, 16, 8, 60_000, 128, 32, 40, "l2"),
+    (20, 6, 5, 9000, 128, 32, 80, "ip"),
+    (3, 4, 2, 3000, 13, 13, 17, "ip"),
+    (9, 5, 5, 20_000, 32, 8, 320, "ip"),
+    (2, 3, 3, 2000, 8192, 64, 10, "l2"),
+    (4, 6, 4, 12_000, 32, 8, 3000, "ip"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n_lists,nprobe,n,d,m,k,metric", LIST_CASES)
+def test_ivf_list_form_equals_cand_form_and_plain_versions(b, n_lists,
+                                                          nprobe, n, d, m,
+                                                          k, metric):
+    """Kernel 9's list form (``ivf_probe_topk*``) at all three precisions
+    bit for bit against its candidate form on the expanded matrix, and
+    against its plain version (fp32 within the tolerance above, int8 and PQ
+    bit for bit); one launch each; a scope id out of range admits nothing;
+    the cross-list tie falls to the earlier-probed list's (higher) id."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    Q, X, i8, pq, layout, probe, words, sid = _list_inputs(
+        b, n_lists, nprobe, n, d, m, b * 7 + n + k, metric)
+    q8, qs, x8, xs, sq8 = i8
+    lut, codes = pq
+    sq = ref.row_sq_norms(X)
+    cand = _expand(layout, probe)
+    ops.reset_launch_counts()
+    got = ops.ivf_probe_topk(Q, X, *layout, probe, words, sid, k, metric, sq)
+    assert ops.launch_counts()["ivf_gather_topk"] == 1
+    two = ops.ivf_gather_topk(Q, X, cand, words, sid, k, metric, sq)
+    assert torch.equal(got[1], two[1]) and torch.equal(got[0], two[0])
+    _agree(got, ref.ivf_probe_topk_ref(Q, X, *layout, probe, words, sid, k,
+                                       metric, sq), "ivf_probe_topk")
+    if b > 2:
+        assert torch.all(got[1][-1] == -1)
+    offsets, aligned, flat, _ = layout
+    a = flat[int(offsets[probe[0, 0]]):][:int(aligned[probe[0, 0]])]
+    z = flat[int(offsets[probe[0, 1]]):][:int(aligned[probe[0, 1]])]
+    a, z = a[a >= 0], z[z >= 0]
+    if len(a) and len(z) and int(a.max()) > int(z.min()):
+        assert got[1][0, :2].tolist() == [int(a.max()), int(z.min())]
+    pairs = [
+        (ops.ivf_probe_topk_i8(q8, qs, x8, xs, sq8, *layout, probe, words,
+                               sid, k, metric),
+         ops.ivf_gather_topk_i8(q8, qs, x8, xs, sq8, cand, words, sid, k,
+                                metric),
+         ref.ivf_probe_topk_i8_ref(q8, qs, x8, xs, sq8, *layout, probe,
+                                   words, sid, k, metric)),
+        (ops.ivf_probe_topk_pq(lut, codes, *layout, probe, words, sid, k),
+         ops.ivf_gather_topk_pq(lut, codes, cand, words, sid, k),
+         ref.ivf_probe_topk_pq_ref(lut, codes, *layout, probe, words, sid,
+                                   k))]
+    for i, (lst, cnd, want) in enumerate(pairs):
+        for other in (cnd, want):
+            assert torch.equal(lst[1], other[1]), i
+            assert torch.equal(lst[0], other[0]), i
+
+
+# (kind, q, depth, k) of the list form's launches in these tests and
+# chip_smoke.py (phase 1's synthetic layout, phase 5's real one)
+LIST_LAUNCHES = sorted({
+    *[(kind, q, d if kind != "pq" else m, k) for kind in ("f32", "i8", "pq")
+      for q, _, _, _, d, m, k, _ in LIST_CASES],
+    ("f32", 64, 128, 10), ("f32", 64, 128, 80), ("i8", 64, 128, 40),
+    ("pq", 64, 32, 80), ("f32", 1, 128, 10), ("f32", 8, 128, 10)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,q,depth,k", LIST_LAUNCHES)
+def test_list_plan_fits_shared_memory(kind, q, depth, k):
+    """The C entry's plan for kernel 9's list form fits a block's 232,448
+    bytes with a chunk's compacted rows, the tile is at most 8 queries and
+    plans itself again; at the main shapes (d = 128 at fp32 k = 10 and int8
+    k = 40) two blocks share an SM, and at PQ M = 32, k = 80 four queries'
+    LUTs stay resident."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    st = ops._st
+    cap = min(q, st.LIST_Q)
+    plan = st.list_plan(kind, cap, depth, k)
+    assert 0 < plan.smem <= st.SMEM_LIMIT and 1 <= plan.qt <= cap
+    assert plan.chunk % 32 == 0 and plan.lists in (1, 4)
+    assert st.list_plan(kind, plan.qt, depth, k) == plan
+    if (kind, depth, k, q) in (("f32", 128, 10, 64), ("i8", 128, 40, 64)):
+        assert (plan.qt, plan.lists, plan.blocks) == (8, 1, 2)
+    if (kind, depth, k, q) == ("pq", 32, 80, 64):
+        assert plan.qt == 4

@@ -273,6 +273,169 @@ def test_plain_kernel_ranks_ties_by_position_not_id():
     assert ids.tolist() == [[-1] * 4] and torch.all(vals == NEG_INF)
 
 
+# ------------------------------------------------- kernel 9, list form
+def _list_case(b, sizes, nprobe, n, d, seed, metric, density=0.5,
+               inner_pad=0.0):
+    """A padded-CSR layout of n rows: list c holds ``sizes[c]`` distinct
+    rows in ascending id order (a share ``inner_pad`` of its slots then
+    turned to -1), padded with -1 to a multiple of 32, and the final -1
+    slot; ``nprobe`` distinct lists per query; two scopes, query b taking
+    scope b % 2 and the last query (b > 2) a scope id out of range. Query
+    0's first two probed lists hold a tie that list order and id order
+    rank differently: the first holds id hi, the second id lo < hi, both
+    rows admitted and the query's best (the query itself for l2, 4x it
+    for ip). Where ``nprobe`` lists are
+    empty, query 1 probes only those."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Q = rng.normal(size=(b, d)).astype(np.float32)
+    perm = rng.permutation(n)
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    lists = [np.sort(perm[bounds[c]:bounds[c + 1]])
+             for c in range(len(sizes))]
+    aligned = np.array([-(-len(m) // 32) * 32 for m in lists], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(aligned)[:-1]]).astype(np.int64)
+    flat = np.full(int(aligned.sum()) + 1, -1, np.int32)
+    for c, m in enumerate(lists):
+        flat[offsets[c]:offsets[c] + len(m)] = m
+        drop = rng.random(len(m)) < inner_pad
+        flat[offsets[c]:offsets[c] + len(m)][drop] = -1
+    probe = np.stack([rng.choice(len(sizes), nprobe, replace=False)
+                      for _ in range(b)]).astype(np.int32)
+    empty = np.flatnonzero(np.asarray(sizes) == 0)
+    if b > 1 and len(empty) >= nprobe:            # query 1 finds nothing
+        probe[1] = empty[:nprobe]
+    dense = rng.random((2, n)) < density
+    sids = (np.arange(b) % 2).astype(np.int32)
+    if b > 2:
+        sids[-1] = 5                              # out of range: no rows
+    p0, p1 = (flat[offsets[c]:offsets[c] + aligned[c]] for c in probe[0, :2])
+    p0, p1 = p0[p0 >= 0], p1[p1 >= 0]
+    if len(p0) and len(p1) and p0.max() > p1.min():
+        hi, lo = int(p0.max()), int(p1.min())
+        X[hi] = X[lo] = Q[0] * (1.0 if metric == "l2" else 4.0)
+        dense[sids[0], [hi, lo]] = True
+    return Q, X, (offsets, aligned, flat, int(aligned.max())), probe, \
+        dense, sids
+
+
+def _skewed(n_lists, n, seed):
+    """List sizes of k-means on skewed data: a few wide lists, a long
+    tail, one empty list."""
+    w = 1.0 / (1.0 + np.arange(n_lists)) ** 0.8
+    w = np.random.default_rng(seed).permutation(w)
+    sizes = np.floor(w / w.sum() * n * 0.9).astype(int)
+    sizes[np.argmin(sizes)] = 0
+    return sizes
+
+
+LIST_CASES = [                  # b, sizes, nprobe, n, d, k, metric
+    (4, _skewed(8, 900, 0), 3, 900, 16, 10, "ip"),
+    (6, _skewed(12, 3000, 1), 4, 3000, 32, 40, "l2"),
+    (3, [0, 0, 70, 200], 2, 400, 8, 5, "ip"),     # empty probes
+    (2, [33, 64, 1], 3, 100, 13, 50, "l2"),       # k past the admitted
+]
+
+
+@pytest.mark.parametrize("tier", ["fp32", "int8", "pq"])
+@pytest.mark.parametrize("case", range(len(LIST_CASES)))
+def test_ivf_probe_topk_matches_cand_form_and_jax(case, tier):
+    """Kernel 9's list form (``ivf_probe_topk*``) against its candidate
+    form on the expanded (B, nprobe * max_aligned) matrix and against the
+    JAX package on the same candidates: the Pallas ``ivf_gather_topk`` in
+    interpret mode (fp32), the jnp twins ``_ivf_batch_i8`` /
+    ``_ivf_batch_pq`` (int8, PQ). Covers -1 padding inside and after a
+    list, skewed and empty lists, a query whose probed lists are all
+    empty, a scope id out of range and the cross-list tie, which falls to
+    the earlier-probed list's (higher) id."""
+    from repro.vectordb.quant import PQCodebook as RefCodebook
+    from repro_torch.vectordb.quant import PQCodebook
+    b, sizes, nprobe, n, d, k, metric = LIST_CASES[case]
+    Q, X, (off, al, flat, ma), probe, dense, sids = _list_case(
+        b, sizes, nprobe, n, d, case, metric, inner_pad=0.1)
+    words = _pack(dense)
+    tw, ts = _t(words.view(np.int32)), _t(sids)
+    lay = (_t(off), _t(al), _t(flat), ma)
+    cand = pivf._expand(pivf.CSRLayout(*lay, n), _t(probe.astype(np.int64)))
+    C = cand.shape[1]
+    if tier == "fp32":
+        sq = np.einsum("nd,nd->n", X, X).astype(np.float32)
+        listed = ops.ivf_probe_topk(_t(Q), _t(X), *lay, _t(probe), tw, ts,
+                                    k, metric, sq=_t(sq))
+        cform = ops.ivf_gather_topk(_t(Q), _t(X), cand, tw, ts, k, metric,
+                                    sq=_t(sq))
+    elif tier == "int8":
+        qi, qs = quantize_rows(Q)
+        xi, xs = quantize_rows(X)
+        c32 = xi.astype(np.int32)
+        sq = np.einsum("nd,nd->n", c32, c32).astype(np.float32) * xs * xs
+        args = (_t(qi), _t(qs), _t(xi), _t(xs), _t(sq))
+        listed = ops.ivf_probe_topk_i8(*args, *lay, _t(probe), tw, ts, k,
+                                       metric)
+        cform = ops.ivf_gather_topk_i8(*args, cand, tw, ts, k, metric)
+    else:
+        cb, rcb = PQCodebook(d, 4 if d % 4 == 0 else 1, seed=1), \
+            RefCodebook(d, 4 if d % 4 == 0 else 1, seed=1)
+        cb.train(X)
+        rcb.train(X)
+        lut, codes = cb.lut(Q, metric), cb.encode(X)
+        listed = ops.ivf_probe_topk_pq(_t(lut), _t(codes), *lay, _t(probe),
+                                       tw, ts, k)
+        cform = ops.ivf_gather_topk_pq(_t(lut), _t(codes), cand, tw, ts, k)
+    # the two forms are one contract: equal bit for bit
+    assert torch.equal(listed[1], cform[1]) and torch.equal(listed[0],
+                                                             cform[0])
+    gv, gi = listed[0].numpy(), listed[1].numpy().astype(np.int64)
+    if b > 2:
+        assert np.all(gi[-1] == -1) and np.all(gv[-1] == NEG_INF)
+    if case == 2:                             # query 1's lists are empty
+        assert np.all(gi[1] == -1) and np.any(gi >= 0)
+    cn = cand.numpy()
+    if tier == "fp32":
+        qwords = words[np.where(sids < 2, sids, 0)]
+        qwords[sids >= 2] = 0
+        rows = X[np.maximum(cn, 0)]
+        want = jops.ivf_gather_topk(Q, rows, cn, qwords, k=k, metric=metric,
+                                    interpret=True)
+        _assert_filled(listed, want, f"list case {case} {metric}")
+        ids = gi[0].tolist()
+        p0 = flat[off[probe[0, 0]]:off[probe[0, 0]] + al[probe[0, 0]]]
+        p1 = flat[off[probe[0, 1]]:off[probe[0, 1]] + al[probe[0, 1]]]
+        p0, p1 = p0[p0 >= 0], p1[p1 >= 0]
+        if len(p0) and len(p1) and p0.max() > p1.min():
+            hi, lo = int(p0.max()), int(p1.min())
+            assert ids[:2] == [hi, lo], (ids[:2], hi, lo)
+        return
+    centers, offsets, aligned, flat1 = _single_list_layout(Q, cn, n)
+    jw, js = jnp.asarray(words), jnp.asarray(sids)
+    if tier == "int8":
+        want = jivf._ivf_batch_i8(
+            jnp.asarray(Q), jnp.asarray(qi), jnp.asarray(qs), centers,
+            offsets, aligned, flat1, jnp.asarray(xi), jnp.asarray(xs),
+            jnp.asarray(sq), jw, js, k=min(k, C), nprobe=1, max_aligned=C,
+            metric=metric)
+    else:
+        want = jivf._ivf_batch_pq(
+            jnp.asarray(Q), jnp.asarray(lut), centers, offsets, aligned,
+            flat1, jnp.asarray(codes), jw, js, k=min(k, C), nprobe=1,
+            max_aligned=C)
+    # the jnp twins clamp a scope id out of range (the port's kernels
+    # admit nothing there, checked above): compared on the other queries
+    ok = sids < 2
+    wv, wi = (np.asarray(a)[ok] for a in want)
+    gv, gi = gv[ok], gi[ok]
+    wi = np.where(np.isfinite(wv) & (wv > NEG_INF), wi, -1)
+    kk = wi.shape[1]
+    assert np.all(gi[:, kk:] == -1)
+    if tier == "int8":                        # exact integer dots in both
+        np.testing.assert_array_equal(gi[:, :kk], wi)
+        np.testing.assert_array_equal(gv[:, :kk][wi >= 0], wv[wi >= 0])
+    else:
+        wv = np.where(wi >= 0, wv, NEG_INF)
+        err = topk_disagreement(gi[:, :kk], gv[:, :kk], wi, wv, TOL)
+        assert err is None, f"pq case {case}: {err}"
+
+
 # -------------------------------------------------------------- k-means
 @pytest.mark.parametrize("seed", [0, 1])
 def test_lloyd_and_assign_match_reference(seed):
@@ -312,7 +475,7 @@ def test_probe_is_batch_invariant_and_equals_reference(pair):
     lay, rlay = p.layout(), r.layout()
     assert lay.max_aligned == rlay.max_aligned
     for nprobe in (1, 6, N_LISTS):
-        got = pivf._probe_and_expand(q, cen, lay, nprobe).numpy()
+        got = pivf._expand(lay, pivf._probe(q, cen, nprobe)).numpy()
         want = np.asarray(jivf._probe_and_expand(
             jnp.asarray(ds.queries), jnp.asarray(r.centers), rlay.offsets,
             rlay.aligned, rlay.flat_ids, nprobe, rlay.max_aligned))

@@ -518,3 +518,37 @@ def test_pq_geometry_fits_the_card(q, n, m, k):
     assert geo.n_chunks * tiles <= max(132, tiles)
     if n == _MAIN:
         assert (tiles, geo.n_chunks) == (13, 10)
+
+
+@pytest.mark.parametrize("nq,n_lists,max_aligned,qt,chunk", [
+    (64, 64, 70_240, 8, 4096), (44, 64, 70_240, 8, 4096), (1, 1, 32, 1, 4096),
+    (5, 5, 0, 5, 4096), (9, 3, 4096, 8, 4096), (300, 2, 4097, 4, 4096)])
+def test_list_grid_covers_every_list_chunk(nq, n_lists, max_aligned, qt,
+                                           chunk):
+    """Kernel 9's list-form grid: a list is probed at most once per query,
+    so ceil(nq / qt) query tiles per list hold all its queries, and cmax
+    chunks of ``chunk`` positions cover the widest list (one chunk when
+    every list is empty); blocks = lists x tiles x cmax, within the grid's
+    limits (x < 2^31, y <= 65535)."""
+    st = ops._st
+    tiles, cmax, blocks = st.list_grid(nq, n_lists, max_aligned, qt, chunk)
+    assert tiles * qt >= nq > (tiles - 1) * qt
+    assert cmax * chunk >= max_aligned > (cmax - 1) * chunk or \
+        (max_aligned == 0 and cmax == 1)
+    assert blocks == n_lists * tiles * cmax
+    assert n_lists * tiles < 2 ** 31 and cmax <= 65535
+
+
+def test_pass2_groups_split_few_queries_many_lists():
+    """Pass 2's first level: one block per ~32 lists while the queries
+    leave most of the card idle (kernel 5's q = 1 over 396 lists: 12),
+    a single level when they fill it or have few lists, never more blocks
+    than one wave."""
+    st = ops._st
+    assert st.pass2_groups(1, 396, 132) == 12
+    assert st.pass2_groups(1, 262, 132) == 8
+    assert st.pass2_groups(1, 40, 132) == 1
+    assert st.pass2_groups(100, 396, 132) == 1
+    for nq, lists in ((1, 10_000), (5, 327), (64, 400)):
+        g = st.pass2_groups(nq, lists, 132)
+        assert 1 <= g and nq * g <= 132 and g <= max(1, lists // 32)

@@ -4,24 +4,29 @@
     python3 tools/scan_ab.py --label change
     PYTHONPATH=<other checkout>/src python3 tools/scan_ab.py --label parent
 
-Runs ``chip_smoke.py``'s phase 1 (every kernel held against its plain
-version, then timed at the main path's shapes, with kernel 1 also at a
-gather plan's 4,000 gathered rows, kernel 2 at ``gather_rescore``'s
-block-diagonal shapes, kernel 8 also over bank-conflict-free codes and
-kernel 9 at a synthetic IVF layout) with the ``repro_torch`` that comes
-first on ``sys.path``: the one
-``PYTHONPATH`` names, else this checkout's ``src``. Each tree builds its own
-kernels under its own ``build/``. Prints one JSON line: the label, the
-package's path, the card's name and power limit, and per kernel and shape
-the CUDA-event time (``ms``), the profiler's device time (``device_ms``,
-and pass 1's alone where recorded), the bound (and the PQ scans'
-shared-memory lookup bound) and the library call's time. Compare two
-trees only within one
-run on one card, in turns (A, B, B, A), each in its own process.
+Runs the ``repro_torch`` that comes first on ``sys.path`` (the one
+``PYTHONPATH`` names, else this checkout's ``src``) through the phase 1 of
+the ``chip_smoke.py`` beside it (``<tree>/chip_smoke.py``: every kernel
+held against its plain version, then timed at the main path's shapes, with
+kernel 1 also at a gather plan's 4,000 gathered rows, kernel 2 at
+``gather_rescore``'s block-diagonal shapes, kernel 8 also over
+bank-conflict-free codes and kernel 9 at a synthetic IVF layout), so unpack
+the other tree's ``src/repro_torch`` and ``chip_smoke.py`` together. Then,
+on inputs that are the same for both trees, kernel 9 in its three modes
+on a layout skewed like phase 5's k-means lists (64 lists, 8 probed per
+query, B = 64 over 1.94M rows): its candidate form, which every tree has,
+and its list form where the tree has one. Each tree builds its own kernels
+under its own ``build/``. Prints one JSON line: the label, the package's
+path, the card's name and power limit, and per kernel and shape the
+CUDA-event time (``ms``), the profiler's device time (``device_ms``, and
+pass 1's alone where recorded), the bound (and the PQ scans' shared-memory
+lookup bound) and the library call's time. Compare two trees only within
+one run on one card, in turns (A, B, B, A), each in its own process.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -32,6 +37,63 @@ KEYS = ("ms", "device_ms", "pass1_device_ms", "bound_ms", "lookup_bound_ms",
         "library_ms", "shape")
 
 
+def load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def skewed_ivf(torch, ops, ref, here) -> dict:
+    """Kernel 9's three modes on one skewed synthetic layout (this
+    checkout's ``chip_smoke.synthetic_layout``, seed 1): the candidate form
+    on the expanded matrix, and the list form where ``ops`` has it, each
+    held against its plain version and timed."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    n, d, M, B, S, k = here.MAIN_ROWS, 128, 32, 64, 8, 10
+    X = here.unit(torch, torch.randn(n, d, generator=g, device=dev))
+    dense = torch.rand(S, n, generator=g, device=dev) < torch.linspace(
+        0.2, 1.0, S, device=dev)[:, None]
+    dense[-1] = True
+    words = here.words_of(torch, dense)
+    sid = (torch.arange(B, device=dev) % S).to(torch.int32)
+    layout, probe = here.synthetic_layout(torch, g, n, B, dev)
+    cand = here.expand(torch, layout, probe)
+    Q = torch.randn(B, d, generator=g, device=dev)
+    q8, qs = here.quantize(torch, Q)
+    x8, xs = here.quantize(torch, X)
+    lut = torch.randn(B, M, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    listed = (*layout, probe)
+    calls = {
+        "ivf_gather_topk": ((Q, X), (words, sid, k), here.topk_case),
+        "ivf_gather_topk_i8": ((q8, qs, x8, xs, None), (words, sid, 4 * k),
+                               lambda r, label, a, b: here.exact_case(
+                                   torch, label, a, b)),
+        "ivf_gather_topk_pq": ((lut, codes), (words, sid, 8 * k),
+                               lambda r, label, a, b: here.exact_case(
+                                   torch, label, a, b))}
+    out = {}
+    for name, (head, tail, agree) in calls.items():
+        forms = {"cand_form": (name, (*head, cand, *tail))}
+        lname = name.replace("gather", "probe")
+        if hasattr(ops, lname):
+            forms["list_form"] = (lname, (*head, *listed, *tail))
+        for form, (fname, args) in forms.items():
+            fn = getattr(ops, fname)
+            agree(ref, f"{fname} skewed", fn(*args),
+                  getattr(ref, fname + "_ref")(*args))
+            out[f"{name}/skewed_{form}"] = {
+                **here.timed(torch, lambda: fn(*args), 10,
+                             ("scan_pass1", "scan_pass2")),
+                "shape": f"B={B} n={n} lists={here.IVF_LISTS} "
+                         f"nprobe={here.IVF_NPROBE} C={cand.shape[1]} "
+                         f"k={tail[-1]}"}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", required=True)
@@ -40,20 +102,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("scan_ab: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))            # chip_smoke.py
     sys.path.append(str(ROOT / "src"))       # after PYTHONPATH's trees
-    import chip_smoke
     import repro_torch
     from repro_torch.kernels import ops, ref
 
+    tree = Path(repro_torch.__file__).resolve().parents[2]
+    here = load("chip_smoke", ROOT / "chip_smoke.py")
+    theirs = here if tree == ROOT else load("tree_chip_smoke",
+                                            tree / "chip_smoke.py")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    peaks = next((v for key, v in chip_smoke.CARD_PEAKS.items()
+    peaks = next((v for key, v in here.CARD_PEAKS.items()
                   if key in torch.cuda.get_device_name(0)),
-                 chip_smoke.CARD_PEAKS["H100"])
-    measured = chip_smoke.phase1(torch, ops, ref, peaks)
+                 here.CARD_PEAKS["H100"])
+    measured = theirs.phase1(torch, ops, ref, peaks)
     table = {}
     for name, rec in measured.items():
         table[name] = {key: rec.get(key) for key in KEYS}
@@ -61,6 +125,7 @@ def main() -> int:
             if isinstance(nested, dict) and "ms" in nested:
                 table[f"{name}/{sub}"] = {key: nested.get(key)
                                           for key in KEYS}
+    table.update(skewed_ivf(torch, ops, ref, here))
     print(json.dumps({"label": args.label, "package": repro_torch.__file__,
                       "card": card, "kernels": table}), flush=True)
     return 0

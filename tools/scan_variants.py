@@ -2,7 +2,7 @@
 """Time variants of the scan kernels' source side by side on one card.
 
     python3 tools/scan_variants.py                 # every variant below
-    python3 tools/scan_variants.py --only final stream_t256_s32
+    python3 tools/scan_variants.py --only final list_chunk_2048
 
 Each variant is this checkout's ``src/repro_torch`` copied under
 ``build/variants/<name>/`` with the text substitutions listed in
@@ -10,15 +10,21 @@ Each variant is this checkout's ``src/repro_torch`` copied under
 mirror it). All variants are built at once, one process each; then each is
 timed in a process of its own, in turns (the list, then the list reversed):
 kernel 1 (``scoped_topk``) at q = 1 over 1.94M unit rows (d = 128, k = 10,
-ip, every row admitted) and kernel 8 (``multi_scope_topk_pq``) at the main
-PQ shape (q = 64, M = 32, k = 80, 8 scopes, random codes), each checked
-against its plain version first (a variant that changes what is computed
-is marked ``"checked": false``). Prints one JSON line per run: the
-CUDA-event time (``ms``), the profiler's device time (``device_ms``) and
-pass 1's alone (``pass1_ms``), with the card's name and power limit.
+ip, every row admitted), kernel 5 (``scoped_topk_i8``) on the same rows'
+int8 codes (k = 40), kernel 8 (``multi_scope_topk_pq``) at the main PQ
+shape (q = 64, M = 32, k = 80, 8 scopes, random codes) and kernel 9's list
+form in its three modes (``ivf_probe_topk*``, k = 10 / 40 / 80) on two
+layouts of those rows skewed like phase 5's k-means lists (``chip_smoke``'s
+``synthetic_layout``: 64 lists, 8 probed per query, the 8 scopes), one for
+B = 64 queries and one for phase 5's B = 44 (keys ending " b44"),
+each checked against its plain version first (a variant that changes what
+is computed is marked ``"checked": false``). Prints one JSON line per run:
+the CUDA-event time (``ms``), the profiler's device time (``device_ms``)
+and pass 1's alone (``pass1_ms``), with the card's name and power limit.
 
 The variants are the experiments behind the designs of
-``scan_pass1_stream`` and ``scan_pass1_pq`` (``PERF.md`` section 6).
+``scan_pass1_stream``, its list mode and ``scan_pass1_pq`` (``PERF.md``
+section 6).
 """
 from __future__ import annotations
 
@@ -33,13 +39,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CU = "kernels/csrc/scoped_topk.cu"
 PY = "kernels/scoped_topk.py"
+IVF_B = 44          # phase 5's IVF batch (B = 44 queries on its layout)
 _EPILOGUE = ("    if (s != ns - 1) continue;\n"
              "    // epilogue: per query, the admitted")
 
 
 def _stream(threads: int, slice_: int, stages: int = 3) -> dict:
     return {CU: {"kStreamThreads = 128;": f"kStreamThreads = {threads};",
-                 "kStreamSlice = 64;": f"kStreamSlice = {slice_};",
+                 "return kind == kF32 ? (list ? 32 : 64) : 256;":
+                 f"return kind == kF32 ? (list ? 32 : {slice_}) : 256;",
                  "kStreamStages = 3;": f"kStreamStages = {stages};"},
             PY: {"STREAM_ROWS = 128": f"STREAM_ROWS = {threads}"}}
 
@@ -66,8 +74,43 @@ VARIANTS = {
         "static_cast<int>(__byte_perm(\n"
         "                                    wd[b >> 2], 0u, 0x4440u + (b & 3)))":
         "((wd[b >> 2] >> (8 * (b & 3))) & 255u)"}},
+    # kernel 9's list mode: list positions per block, and the fp32 item's
+    # depth (64 floats: one block per SM beside the compacted rows)
+    "list_chunk_2048": {CU: {"constexpr int kListChunk = 4096;":
+                             "constexpr int kListChunk = 2048;"}},
+    "list_chunk_8192": {CU: {"constexpr int kListChunk = 4096;":
+                             "constexpr int kListChunk = 8192;"}},
+    "list_f32_slice64": {CU: {"return kind == kF32 ? (list ? 32 : 64) : 256;":
+                              "return kind == kF32 ? 64 : 256;"}},
+    # the streaming pass without its epilogue (staging and chains alone),
+    # and with its merges inlined
+    "stream_no_epilogue": {CU: {"    if (any) {": "    if (false) {"}},
+    # the streaming pass's buffers never merged (winners past 32 dropped),
+    # and list tiles of at most 4 or 2 queries
+    "stream_no_flush": {CU: {"          if (bc[j] + __popc(bal[j]) > 32) flush(j);":
+                             "          if (bc[j] + __popc(bal[j]) > 32) bc[j] = 0;"}},
+    "list_q4": {CU: {"  if (qt_cap > kListQ) qt_cap = kListQ;":
+                     "  if (qt_cap > 4) qt_cap = 4;"}},
+    "list_q2": {CU: {"  if (qt_cap > kListQ) qt_cap = kListQ;":
+                     "  if (qt_cap > 2) qt_cap = 2;"}},
+    # list tiles of up to 16 queries (PQ stays at 8): one tile holds every
+    # query of a list on the B = 44 layout, most on the B = 64 one
+    "list_q16": {CU: {"constexpr int kListQ = 8;": "constexpr int kListQ = 16;",
+                      "constexpr int kStreamQ = 8;":
+                      "constexpr int kStreamQ = 16;",
+                      "constexpr int kStreamMisc = 256;":
+                      "constexpr int kStreamMisc = 512;",
+                      "    const PQPlan plan = pq_plan(1, qt_cap, depth, k);":
+                      "    const PQPlan plan = pq_plan(\n"
+                      "        1, qt_cap < kPQMaxQ ? qt_cap : kPQMaxQ, depth, k);"},
+                 PY: {"LIST_Q = 8": "LIST_Q = 16"}},
+    "inline_merge": {CU: {"__device__ __noinline__ void warp_merge(":
+                          "__device__ void warp_merge(",
+                          "__device__ __noinline__ void warp_insert(":
+                          "__device__ void warp_insert("}},
 }
-UNCHECKED = ("pq_lookups_only",)    # variants whose kernel 8 is not exact
+# variants that change what a kernel computes (not held to its plain version)
+UNCHECKED = ("pq_lookups_only", "stream_no_epilogue", "stream_no_flush")
 
 
 def make(name: str) -> Path:
@@ -88,7 +131,8 @@ def make(name: str) -> Path:
 
 
 def time_here(name: str) -> dict:
-    """Kernels 1 and 8 with the ``repro_torch`` first on ``sys.path``."""
+    """Kernels 1, 5, 8 and 9 with the ``repro_torch`` first on
+    ``sys.path``."""
     import torch
 
     import chip_smoke as cs
@@ -99,12 +143,26 @@ def time_here(name: str) -> dict:
     X = cs.unit(torch, torch.randn(n, d, generator=g, device=dev))
     Q1 = torch.randn(1, d, generator=g, device=dev)
     ones = torch.ones(n, dtype=torch.int8, device=dev)
+    checked = name not in UNCHECKED
+
+    def exact(label, got, want):
+        if checked:
+            cs.exact_case(torch, f"{name} {label}", got, want)
 
     def k1():
         return ops.scoped_topk(Q1, X, ones, 10)
 
-    cs.topk_case(ref, f"{name} kernel 1", k1(),
-                 ref.scoped_topk_ref(Q1, X, ones, 10))
+    if checked:
+        cs.topk_case(ref, f"{name} kernel 1", k1(),
+                     ref.scoped_topk_ref(Q1, X, ones, 10))
+    x8, xs = cs.quantize(torch, X)
+    q8, qs = cs.quantize(torch, Q1)
+
+    def k5():
+        return ops.scoped_topk_i8(q8, qs, x8, xs, None, ones, 40)
+
+    exact("kernel 5", k5(),
+          ref.scoped_topk_i8_ref(q8, qs, x8, xs, None, ones, 40))
     dense = torch.rand(S, n, generator=g, device=dev) < torch.linspace(
         0.2, 1.0, S, device=dev)[:, None]
     dense[-1] = True
@@ -117,18 +175,38 @@ def time_here(name: str) -> dict:
     def k8():
         return ops.multi_scope_topk_pq(lut, codes, words, sid, 80)
 
-    checked = name not in UNCHECKED
-    if checked:
-        cs.exact_case(torch, f"{name} kernel 8", k8(),
-                      ref.multi_scope_topk_pq_ref(lut, codes, words, sid,
-                                                  80))
+    exact("kernel 8", k8(),
+          ref.multi_scope_topk_pq_ref(lut, codes, words, sid, 80))
+    QB = torch.randn(B, d, generator=g, device=dev)
+    qb, sb = cs.quantize(torch, QB)
+    k9 = {}
+    for b in (B, IVF_B):    # the layout's batch: phase 1's, phase 5's
+        layout, probe = cs.synthetic_layout(torch, g, n, b, dev)
+        listed = (*layout, probe, words, sid[:b])
+        tag = "" if b == B else f" b{b}"
+        k9.update({
+            "ivf_probe_topk" + tag: (QB[:b], X, *listed, 10),
+            "ivf_probe_topk_i8" + tag: (qb[:b], sb[:b], x8, xs, None,
+                                        *listed, 40),
+            "ivf_probe_topk_pq" + tag: (lut[:b], codes, *listed, 80)})
+    k9_fn = {key: getattr(ops, key.split()[0]) for key in k9}
+    for key, args in k9.items():
+        got = k9_fn[key](*args)
+        want = getattr(ref, key.split()[0] + "_ref")(*args)
+        if key.split()[0] != "ivf_probe_topk":     # int8, PQ: exact
+            exact(key, got, want)
+        elif checked:
+            cs.topk_case(ref, f"{name} kernel 9 {key}", got, want)
     out = {"variant": name, "checked": checked}
-    for key, fn, runs in (("scoped_topk", k1, 30),
-                          ("multi_scope_topk_pq", k8, 10)):
-        out[key] = {"ms": cs.median_ms(torch, fn, runs),
-                    "device_ms": cs.device_ms(torch, fn, runs,
+    runs = [("scoped_topk", k1, 30), ("scoped_topk_i8", k5, 30),
+            ("multi_scope_topk_pq", k8, 10)]
+    runs += [(key, (lambda f, a: lambda: f(*a))(k9_fn[key], args), 10)
+             for key, args in k9.items()]
+    for key, fn, n_runs in runs:
+        out[key] = {"ms": cs.median_ms(torch, fn, n_runs),
+                    "device_ms": cs.device_ms(torch, fn, n_runs,
                                               ("scan_pass1", "scan_pass2")),
-                    "pass1_ms": cs.device_ms(torch, fn, runs,
+                    "pass1_ms": cs.device_ms(torch, fn, n_runs,
                                              ("scan_pass1",))}
     return out
 
