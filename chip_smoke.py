@@ -33,9 +33,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the fp32 rows: the fp32 device mirror is released, fp32 batches are
    served by the PQ plan equal to an explicit PQ batch, and hot scopes'
    pins cut the rescore's host fetch; then kernel 6 on the int8 batch's
-   arguments, kernel 5 on the widest of its gather-plan launches and
-   kernel 2 on the widest of its exact rescore's launches
-   (``gather_rescore``'s block-diagonal masks), held and timed as in 2;
+   arguments, kernel 5 on the widest of its gather-plan launches, kernel 2
+   on the widest of its exact rescore's launches (``gather_rescore``'s
+   block-diagonal masks), kernel 8 on the PQ batch's arguments and kernel
+   7 on the widest of the PQ batch's gather-plan launches, held and timed
+   as in 2;
 5. the IVF executor on the same database, phase 4's budget lifted first:
    ``build_ann("ivf", n_lists=64)`` twice (bitwise equal centers), the
    64-request mix at nprobe 8 with batch == loop bitwise at fp32, int8 and
@@ -368,6 +370,59 @@ def dense_i8_record(torch, ops, ref, peaks, args, kw, label) -> dict:
                      f"rows it takes, no top-k"}
 
 
+def dense_pq_record(torch, ops, ref, peaks, args, kw, label) -> dict:
+    """Kernel 7 on the arguments of one call: held bit for bit against its
+    plain version, timed (pass 1's device time too), and bounded by the
+    codes the mask admits (each read once), the mask, the LUTs and the
+    results, beside its shared-memory bound (each admitted (query, row)
+    pair reads M LUT entries, :func:`lookup_bound`). No single PyTorch call
+    computes a PQ ADC scan (a gather, a sum over M, then a top-k), so
+    ``library_ms`` is None."""
+    a = bound_args(ops, "scoped_topk_pq", args, kw)
+    lut, codes, mask, k = (a[key] for key in ("lut", "codes", "mask", "k"))
+    n, M = codes.shape
+    B = lut.shape[0]
+
+    def fn():
+        return ops.scoped_topk_pq(lut, codes, mask, k)
+
+    def plain():
+        return ref.scoped_topk_pq_ref(lut, codes, mask, k)
+
+    err = exact_case(torch, label, fn(), plain())
+    admitted = int((mask != 0).sum())
+    return {"max_abs_err": err,
+            **timed(torch, fn, 30, ("scan_pass1", "scan_pass2")),
+            "pass1_device_ms": device_ms(torch, fn, 30, ("scan_pass1",)),
+            "plain_ms": median_ms(torch, plain, 10),
+            "library_ms": None,
+            **bound(admitted * M + n + B * (M * 1024 + k * 8),
+                    1.0 * B * admitted * M, peaks),
+            **lookup_bound(torch, B * admitted * M),
+            "shape": f"q={B} n={n} M={M} k={k} admitted_rows={admitted}; "
+                     f"library: none (no single PyTorch call computes a PQ "
+                     f"ADC scan)"}
+
+
+def kernels_per_call(torch, fn, runs: int = 10) -> dict:
+    """The device kernels ``torch.profiler`` sees per call of ``fn``, by
+    name (a session that lost events, fewer than one kernel a call, is
+    repeated up to twice)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count / runs for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0.0) > 0}
+        if sum(seen.values()) >= 1:
+            break
+    return seen
+
+
 def batch_record(torch, ops, ref, peaks, name, args, kw, label) -> dict:
     """Kernel 2, 6 or 8 (``name``) on the arguments of one call: held
     against kernel 1, 5 or 7 query by query (bitwise) and against its plain
@@ -646,15 +701,20 @@ def phase1(torch, ops, ref, peaks) -> dict:
     w1, c1 = ops.mask_and_popcount(a, b)
     w2, c2 = ref.mask_and_popcount_ref(a, b)
     check(torch.equal(w1, w2) and int(c1) == int(c2), "mask_and_popcount main")
+    per_call = kernels_per_call(torch, lambda: ops.mask_and_popcount(a, b))
+    check(len(per_call) == 1 and all(
+        "and_popc_kernel" in key and v == 1.0 for key, v in per_call.items()),
+        f"mask_and_popcount: not one kernel a call: {per_call}")
     out["mask_and_popcount"] = {
         "max_abs_err": 0.0,
         **timed(torch, lambda: ops.mask_and_popcount(a, b), 50,
-                ("and_popc_kernel", "sum_kernel")),
+                ("and_popc_kernel",)),
         "plain_ms": median_ms(
             torch, lambda: ref.mask_and_popcount_ref(a, b), 20),
         "library_ms": None,
         **bound(3 * n_words * 4 + 4, 2 * n_words, peaks),
-        "shape": f"W={n_words}"}
+        "kernels_per_call": per_call,
+        "shape": f"W={n_words}; library: none (no torch op counts bits)"}
     edge += phase1_limits(torch, ops, ref, peaks, g, out)
     edge += phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
                          sid)
@@ -874,16 +934,9 @@ def phase1_tiers(torch, ops, ref, peaks, g, out, X, dense, words,
         "shape": f"q={B} n={n} d={d} k=80 ip scopes={S} "
                  f"admitted_pairs={admitted}; library: torch._int_mm "
                  f"({B},{d})x({d},{n})"}
-    out["scoped_topk_pq"] = {
-        "max_abs_err": 0.0,
-        **timed(torch, lambda: ops.scoped_topk_pq(lut1, codes, ones, 40), 30,
-                names),
-        "plain_ms": median_ms(torch, lambda: ref.scoped_topk_pq_ref(
-            lut1, codes, ones, 40), 10),
-        "library_ms": None,
-        **bound(n * M + n + M * 256 * 4 + 40 * 8, 1.0 * n * M, peaks),
-        **lookup_bound(torch, n * M),
-        "shape": f"q=1 n={n} M={M} k=40, all rows admitted"}
+    out["scoped_topk_pq"] = dense_pq_record(
+        torch, ops, ref, peaks, (lut1, codes, ones, 40), {},
+        "scoped_topk_pq main k=40")
     out["multi_scope_topk_pq"] = {
         "max_abs_err": 0.0,
         **timed(torch, lambda: ops.multi_scope_topk_pq(
@@ -1571,9 +1624,10 @@ def phase4(torch, ops, ds, db, batched):
     """int8 and PQ on the phase-2 database (after phase 3's DSM), then
     tiered storage. Every failed check is collected and reported at once.
     Returns the main path's launch counts, the arguments of the int8
-    batch's kernel-6 launch, of its widest kernel-5 gather-plan launch and
-    of the PQ batch's kernel-8 launch, and of every kernel-2 launch the
-    int8 batch's exact rescore (``gather_rescore``) made."""
+    batch's kernel-6 launch, of its widest kernel-5 gather-plan launch, of
+    the PQ batch's kernel-8 launch and of its widest kernel-7 gather-plan
+    launch, and of every kernel-2 launch the int8 batch's exact rescore
+    (``gather_rescore``) made."""
     _, paths, rec = requests(ds)
     queries = requests(ds)[0]
     k = 10
@@ -1596,7 +1650,7 @@ def phase4(torch, ops, ds, db, batched):
     path = MainPath(ops)
     info = {"phase": 4, "int8_setup_s": t1 - t0, "pq_setup_s": t2 - t1,
             "pq_m": store.pq_codebook.m}
-    results, captured, rescores, gathers = {}, {}, [], []
+    results, captured, rescores, gathers, pq_gathers = {}, {}, [], [], []
     for prec, rk in (("int8", None), ("pq", PQ_RESCORE_K)):
         def batch():
             return db.dsq_batch(queries, paths, k=k, recursive=rec,
@@ -1614,6 +1668,8 @@ def phase4(torch, ops, ds, db, batched):
             else:
                 stack.enter_context(first_calls(
                     ops, ("multi_scope_topk_pq",), captured))
+                stack.enter_context(recorded_calls(
+                    ops, "scoped_topk_pq", range(1 << 30), pq_gathers))
             b = batch()
         tb = time.perf_counter()
         loop = [db.dsq(queries[i], paths[i], k=k, recursive=rec[i],
@@ -1699,7 +1755,14 @@ def phase4(torch, ops, ds, db, batched):
     if gathers:                 # kernel 5's widest gather-plan launch
         widest = max(gathers, key=lambda call: call[1][2].shape[0])
         captured["scoped_topk_i8"] = widest[1:]
-    del gathers
+    # kernel 7's gather-plan launches: (queries, gathered rows) each
+    info["pq"]["pq_gather_launches"] = sorted(
+        (int(args[0].shape[0]), int(args[1].shape[0]))
+        for _, args, _ in pq_gathers)
+    if pq_gathers:              # kernel 7's widest gather-plan launch
+        widest = max(pq_gathers, key=lambda call: call[1][1].shape[0])
+        captured["scoped_topk_pq"] = widest[1:]
+    del gathers, pq_gathers
     info["failed"] = failed
     emit(info)
     check(not failed, "; ".join(failed))
@@ -1714,10 +1777,12 @@ def phase4_kernels(torch, ops, ref, peaks, captured, rescores,
     made (``gather_rescore``'s block-diagonal masks over the gathered
     candidates), by :func:`batch_record`; kernel 5 on the widest of the
     int8 batch's gather-plan launches (the scope's gathered int8 rows
-    under an all-ones mask), by :func:`dense_i8_record`. Recorded beside
-    phase 1's main shapes; launches here are not the main path's."""
+    under an all-ones mask), by :func:`dense_i8_record`, and kernel 7 on
+    the widest of the PQ batch's (its gathered codes), by
+    :func:`dense_pq_record`. Recorded beside phase 1's main shapes;
+    launches here are not the main path's."""
     for name in ("multi_scope_topk_i8", "multi_scope_topk_pq",
-                 "scoped_topk_i8"):
+                 "scoped_topk_i8", "scoped_topk_pq"):
         check(name in captured, f"phase 4 recorded no {name} launch")
     check(len(rescores) > 0, "phase 4 recorded no rescore launch")
     recs = {}
@@ -1735,6 +1800,10 @@ def phase4_kernels(torch, ops, ref, peaks, captured, rescores,
     recs["scoped_topk_i8"] = dense_i8_record(
         torch, ops, ref, peaks, args, kw, "scoped_topk_i8 int8 batch gather")
     measured["scoped_topk_i8"]["flat_batch_gather"] = recs["scoped_topk_i8"]
+    args, kw = captured["scoped_topk_pq"]
+    recs["scoped_topk_pq"] = dense_pq_record(
+        torch, ops, ref, peaks, args, kw, "scoped_topk_pq PQ batch gather")
+    measured["scoped_topk_pq"]["pq_batch_gather"] = recs["scoped_topk_pq"]
     emit({"phase": "4-kernels", **recs})
 
 

@@ -32,8 +32,6 @@ _I = ctypes.c_int
 # C entry point -> argument types (every pointer and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "repro_scan_topk_pq": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P],
     "repro_scan_topk_tiled": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P],
@@ -46,7 +44,7 @@ SIGNATURES = {
                              _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _P, _P, _P, _P, _P],
     "repro_bitmap_patch": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_mask_and_popcount": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "repro_mask_and_popcount": [_P, _P, _P, _I, _P, _P],
     "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

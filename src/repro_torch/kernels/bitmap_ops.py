@@ -3,9 +3,9 @@
 
 Packed words travel as ``torch.int32`` views of the uint32 bits. CUDA
 tensors only (``ops.py`` routes CPU tensors to ``ref.py``); each wrapper
-checks its inputs, allocates outputs and scratch with ``torch.empty``,
-launches on the current stream, raises on a non-zero ``cudaError_t`` and
-counts its launches in :data:`launches`.
+checks its inputs, allocates its outputs with ``torch.empty`` (neither
+needs scratch), launches on the current stream, raises on a non-zero
+``cudaError_t`` and counts its launches in :data:`launches`.
 """
 from __future__ import annotations
 
@@ -59,24 +59,22 @@ def bitmap_patch(masks: torch.Tensor, delta: torch.Tensor,
 
 def mask_and_popcount(a: torch.Tensor, b: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a, b (W,) int32 -> (a & b (W,) int32, total popcount 0-d int32)."""
+    """a, b (W,) int32 -> (a & b (W,) int32, total popcount 0-d int32):
+    one launch of one thread-block cluster, no scratch."""
     dev = a.device
     _check(a, "a", torch.int32, 1, dev)
     _check(b, "b", torch.int32, 1, dev)
     if a.shape != b.shape:
         raise ValueError(f"shapes differ: {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
-    n_words = a.shape[0]
-    n_blocks = _blocks_for(n_words)
     out = torch.empty_like(a)
-    partials = torch.empty(n_blocks, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.repro_mask_and_popcount(
-            _ptr(a), _ptr(b), _ptr(out), n_words, n_blocks, _ptr(partials),
-            _ptr(count), ctypes.c_void_p(stream))
+            _ptr(a), _ptr(b), _ptr(out), a.shape[0], _ptr(count),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"mask_and_popcount launch failed: cudaError_t {rc}")

@@ -42,24 +42,26 @@
 // stops reading it at its first entry that loses. Which pass 1 runs which
 // kernel:
 //
-//   scan_pass1_stream  kernels 1, 5 (scoped_topk, _i8): fp32 / int8, one
-//                      dense mask; kernel 9 fp32 / int8 (list mode)
+//   scan_pass1_stream  kernels 1, 5, 7 (scoped_topk, _i8, _pq): fp32 /
+//                      int8 / PQ, one dense mask; kernel 9 fp32 / int8
+//                      (list mode)
 //   scan_pass1_tiled   kernels 2, 6 (multi_scope_topk, _i8): scope words
 //   scan_pass1_pq      kernel 8 (multi_scope_topk_pq): PQ, scope words;
 //                      kernel 9 PQ (list mode)
-//   scan_pass1         kernel 7 (scoped_topk_pq): PQ, one dense mask
 //
 // scan_pass1_stream: bytes-bound (one pass over the rows).
 //   grid (query tiles of qt <= 8, row chunks): one wave of blocks of 4
 //   warps, two per SM for fp32 at q = 1 (110 KB of shared memory each),
 //   so 262 chunks of whole 128-row tiles over 1.94M rows, three per SM for
-//   int8 (62 KB); a gather plan's few thousand rows get one tile per block.
-//   staging: item = (128-row tile, depth slice: 64 floats, 256 int8
-//           bytes); all 128 threads copy an item with 16-byte cp.async
-//           (neighbouring threads on neighbouring bytes; 4-byte or byte
-//           copies where rows start off 16-byte alignment), with the query
-//           tile's slice, into a ring of 3 stages, two items ahead of the
-//           one computed: fp32 64 KB of rows in flight per block, 128 KB
+//   int8 (62 KB); a gather plan's few thousand rows get one tile per block
+//   (PQ: chunks of at least 1,024 rows, below).
+//   staging: item = (128-row tile, depth slice: 64 floats, 256 int8 or
+//           PQ code bytes); all 128 threads copy an item with 16-byte
+//           cp.async (neighbouring threads on neighbouring bytes; 4-byte
+//           or byte copies where rows start off 16-byte alignment), with
+//           the query tile's slice, into a ring of 3 stages, two items
+//           ahead of the one computed: fp32 64 KB of rows in flight per
+//           block, 128 KB
 //           per SM, against the ~25 KB per SM that 3.35 TB/s x ~1 us of
 //           loaded latency needs. A tile's first item also stages the
 //           tile's mask bytes, l2 norms and int8 row scales into one of 3
@@ -77,6 +79,27 @@
 //           chain, so kernel 2 == kernel 1 bit for bit. int8: an int32
 //           __dp4a chain (exact in any order), then Scorer<kI8>'s finish,
 //           kernel 6's, so kernel 6 == kernel 5 bit for bit.
+//   PQ (kernel 7): an item is a 128-row tile's code bytes (up to 256 a
+//           row; 48-byte strides at M = 32) and the mask bytes ride in the
+//           meta slots. The query tile's (M, 256) LUTs are copied once
+//           into shared memory with the first item's group and stay
+//           resident (stream_plan); a LUT that does not fit beside the
+//           ring rides in each item in slices of M instead, so any M works.
+//           The scorer is kernel 8's lookup loop: a thread looks up only
+//           queries that admit its row (a warp skips the queries none of
+//           its rows admits), 16 reads in flight, then 16 adds in order,
+//           acc += lut[j, m, code[m]] for m = 0..M-1 from 0.0f, so kernel
+//           8 == kernel 7 bit for bit. The tile's LUT copy (qt M KB) must
+//           not dwarf its codes: the wrapper gives a chunk at least 1,024
+//           rows (one LUT's bytes of codes at M = 32) and the grid at most
+//           one wave; the query tile is set for occupancy (kStreamPQQ = 1:
+//           four blocks per SM at M = 32, k <= 80), not to the most LUTs
+//           that fit, since re-reading 32-byte code rows once per query
+//           costs less than fewer blocks per SM (tools/scan_variants.py on
+//           the H100 at the PQ batch's widest gather, q = 5 over 41,829
+//           rows, k = 80: tiles of 1 / 2 / 5 queries 0.070 / 0.094 / 0.155
+//           ms device; chunk floors of 512 / 1,024 / 2,048 rows 0.066 /
+//           0.070 / 0.082, 512 within its own run-to-run spread).
 //   epilogue: each warp keeps its own list per query and its tail in
 //           registers; rows whose score beats the best of the warps'
 //           tails go to a 32-entry buffer per warp and query, merged into
@@ -150,7 +173,7 @@
 //   compute: 16 warps, thread t owns row t of the tile and reads its codes
 //           16 at a time; it looks up only the queries that admit its row,
 //           acc += lut[j, m, code[m]] for m = 0..M-1 in order from 0.0f
-//           (Scorer<kPQ>'s chain, so kernel 8 == kernel 7 bit for bit),
+//           (kernel 7's chain, so kernel 8 == kernel 7 bit for bit),
 //           16 reads in flight before their 16 adds; a warp skips a query
 //           that none of its rows admits. On the H100 this loop, not the
 //           epilogue, takes most of the time, and it runs well below the
@@ -161,22 +184,6 @@
 //           buffers merged by warp_merge, warp j serving query j).
 //   list mode (kernel 9's PQ mode): the chunk's compacted rows take 32 KB,
 //           so 4 LUTs stay resident at M = 32, k = 80.
-//
-// scan_pass1: the PQ dense-mask scan (kernel 7).
-//   grid (query tiles of qt <= 8, row chunks). A block stages the tile's
-//   LUTs in shared memory and sweeps its chunk 256 rows at a time: each
-//   thread scores one row against the whole tile (4-byte code loads where
-//   the layout allows), rows the mask does not admit are skipped, and
-//   warp j merges query j's 256 scores into its sorted top-k list.
-//   any k: the insertion shifts a list 32 entries at a time from its tail,
-//          so a list has no length bound in registers; lists live in shared
-//          memory while they fit (the wrapper shrinks qt for large k) and in
-//          their partial slots in device memory past that;
-//   any M: the LUTs are staged in slices of M when a whole tile does not
-//          fit; each score's chain continues across slices in the same
-//          order, so its bits do not change. The wrapper prefers shrinking
-//          qt (a LUT slice per 256 rows would cost more bytes than the
-//          codes).
 //
 // List mode (kernel 9, ivf_gather_topk and its int8 / PQ modes): the IVF
 // executor's padded-CSR layout read list by list. Query b probes nprobe
@@ -214,24 +221,14 @@
 
 namespace {
 
-constexpr int kWarps = 8;                 // = scan_pass1's largest query tile
-constexpr int kThreads = kWarps * 32;
+constexpr int kWarps = 8;                 // pass 2's warps; the tiled
+                                          // pass's flag slots per query
 constexpr float kNegInf = -FLT_MAX;       // finfo(float32).min
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kPass2SmemList = 6144;      // pass 2 keeps lists of k <= this
                                           // in shared memory (48 KB)
 
 enum Kind { kF32 = 0, kI8 = 1, kPQ = 2 };
-
-// scan_pass1's arguments (kernel 7: the PQ scan with one dense mask)
-struct Scan {
-  const float* lut;        // (nq, depth, 256)
-  const uint8_t* codes;    // (n, depth)
-  const int8_t* mask;      // (n,), non-zero admits the row
-  int nq, n, depth, slice, k, qt, chunk_rows, smem_lists;
-  float* part_v;
-  int* part_i;
-};
 
 // Kernel 9's list form (the source note's "List mode"): the padded-CSR
 // layout, each query's probed lists, and their inversion -- the pairs
@@ -395,8 +392,7 @@ __device__ __noinline__ void warp_insert(float* lv, int* li, int k, float cv, in
 // warp's sorted list (lv, li) of length k, in lane order (kSorted: the
 // lanes hold a sorted list's entries, best first). The list is owned
 // by the calling warp alone (shared or device memory). Several winners at
-// once go through warp_merge<kSlots> where k <= 32 kSlots; else, and with
-// kSlots = 0 (scan_pass1, whose registers the merge would crowd), one by
+// once go through warp_merge<kSlots> where k <= 32 kSlots; else one by
 // one. Returns the lanes whose candidate beat the list's tail on entry.
 template <int kSlots, bool kSorted = false>
 __device__ unsigned warp_offer(float* lv, int* li, int k, float cv, int ci,
@@ -405,20 +401,17 @@ __device__ unsigned warp_offer(float* lv, int* li, int k, float cv, int ci,
   const bool win = ok && better(cv, ci, lv[k - 1], li[k - 1]);
   unsigned want = __ballot_sync(kAll, win);
   const unsigned won = want;
-  if constexpr (kSlots > 0) {
-    if (__popc(want) > 1 && k <= 32 * kSlots) {
-      warp_merge<kSlots, kSorted>(lv, li, k, cv, ci, win);
-      return won;
-    }
+  if (__popc(want) > 1 && k <= 32 * kSlots) {
+    warp_merge<kSlots, kSorted>(lv, li, k, cv, ci, win);
+    return won;
   }
   if (want) warp_insert(lv, li, k, cv, ci, want);
   return won;
 }
 
 // ------------------------------------------------------------- scorers
-// finish(): the score from a finished chain (fp32 and int8: the streaming
-// and tiled passes run the chains themselves). Scorer<kPQ> also stages a
-// tile's LUT slice and continues a row's chains over it (scan_pass1).
+// finish(): the score from a finished chain (the streaming and tiled
+// passes run the chains themselves; PQ's LUT folds the metric in).
 
 template <int kKind>
 struct Scorer;
@@ -446,138 +439,11 @@ struct Scorer<kI8> {
 template <>
 struct Scorer<kPQ> {
   using Acc = float;
-  // copy the tile's LUT slice for m in [c0, c0 + len) into shared memory,
-  // laid out (query, m, 256): one query's slice is len * 256 contiguous
-  // floats of its (M, 256) LUT
-  __device__ static void stage(unsigned char* qs, const Scan& p, int q0,
-                               int nqt, int c0, int len) {
-    float4* dst = reinterpret_cast<float4*>(qs);
-    const float4* lut = reinterpret_cast<const float4*>(p.lut);
-    const int per = len * 64;
-    for (int i = threadIdx.x; i < nqt * per; i += kThreads) {
-      const int j = i / per;
-      dst[i] = lut[(static_cast<size_t>(q0 + j) * p.depth + c0) * 64 +
-                   (i - j * per)];
-    }
-  }
-  // continue row r's per-query chains over that slice
-  template <bool kVec>
-  __device__ static void accumulate(Acc (&acc)[kWarps],
-                                    const unsigned char* qs, const Scan& p,
-                                    int r, int c0, int len, int nqt) {
-    const float* lut = reinterpret_cast<const float*>(qs);
-    const uint8_t* code = p.codes + static_cast<size_t>(r) * p.depth + c0;
-    const int stride = len * 256;          // one query's LUT slice
-    if (kVec) {
-      for (int m = 0; m < len; m += 4) {
-        const unsigned w =
-            __ldg(reinterpret_cast<const unsigned*>(code + m));
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float* l = lut + (m + t) * 256 + ((w >> (8 * t)) & 255u);
-#pragma unroll
-          for (int j = 0; j < kWarps; ++j)
-            if (j < nqt) acc[j] += l[j * stride];
-        }
-      }
-    } else {
-      for (int m = 0; m < len; ++m) {
-        const float* l = lut + m * 256 + code[m];
-#pragma unroll
-        for (int j = 0; j < kWarps; ++j)
-          if (j < nqt) acc[j] += l[j * stride];
-      }
-    }
+  template <bool kL2>
+  __device__ static float finish(Acc acc, float, float, float) {
+    return acc;
   }
 };
-
-// Shared memory of scan_pass1: the staged LUT slices (qt * slice * 1 KB),
-// one sweep's scores and, when they fit, the tile's lists.
-size_t pass1_smem(int qt, int slice, int k, int smem_lists) {
-  return static_cast<size_t>(qt) * slice * 1024 +
-         static_cast<size_t>(qt) * kThreads * sizeof(float) +
-         (smem_lists ? static_cast<size_t>(qt) * k * 8 : 0);
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) scan_pass1(const Scan p) {
-  using S = Scorer<kPQ>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qs = smem;                                  // LUT slices
-  float* sv = reinterpret_cast<float*>(
-      smem + static_cast<size_t>(p.qt) * p.slice * 1024);    // qt * 256
-  float* lv_s = sv + p.qt * kThreads;                        // qt * k
-  int* li_s = reinterpret_cast<int*>(lv_s + p.qt * p.k);     // qt * k
-
-  const int k = p.k;
-  const int q0 = blockIdx.x * p.qt;
-  const int nqt = min(p.qt, p.nq - q0);
-  const int chunk = blockIdx.y;
-  const int r_begin = chunk * p.chunk_rows;
-  const int r_end = min(p.n, r_begin + p.chunk_rows);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  // query j's list: in shared memory, or in its own partial slot
-  auto list_off = [&](int j) {
-    return (static_cast<size_t>(q0 + j) * gridDim.y + chunk) * k;
-  };
-
-  for (int i = threadIdx.x; i < nqt * k; i += kThreads) {
-    const int j = i / k;
-    const int s = i - j * k;
-    if (p.smem_lists) {
-      lv_s[i] = kNegInf;
-      li_s[i] = -1;
-    } else {
-      p.part_v[list_off(j) + s] = kNegInf;
-      p.part_i[list_off(j) + s] = -1;
-    }
-  }
-  const bool one_slice = p.slice >= p.depth;
-  if (one_slice) S::stage(qs, p, q0, nqt, 0, p.depth);
-  __syncthreads();
-
-  float* wl = p.smem_lists ? lv_s + warp * k : p.part_v + list_off(warp);
-  int* wi = p.smem_lists ? li_s + warp * k : p.part_i + list_off(warp);
-
-  for (int base = r_begin; base < r_end; base += kThreads) {
-    const int r = base + threadIdx.x;
-    const bool admit = r < r_end && p.mask[r] != 0;
-    float acc[kWarps];
-#pragma unroll
-    for (int j = 0; j < kWarps; ++j) acc[j] = 0.0f;
-    for (int c0 = 0; c0 < p.depth; c0 += p.slice) {
-      const int len = min(p.slice, p.depth - c0);
-      if (!one_slice) {                      // block-uniform
-        __syncthreads();
-        S::stage(qs, p, q0, nqt, c0, len);
-        __syncthreads();
-      }
-      if (admit) S::template accumulate<kVec>(acc, qs, p, r, c0, len, nqt);
-    }
-#pragma unroll
-    for (int j = 0; j < kWarps; ++j)
-      if (j < nqt) sv[j * kThreads + threadIdx.x] = admit ? acc[j] : kNegInf;
-    __syncthreads();
-    if (warp < nqt) {
-      for (int t = 0; t < kThreads; t += 32) {
-        const int row = base + t + lane;
-        const float v = sv[warp * kThreads + t + lane];
-        warp_offer<0>(wl, wi, k, v, row, row < r_end && v > kNegInf);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (p.smem_lists) {
-    for (int i = threadIdx.x; i < nqt * k; i += kThreads) {
-      const int j = i / k;
-      const int s = i - j * k;
-      p.part_v[list_off(j) + s] = lv_s[i];
-      p.part_i[list_off(j) + s] = li_s[i];
-    }
-  }
-}
 
 // Pass 2, one block per query: warp w merges the partial lists of chunks
 // w, w + nw, ... into its own list, loading the head of its next list
@@ -755,9 +621,11 @@ __host__ __device__ inline int pad_stride(int bytes) {
 }
 
 // bytes of a depth slice of ``len`` elements, padded to the compute unit
-// (4 floats for fp32, one 32-byte mma step for int8)
+// (4 floats for fp32, one 32-byte mma step for int8; PQ code bytes are
+// read up to the slice's end, unpadded)
 __host__ __device__ inline int depth_pad(int kind, int len) {
-  return kind == kF32 ? (len + 3) / 4 * 16 : (len + 31) / 32 * 32;
+  return kind == kF32 ? (len + 3) / 4 * 16
+                      : kind == kI8 ? (len + 31) / 32 * 32 : len;
 }
 
 // Shared memory of the tiled pass 1, in this order: the resident query side,
@@ -1469,23 +1337,33 @@ cudaError_t launch_tiled(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// ------------------------------------------ streaming pass 1 (fp32, int8)
+// -------------------------------------- streaming pass 1 (fp32, int8, PQ)
 constexpr int kStreamThreads = 128;
 constexpr int kStreamWarps = kStreamThreads / 32;
 constexpr int kStreamRows = kStreamThreads;   // rows per tile: one a thread
 constexpr int kStreamStages = 3;          // ring: 2 items in flight
 constexpr int kStreamBlocks = 4;          // most blocks an SM is planned for
 constexpr int kStreamQ = 8;               // largest query tile
+constexpr int kStreamPQQ = 1;             // ... of the PQ mode (occupancy)
 constexpr int kSmemPerSM = 233472;        // shared memory of one SM
 constexpr int kSmemPerBlock = 1024;       // ... the system keeps per block
-// a meta slot: the tile's mask bytes, l2 norms and int8 row scales
-constexpr int kStreamMeta = kStreamRows * 9;
+// a meta slot: the tile's mask bytes, l2 norms and int8 row scales (PQ:
+// the mask bytes alone)
+__host__ __device__ constexpr int stream_meta(int kind) {
+  return kind == kPQ ? kStreamRows : kStreamRows * 9;
+}
 constexpr int kStreamMisc = 256;          // the query tile's ids, keys, ...
 
 // depth one item holds: 64 floats (fp32; 32 in list mode, whose compacted
-// rows take shared memory too), 256 int8 bytes
+// rows take shared memory too), 256 int8 or PQ code bytes
 __host__ __device__ constexpr int stream_slice(int kind, int list) {
   return kind == kF32 ? (list ? 32 : 64) : 256;
+}
+
+// PQ: the query tile's LUTs stay resident when one item holds a row's
+// whole code; else each item carries the tile's LUT slice for its codes
+__host__ __device__ constexpr bool lut_resident(int depth, int slice) {
+  return slice >= depth;
 }
 
 template <int N>
@@ -1494,9 +1372,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 struct StreamScan {
-  const void* q;           // f32 | i8 (nq, depth)
+  const void* q;           // f32 | i8 (nq, depth); PQ: LUTs (nq, depth, 256)
   const float* q_scale;    // int8: (nq,)
-  const void* rows;        // f32 | i8 (n, depth)
+  const void* rows;        // f32 | i8 (n, depth); PQ: uint8 codes (n, depth)
   const float* row_scale;  // int8: (n,)
   const float* sq;         // l2: (n,)
   const int8_t* mask;      // dense mode: (n,), non-zero admits the row
@@ -1510,28 +1388,36 @@ struct StreamScan {
   int* part_i;
 };
 
-// Shared memory of the streaming pass 1: the ring (each stage a row tile's
-// depth slice and the query tile's, rows padded to an odd number of
-// 16-byte units), kStreamStages meta slots, in list mode the chunk's
-// compacted rows (ids and (position, queries) words), the query tile's
-// misc, per warp and query a 32-entry candidate buffer and its list's
-// tail, then per warp and query a top-k list when they fit.
+// Shared memory of the streaming pass 1: PQ's resident LUTs (qt x depth x
+// 1 KB, when they are), the ring (each stage a row tile's depth slice,
+// rows padded to an odd number of 16-byte units, and the query tile's:
+// its rows' slice, or PQ's LUT slice when not resident), kStreamStages
+// meta slots, in list mode the chunk's compacted rows (ids and (position,
+// queries) words), the query tile's misc, per warp and query a 32-entry
+// candidate buffer and its list's tail, then per warp and query a top-k
+// list when they fit.
 struct StreamLayout {
   int r_stride;
-  size_t stage, compact, bufs, lists, total;
+  size_t lut, stage, compact, bufs, lists, total;
 };
 
 __host__ __device__ inline StreamLayout stream_layout(int kind, int list,
-                                                      int qt, int slice,
-                                                      int k,
+                                                      int qt, int depth,
+                                                      int slice, int k,
                                                       int smem_lists) {
   StreamLayout L;
   L.r_stride = pad_stride(depth_pad(kind, slice));
-  L.stage = static_cast<size_t>(kStreamRows + qt) * L.r_stride;
+  const bool resident = kind == kPQ && lut_resident(depth, slice);
+  L.lut = resident ? static_cast<size_t>(qt) * depth * 1024 : 0;
+  L.stage = static_cast<size_t>(kStreamRows) * L.r_stride +
+            (kind != kPQ ? static_cast<size_t>(qt) * L.r_stride
+             : resident  ? 0
+                         : static_cast<size_t>(qt) * slice * 1024);
   L.compact = list ? static_cast<size_t>(kListChunk) * 8 : 0;
   L.bufs = static_cast<size_t>(kStreamWarps) * qt * (32 * 8 + 8);
   L.lists = smem_lists ? static_cast<size_t>(kStreamWarps) * qt * k * 8 : 0;
-  L.total = kStreamStages * (L.stage + kStreamMeta) + L.compact +
+  L.total = L.lut + kStreamStages * (L.stage + stream_meta(kind)) +
+            L.compact +
             kStreamMisc + L.bufs + L.lists;
   return L;
 }
@@ -1540,17 +1426,51 @@ __host__ __device__ inline StreamLayout stream_layout(int kind, int list,
 // memory beside the ring; past that the lists live in device memory, one
 // partial per warp (``lists`` partials per chunk). ``blocks``: how many
 // such blocks one SM holds (1 to 4), which the wrapper sizes the grid by.
+// PQ (stream_plan_pq): the tile is at most kStreamPQQ, with resident LUTs
+// where they fit, else one query whose LUT rides in each item in slices of
+// M (multiples of 16 where possible). smem is 0 when nothing fits.
 struct StreamPlan {
   int qt, slice, smem_lists, lists, blocks;
   size_t smem;
 };
 
+void stream_blocks(StreamPlan& P) {
+  const int fit = kSmemPerSM / static_cast<int>(P.smem + kSmemPerBlock);
+  P.blocks = fit < 1 ? 1 : fit > kStreamBlocks ? kStreamBlocks : fit;
+}
+
+StreamPlan stream_plan_pq(int qt_cap, int depth, int k) {
+  const size_t limit = static_cast<size_t>(kSmemLimit);
+  if (qt_cap > kStreamPQQ) qt_cap = kStreamPQQ;
+  auto plan = [&](int qt, int slice, int lists) {
+    StreamPlan P{qt, slice, lists, lists ? 1 : kStreamWarps, 1,
+                 stream_layout(kPQ, 0, qt, depth, slice, k, lists).total};
+    stream_blocks(P);
+    return P;
+  };
+  if (depth <= stream_slice(kPQ, 0))
+    for (int lists = 1; lists >= 0; --lists)
+      for (int qt = qt_cap; qt >= 1; --qt)
+        if (plan(qt, depth, lists).smem <= limit)
+          return plan(qt, depth, lists);
+  const int top = depth - 1 < stream_slice(kPQ, 0) ? depth - 1
+                                                    : stream_slice(kPQ, 0);
+  for (int lists = 1; lists >= 0; --lists)
+    for (int slice = top; slice >= 1; --slice) {
+      if (slice > 16 && slice % 16 != 0) continue;
+      if (plan(1, slice, lists).smem <= limit) return plan(1, slice, lists);
+    }
+  return StreamPlan{1, 1, 0, kStreamWarps, 1, 0};
+}
+
 StreamPlan stream_plan(int kind, int list, int qt_cap, int depth, int k) {
+  if (kind == kPQ) return stream_plan_pq(qt_cap, depth, k);
   const int slice = stream_slice(kind, list);
   StreamPlan P{qt_cap, depth < slice ? depth : slice, 0, kStreamWarps, 1,
                0};
   for (int qt = qt_cap; qt >= 1; --qt) {
-    const size_t smem = stream_layout(kind, list, qt, P.slice, k, 1).total;
+    const size_t smem =
+        stream_layout(kind, list, qt, depth, P.slice, k, 1).total;
     if (smem <= static_cast<size_t>(kSmemLimit)) {
       P.qt = qt;
       P.smem_lists = 1;
@@ -1560,21 +1480,21 @@ StreamPlan stream_plan(int kind, int list, int qt_cap, int depth, int k) {
     }
   }
   if (P.smem == 0)
-    P.smem = stream_layout(kind, list, qt_cap, P.slice, k, 0).total;
-  const int fit = kSmemPerSM / static_cast<int>(P.smem + kSmemPerBlock);
-  P.blocks = fit < 1 ? 1 : fit > kStreamBlocks ? kStreamBlocks : fit;
+    P.smem = stream_layout(kind, list, qt_cap, depth, P.slice, k, 0).total;
+  stream_blocks(P);
   return P;
 }
 
-// Kernels 1 and 5 (scoped_topk, _i8), and kernel 9 fp32 / int8 in list
-// mode: query tile of qt <= 8 (kQ = 1 compiles the q = 1 scan alone) x
-// row chunk (dense) or list chunk (kList). Item = (128-row tile, depth
-// slice), copied with cp.async into ring stage item % 3 by all threads
-// (neighbouring threads on neighbouring 16 bytes; list mode gathers each
-// row from its id), two items ahead of the one computed; a tile's first
-// item also stages its meta. Thread t owns row t of every tile: its chain
-// (fp32 fmaf, int8 __dp4a) continues across the slices out of shared
-// memory (the query slice is a broadcast). At a tile's end each warp
+// Kernels 1, 5 and 7 (scoped_topk, _i8, _pq), and kernel 9 fp32 / int8
+// in list mode: query tile of qt <= 8 (kQ = 1 compiles the q = 1 scan
+// alone) x row chunk (dense) or list chunk (kList). Item = (128-row tile,
+// depth slice), copied with cp.async into ring stage item % 3 by all
+// threads (neighbouring threads on neighbouring 16 bytes; list mode
+// gathers each row from its id), two items ahead of the one computed; a
+// tile's first item also stages its meta, and the first item's group the
+// PQ tile's resident LUTs. Thread t owns row t of every tile: its chain
+// (fp32 fmaf, int8 __dp4a, PQ lookups) continues across the slices out of
+// shared memory (the query slice is a broadcast). At a tile's end each warp
 // appends the scores of its 32 rows that beat the best of the warps'
 // tails of the query's lists to the query's 32-entry buffer, and merges a
 // buffer into its list (warp_merge, 32 candidates at once) only when the
@@ -1591,12 +1511,14 @@ __global__ void __launch_bounds__(kStreamThreads,
 scan_pass1_stream(const StreamScan p) {
   using Acc = typename Scorer<kKind>::Acc;
   constexpr int kEb = kKind == kF32 ? 4 : 1;    // bytes per element
+  constexpr int kMeta = stream_meta(kKind);
   extern __shared__ __align__(16) unsigned char smem[];
-  const StreamLayout L =
-      stream_layout(kKind, kList, p.qt, p.slice, p.k, p.smem_lists);
-  unsigned char* ring = smem;
+  const StreamLayout L = stream_layout(kKind, kList, p.qt, p.depth, p.slice,
+                                       p.k, p.smem_lists);
+  const float* lut_res = reinterpret_cast<const float*>(smem);  // PQ
+  unsigned char* ring = smem + L.lut;
   unsigned char* meta = ring + kStreamStages * L.stage;
-  int* cid = reinterpret_cast<int*>(meta + kStreamStages * kStreamMeta);
+  int* cid = reinterpret_cast<int*>(meta + kStreamStages * kMeta);
   unsigned* cmeta = reinterpret_cast<unsigned*>(cid + L.compact / 8);
   unsigned char* misc = reinterpret_cast<unsigned char*>(cid) + L.compact;
   long long* qslot = reinterpret_cast<long long*>(misc);  // kStreamQ each
@@ -1694,6 +1616,12 @@ scan_pass1_stream(const StreamScan p) {
   const unsigned char* r_src = static_cast<const unsigned char*>(p.rows) +
                                static_cast<size_t>(r_begin) * row_bytes;
   const unsigned char* q_src = static_cast<const unsigned char*>(p.q);
+  // PQ: one query's LUT, and whether the tile's stay resident
+  const int lut_bytes = p.depth * 1024;
+  const bool resident = kKind == kPQ && lut_resident(p.depth, p.slice);
+  if (resident)                 // joins the first item's group
+    stage_gather(smem, lut_bytes, q_src, lut_bytes, qid, nqt, 0, lut_bytes,
+                 p.q_width);
   auto issue = [&](int item) {
     if (item < total) {
       const int t = item / ns;
@@ -1711,15 +1639,19 @@ scan_pass1_stream(const StreamScan p) {
       else
         stage_copy(stage, L.r_stride, r_src + i0 * row_bytes + c0 * kEb,
                    row_bytes, nr, lenb, p.row_width);
-      stage_gather(qs, L.r_stride, q_src, row_bytes, qid, nqt, c0 * kEb,
-                   lenb, p.q_width);
+      if (kKind != kPQ)
+        stage_gather(qs, L.r_stride, q_src, row_bytes, qid, nqt, c0 * kEb,
+                     lenb, p.q_width);
+      else if (!resident)       // the tile's LUT slice, (query, m, 256)
+        stage_gather(qs, lenb * 1024, q_src, lut_bytes, qid, nqt, c0 * 1024,
+                     lenb * 1024, p.q_width);
       if (padb > lenb) {        // pads are 0 (fp32: 0 * NaN is NaN; int8:
         if (kKind == kF32)      // a zero query byte makes any row byte's
           zero_cols(stage, L.r_stride, kStreamRows, lenb, padb);  // term 0)
         zero_cols(qs, L.r_stride, nqt, lenb, padb);
       }
       if (s == 0) {             // the tile's meta, read at its end
-        unsigned char* m = meta + (t % kStreamStages) * kStreamMeta;
+        unsigned char* m = meta + (t % kStreamStages) * kMeta;
         float* sqs = reinterpret_cast<float*>(m + kStreamRows);
         float* scs = sqs + kStreamRows;
         if constexpr (kList) {
@@ -1775,7 +1707,7 @@ scan_pass1_stream(const StreamScan p) {
           }
         }
       }
-    } else {
+    } else if constexpr (kKind == kI8) {
       const int4* xr =
           reinterpret_cast<const int4*>(stage + threadIdx.x * L.r_stride);
       const int4* qv0 =
@@ -1795,13 +1727,50 @@ scan_pass1_stream(const StreamScan p) {
           }
         }
       }
+    } else {
+      // PQ: only lanes whose row the tile's mask admits look up (a warp
+      // with none skips the item), query by query, kernel 8's loop: 16
+      // reads in flight, then 16 adds in order. The LUT of query j: the
+      // resident one (then the item holds the whole code, s == 0), or the
+      // item's slice of it, rows of ``len`` x 256 floats.
+      const unsigned char* mt = meta + (t % kStreamStages) * kMeta;
+      if (t * kStreamRows + threadIdx.x < count && mt[threadIdx.x] != 0) {
+        const unsigned char* cr = stage + threadIdx.x * L.r_stride;
+        const float* lq =
+            resident ? lut_res
+                     : reinterpret_cast<const float*>(stage +
+                                                      kStreamRows * L.r_stride);
+        const int qstride = (resident ? p.depth : len) * 256;
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          if (kQ == 1 || j < nqt) {
+            const float* lj = lq + j * qstride;
+            float a = acc[j];
+            int m = 0;
+            for (; m + 16 <= len; m += 16) {
+              const uint4 cw = *reinterpret_cast<const uint4*>(cr + m);
+              const unsigned wd[4] = {cw.x, cw.y, cw.z, cw.w};
+              const float* lm = lj + m * 256;
+              float v[16];
+#pragma unroll
+              for (int b = 0; b < 16; ++b)   // byte b & 3 of the word
+                v[b] = lm[b * 256 + static_cast<int>(__byte_perm(
+                                        wd[b >> 2], 0u, 0x4440u + (b & 3)))];
+#pragma unroll
+              for (int b = 0; b < 16; ++b) a += v[b];
+            }
+            for (; m < len; ++m) a += lj[m * 256 + cr[m]];
+            acc[j] = a;
+          }
+        }
+      }
     }
     if (s != ns - 1) continue;
     // the tile's end: the thread's row i of the block's rows, which
     // queries admit it, and its rank key
     const int i = t * kStreamRows + threadIdx.x;
     const bool in = i < count;
-    const unsigned char* m = meta + (t % kStreamStages) * kStreamMeta;
+    const unsigned char* m = meta + (t % kStreamStages) * kMeta;
     const float sqr =
         (kL2 && in) ? reinterpret_cast<const float*>(m + kStreamRows)
                           [threadIdx.x]
@@ -1899,12 +1868,21 @@ cudaError_t launch_stream(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// the streaming pass's variant for kind (fp32, int8), metric, query tile
-// (1: kQ = 1) and mode
+// the streaming pass's variant for kind (fp32, int8, PQ: dense mode
+// only), metric, query tile (1: kQ = 1) and mode
 template <bool kList>
 cudaError_t dispatch_stream(int kind, bool l2, dim3 grid, size_t smem,
                             cudaStream_t stream, const StreamScan& p) {
   const bool one = p.qt == 1;
+  if (kind == kPQ) {
+    if constexpr (kList) {
+      return cudaErrorInvalidValue;
+    } else {
+      return one ? launch_stream<kPQ, false, 1, false>(grid, smem, stream, p)
+                 : launch_stream<kPQ, false, kStreamQ, false>(grid, smem,
+                                                              stream, p);
+    }
+  }
   if (kind == kF32) {
     if (l2)
       return one ? launch_stream<kF32, true, 1, kList>(grid, smem, stream, p)
@@ -2342,18 +2320,6 @@ cudaError_t launch_pass2(const float* part_v, const int* part_i, int nq,
              nq);
 }
 
-template <bool kVec>
-cudaError_t launch_pass1(dim3 grid, size_t smem, cudaStream_t stream,
-                         const Scan& p) {
-  auto kern = scan_pass1<kVec>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // the list form's plan: the streaming pass's (fp32, int8) or the PQ pass's
 // with room for a chunk's compacted rows
 struct ListPlan {
@@ -2375,45 +2341,16 @@ ListPlan list_plan(int kind, int qt_cap, int depth, int k) {
 
 extern "C" {
 
-// Kernel 7, the PQ scan with one dense (n,) int8 ``mask`` shared by every
-// query (scoped_topk_pq): scan_pass1, then pass 2. ``lut`` (nq, depth, 256),
-// ``codes`` (n, depth); ``slice`` is the depth staged at once, ``qt`` the
-// query tile (<= 8), ``smem_lists`` whether the tile's lists fit in shared
-// memory; the partials are (nq, n_chunks, k).
-int repro_scan_topk_pq(const float* lut, const uint8_t* codes,
-                       const int8_t* mask, int nq, int n, int depth,
-                       int slice, int k, int qt, int chunk_rows,
-                       int n_chunks, int smem_lists, float* part_v,
-                       int* part_i, float* out_v, int* out_i,
-                       void* stream_ptr) {
-  if (nq <= 0) return cudaSuccess;
-  if (k < 1 || qt < 1 || qt > kWarps || depth < 1 || slice < 1 ||
-      slice > depth || chunk_rows < 1 || n_chunks < 1 || n_chunks > 65535 ||
-      mask == nullptr)
-    return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Scan p{lut, codes, mask, nq, n, depth, slice, k, qt, chunk_rows,
-         smem_lists, part_v, part_i};
-  const bool vec = depth % 4 == 0 && slice % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(codes) % 4 == 0;
-  const size_t smem1 = pass1_smem(qt, slice, k, smem_lists);
-  const dim3 grid1((nq + qt - 1) / qt, n_chunks);
-  cudaError_t err = vec ? launch_pass1<true>(grid1, smem1, stream, p)
-                        : launch_pass1<false>(grid1, smem1, stream, p);
-  if (err != cudaSuccess) return err;
-  return launch_pass2(part_v, part_i, nq, n_chunks, k, ListArgs{}, 1, out_v,
-                      out_i, stream);
-}
-
-// The streaming pass 1's plan for kind 0 (fp32, kernel 1) or 1 (int8,
-// kernel 5), a query tile of at most ``qt_cap`` <= 8, depth ``depth`` and
-// lists of ``k``: writes the query tile to ``qt``, the partial lists per
-// chunk to ``lists`` (1, or 4 when the warps' lists live in device memory)
-// and the blocks one SM holds to ``blocks``; returns the shared memory a
-// block takes, 0 for bad arguments.
+// The streaming pass 1's plan for kind 0 (fp32, kernel 1), 1 (int8,
+// kernel 5) or 2 (PQ, kernel 7), a query tile of at most ``qt_cap`` <= 8
+// (PQ: at most kStreamPQQ), depth ``depth`` (M for PQ) and lists of
+// ``k``: writes the query tile to ``qt``, the partial lists per chunk to
+// ``lists`` (1, or 4 when the warps' lists live in device memory) and the
+// blocks one SM holds to ``blocks``; returns the shared memory a block
+// takes, 0 for bad arguments or when nothing fits.
 int repro_stream_plan(int kind, int qt_cap, int depth, int k, int* qt,
                       int* lists, int* blocks) {
-  if ((kind != kF32 && kind != kI8) || qt_cap < 1 || qt_cap > kStreamQ ||
+  if (kind < kF32 || kind > kPQ || qt_cap < 1 || qt_cap > kStreamQ ||
       depth < 1 || k < 1)
     return 0;
   const StreamPlan plan = stream_plan(kind, 0, qt_cap, depth, k);
@@ -2423,11 +2360,14 @@ int repro_stream_plan(int kind, int qt_cap, int depth, int k, int* qt,
   return static_cast<int>(plan.smem);
 }
 
-// Kernels 1 and 5, the fp32 / int8 scans (kind 0 / 1) with one dense (n,)
-// int8 ``mask`` shared by every query (scoped_topk, scoped_topk_i8):
-// scan_pass1_stream, then pass 2. ``q_scale`` and ``row_scale`` are read
-// for int8, ``sq`` for l2. ``qt_cap`` <= 8 caps the query tile
-// (stream_plan picks it); the partials are (nq, n_chunks * lists, k) for
+// Kernels 1, 5 and 7, the fp32 / int8 / PQ scans (kind 0 / 1 / 2) with
+// one dense (n,) int8 ``mask`` shared by every query (scoped_topk,
+// scoped_topk_i8, scoped_topk_pq): scan_pass1_stream, then pass 2.
+// ``q_scale`` and ``row_scale`` are read for int8, ``sq`` for l2; for PQ
+// ``q`` is the (nq, depth, 256) f32 LUTs, ``rows`` the (n, depth) uint8
+// codes, and l2 is 0 (the LUTs fold the metric in). ``qt_cap`` <= 8 caps
+// the query tile (stream_plan picks it); the partials are
+// (nq, n_chunks * lists, k) for
 // the plan's ``lists``, and pass 2 merges each query's in ``groups``
 // blocks first when ``groups`` > 1 (launch_pass2), writing nq * groups
 // lists of k past them.
@@ -2439,19 +2379,21 @@ int repro_scan_topk_stream(int kind, const void* q, const float* q_scale,
                            float* part_v, int* part_i, float* out_v,
                            int* out_i, void* stream_ptr) {
   if (nq <= 0) return cudaSuccess;
-  if ((kind != kF32 && kind != kI8) || k < 1 || qt_cap < 1 ||
+  if (kind < kF32 || kind > kPQ || k < 1 || qt_cap < 1 ||
       qt_cap > kStreamQ || depth < 1 || chunk_rows < 1 || n_chunks < 1 ||
       n_chunks > 65535 || groups < 1 || mask == nullptr ||
-      (l2 && sq == nullptr) ||
+      (l2 && (sq == nullptr || kind == kPQ)) ||
       (kind == kI8 && (q_scale == nullptr || row_scale == nullptr)))
     return cudaErrorInvalidValue;
   const StreamPlan plan = stream_plan(kind, 0, qt_cap, depth, k);
+  if (plan.smem == 0) return cudaErrorInvalidValue;
   const size_t eb = kind == kF32 ? 4 : 1;
+  const size_t qeb = kind == kPQ ? 1024 : eb;    // query-side bytes per depth
   StreamScan p{q, q_scale, rows, row_scale, sq, mask, nullptr, nullptr,
                ListArgs{}, 0, 0, nq, n, depth, plan.slice, k, plan.qt,
                chunk_rows, plan.smem_lists, plan.lists,
                copy_width(rows, depth * eb, plan.slice * eb),
-               copy_width(q, depth * eb, plan.slice * eb), part_v, part_i};
+               copy_width(q, depth * qeb, plan.slice * qeb), part_v, part_i};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const dim3 grid((nq + plan.qt - 1) / plan.qt, n_chunks);
   cudaError_t err =

@@ -26,8 +26,8 @@ from .common import row_sq_norms
 # process-global registry is safe; callers passing explicit block args still
 # win. On the card block_q is the query tile and block_n the rows one block
 # sweeps; ``None`` sizes the row chunks to fill the card. The query tile is
-# at most 8 on the per-row and streaming passes 1 and at most 64 on the
-# tiled passes of the scope-word scans (``_st.TILED``), whose default is the
+# at most 8 on the streaming pass 1 (1 at PQ) and at most 64 on the tiled
+# passes of the scope-word scans (``_st.TILED``), whose default is the
 # 64-query cap (the PQ plan takes at most 8 of it).
 _DEFAULT_BLOCK_Q = 8
 _DEFAULT_BLOCK_N: Optional[int] = None

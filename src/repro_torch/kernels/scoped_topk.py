@@ -16,12 +16,11 @@ and any depth (d, or M for PQ) are taken. Which pass 1 runs:
   (query tiles of up to 64 fp32 / int8 or 8 PQ queries, rows staged through
   a shared-memory ring; :func:`tiled_plan` asks the C entry for the tile,
   :func:`tiled_geometry` sizes the grid);
-* the fp32 and int8 dense-mask scans (:data:`STREAMED`: ``scoped_topk``,
-  ``scoped_topk_i8``) run the streaming pass (query tiles of up to 8;
-  :func:`stream_plan`, :func:`stream_geometry`);
-* the PQ dense-mask scan (``scoped_topk_pq``) runs the per-row pass 1,
-  whose query tile (<= 8), list placement and depth slice :func:`geometry`
-  picks;
+* the fp32, int8 and PQ dense-mask scans (:data:`STREAMED`:
+  ``scoped_topk``, ``scoped_topk_i8``, ``scoped_topk_pq``) run the
+  streaming pass (query tiles of up to 8; PQ's of one query whose LUT
+  stays resident; :func:`stream_plan`, :func:`stream_geometry`, which gives
+  a PQ chunk at least :data:`STREAM_PQ_ROWS` rows);
 * kernel 9 runs the list form (:func:`list_plan`): the streaming pass
   (fp32, int8) or the PQ tiled pass in list mode, a block per (probed
   list's chunk, tile of up to 8 queries that probe the list). The wrapper
@@ -40,11 +39,7 @@ import torch
 
 from . import _build
 
-MAX_BLOCK_Q = 8        # per-row pass 1: queries per block = warps per block
-THREADS = 256
 SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use
-LIST_SMEM = 64 * 1024  # shared memory a block's top-k lists may take
-_BLOCKS_PER_SM = 4     # target pass-1 blocks per SM when block_n is auto
 
 KINDS = {"f32": 0, "i8": 1, "pq": 2}
 
@@ -53,11 +48,14 @@ KINDS = {"f32": 0, "i8": 1, "pq": 2}
 TILE_Q = 64
 TILE_R = {"f32": 256, "i8": 128, "pq": 512}
 TILED = ("multi_scope_topk", "multi_scope_topk_i8", "multi_scope_topk_pq")
-# the streaming pass 1 of the fp32 and int8 dense scans
-# (scan_pass1_stream): largest query tile, rows per row tile
-STREAMED = ("scoped_topk", "scoped_topk_i8")
+# the streaming pass 1 of the dense scans (scan_pass1_stream): largest
+# query tile, rows per row tile, and the fewest rows of a PQ chunk (its
+# block copies the tile's LUTs, qt x M KB, once: at M = 32 a 1,024-row
+# chunk's codes are one LUT's bytes)
+STREAMED = ("scoped_topk", "scoped_topk_i8", "scoped_topk_pq")
 STREAM_Q = 8
 STREAM_ROWS = 128
+STREAM_PQ_ROWS = 1024
 # kernel 9's list form: largest query tile of a list block
 LIST_Q = 8
 
@@ -93,59 +91,6 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
-
-
-class Geometry(NamedTuple):
-    qt: int            # query tile (queries per block)
-    slice: int         # depth staged at once (== depth: staged once)
-    smem_lists: bool   # top-k lists in shared memory (else device memory)
-    chunk_rows: int    # rows one block sweeps
-    n_chunks: int
-
-
-def smem_bytes(qt: int, slice_: int, k: int, smem_lists: bool) -> int:
-    """The per-row pass 1's shared memory, as ``pass1_smem`` in the CUDA
-    source: the tile's LUT slices, one sweep's scores, the lists."""
-    return qt * slice_ * 1024 + qt * THREADS * 4 + (
-        qt * k * 8 if smem_lists else 0)
-
-
-def geometry(nq: int, n: int, m: int, k: int, block_q: int,
-             block_n: Optional[int], sms: int = 132) -> Geometry:
-    """Launch shape of the per-row pass 1 (the PQ dense scan, kernel 7)
-    for any k >= 1 and M >= 1.
-
-    The query tile starts at ``min(block_q, nq)``. Top-k lists stay in
-    shared memory while the tile's lists fit ``LIST_SMEM`` (the tile
-    shrinks for large k) and move to their partial slots in device memory
-    past ``k * 8 > LIST_SMEM``. The tile shrinks to fit whole LUTs, since
-    re-staging a LUT slice every 256 rows would cost more bytes than the
-    codes; a LUT that still does not fit is staged in slices of M."""
-    if k < 1:
-        raise ValueError(f"k={k} must be >= 1")
-    if m < 1:
-        raise ValueError(f"M={m} must be >= 1")
-    if not 1 <= block_q <= MAX_BLOCK_Q:
-        raise ValueError(f"block_q={block_q} outside [1, {MAX_BLOCK_Q}]")
-    qt = max(1, min(block_q, nq))
-    smem_lists = k * 8 <= LIST_SMEM
-    if smem_lists:
-        qt = max(1, min(qt, LIST_SMEM // (k * 8)))
-
-    def room(qt: int) -> int:
-        return SMEM_LIMIT - smem_bytes(qt, 0, k, smem_lists)
-
-    while qt > 1 and qt * m * 1024 > room(qt):
-        qt -= 1
-    fit = room(qt) // (qt * 1024)
-    slice_ = m if fit >= m else max(1, fit // 4 * 4)
-    if block_n is None:
-        chunks = max(1, _ceil(_BLOCKS_PER_SM * sms, _ceil(max(nq, 1), qt)))
-        block_n = max(_ceil(max(n, 1), chunks), k)
-    # whole words per chunk, and at most 65535 chunks (the grid.y limit)
-    block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
-    return Geometry(qt, slice_, smem_lists, block_n,
-                    max(1, _ceil(n, block_n)))
 
 
 class TiledGeometry(NamedTuple):
@@ -197,14 +142,17 @@ class StreamPlan(NamedTuple):
 def stream_plan(qt_cap: int, depth: int, k: int,
                 kind: str = "f32") -> StreamPlan:
     """The C entry's plan for the streaming pass 1 of ``scoped_topk``
-    (``kind`` "f32") or ``scoped_topk_i8`` ("i8") (``stream_plan`` in the
-    CUDA source, which alone holds its layout): the largest query tile up
-    to ``qt_cap`` whose per-warp lists fit shared memory beside the ring
-    (else the lists go to device memory, one partial per warp), and how
-    many blocks an SM holds. Builds the library; plans are remembered."""
+    (``kind`` "f32"), ``scoped_topk_i8`` ("i8") or ``scoped_topk_pq``
+    ("pq", ``depth`` = M) (``stream_plan`` in the CUDA source, which alone
+    holds its layout): the largest query tile up to ``qt_cap`` (PQ: up to
+    the C source's occupancy cap, with resident LUTs where they fit) whose
+    per-warp lists fit shared memory beside the ring (else the lists go to
+    device memory, one partial per warp), and how many blocks an SM holds;
+    ``smem`` 0 when nothing fits. Builds the library; plans are
+    remembered."""
     if not 1 <= qt_cap <= STREAM_Q:
         raise ValueError(f"qt_cap={qt_cap} outside [1, {STREAM_Q}]")
-    if kind not in ("f32", "i8"):
+    if kind not in KINDS:
         raise ValueError(f"no streaming pass for kind {kind!r}")
     qt, lists, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     smem = _build.library().repro_stream_plan(
@@ -247,19 +195,27 @@ def list_grid(nq: int, n_lists: int, max_aligned: int, qt: int,
 
 
 def stream_geometry(nq: int, n: int, qt: int, blocks: int,
-                    block_n: Optional[int], sms: int = 132) -> TiledGeometry:
+                    block_n: Optional[int], sms: int = 132,
+                    min_rows: int = STREAM_ROWS) -> TiledGeometry:
     """Grid of the streaming pass 1 for the plan's query tile ``qt`` and
     ``blocks`` per SM: ``block_n`` (default: the rows split over one wave of
-    ``sms * blocks`` blocks, in whole 128-row tiles) is rounded up to whole
-    mask words and to at most 65535 chunks. A launch of a few thousand
-    rows (a gather plan's) gets one tile per block."""
+    ``sms * blocks`` blocks, in whole 128-row tiles and at least
+    ``min_rows`` rows a chunk) is rounded up to whole mask words and to at
+    most 65535 chunks. A launch of a few thousand rows (a gather plan's)
+    gets one tile per block at fp32 and int8; PQ passes ``min_rows`` =
+    :data:`STREAM_PQ_ROWS`, so its chunks' codes outweigh their blocks'
+    LUT copies."""
     if not 1 <= qt <= STREAM_Q:
         raise ValueError(f"qt={qt} outside [1, {STREAM_Q}]")
     if blocks < 1:
         raise ValueError(f"blocks={blocks} must be >= 1")
+    if min_rows < 1 or min_rows % STREAM_ROWS:
+        raise ValueError(f"min_rows={min_rows} is not whole {STREAM_ROWS}-row "
+                         f"tiles")
     if block_n is None:
         chunks = max(1, (sms * blocks) // _ceil(max(nq, 1), qt))
-        block_n = STREAM_ROWS * _ceil(_ceil(max(n, 1), chunks), STREAM_ROWS)
+        block_n = max(min_rows, STREAM_ROWS * _ceil(_ceil(max(n, 1), chunks),
+                                                    STREAM_ROWS))
     block_n = 32 * _ceil(max(block_n, _ceil(n, 65535)), 32)
     return TiledGeometry(qt, block_n, max(1, _ceil(n, block_n)))
 
@@ -285,7 +241,7 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared launch of the dense-mask and scope-word scans. The wrappers
     named in :data:`TILED` run the tiled passes, those in :data:`STREAMED`
-    the streaming pass 1, ``scoped_topk_pq`` the per-row pass 1."""
+    the streaming pass 1."""
     dev = q.device
     nq, n = q.shape[0], rows.shape[0]
     if l2:
@@ -301,27 +257,28 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale,
         n_scopes = n_words = 0
     sms = _sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
-    tiled = name in TILED
     streaming = name in STREAMED
     lists = 1                          # partial lists per chunk
-    if streaming or tiled:
-        if block_q < 1:
-            raise ValueError(f"block_q={block_q} must be >= 1")
-        if k < 1:
-            raise ValueError(f"k={k} must be >= 1")
+    if block_q < 1:
+        raise ValueError(f"block_q={block_q} must be >= 1")
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
     if streaming:
         plan = stream_plan(max(1, min(block_q, nq, STREAM_Q)), depth, k, kind)
-        geo = stream_geometry(nq, n, plan.qt, plan.blocks, block_n, sms)
+        if plan.smem == 0:
+            raise ValueError(f"no streaming plan fits shared memory: {name} "
+                             f"depth={depth} k={k}")
+        geo = stream_geometry(
+            nq, n, plan.qt, plan.blocks, block_n, sms,
+            STREAM_PQ_ROWS if kind == "pq" else STREAM_ROWS)
         lists = plan.lists
-    elif tiled:
+    else:
         qt, smem = tiled_plan(kind, max(1, min(block_q, nq, TILE_Q)), depth,
                               k)
         if smem == 0:
             raise ValueError(f"no tiled plan fits shared memory: {name} "
                              f"depth={depth} k={k}")
         geo = tiled_geometry(kind, nq, n, k, qt, block_n, sms)
-    else:
-        geo = geometry(nq, n, depth, k, block_q, block_n, sms)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
@@ -345,19 +302,13 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale,
                 depth, k, int(l2), geo.qt, geo.chunk_rows, geo.n_chunks,
                 groups, _ptr(part_v), _ptr(part_i), _ptr(out_v),
                 _ptr(out_i), cuda_stream)
-        elif tiled:
+        else:
             rc = lib.repro_scan_topk_tiled(
                 KINDS[kind], _ptr(q), _ptr(q_scale), _ptr(rows),
                 _ptr(row_scale), _ptr(sq if l2 else None), _ptr(words),
                 _ptr(sids), n_scopes, n_words, nq, n, depth, k, int(l2),
                 geo.qt, geo.chunk_rows, geo.n_chunks, _ptr(part_v),
                 _ptr(part_i), _ptr(out_v), _ptr(out_i), cuda_stream)
-        else:
-            rc = lib.repro_scan_topk_pq(
-                _ptr(q), _ptr(rows), _ptr(mask), nq, n, depth, geo.slice, k,
-                geo.qt, geo.chunk_rows, geo.n_chunks, int(geo.smem_lists),
-                _ptr(part_v), _ptr(part_i), _ptr(out_v), _ptr(out_i),
-                cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
     count_launch(launches, name)

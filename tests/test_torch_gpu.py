@@ -667,29 +667,114 @@ def test_pq_tiled_scan_equals_plain_version_and_kernel_7(q, n, m, k, offset):
         assert torch.equal(got[0][i:i + 1], one[0]), f"values, query {i}"
 
 
+# kernel 7's cases: (q, n, M, k, offset, mask): PQ_CASES' shapes under
+# each case's dense scope row, then q = 1 at a gather plan's 4,000 rows and
+# the main shape's 1.94M (all-ones masks), the widest real gather (q = 5,
+# 41,829 rows, k = r = 80), k = 1, the wide merge (k = 320), lists in
+# device memory (k = 4096), M = 256 (the LUT rides in slices), M = 3 and
+# 13 (byte copies), codes ``offset`` bytes past a 16-byte boundary, and
+# masks that admit only the last 7 rows or nothing
+K7_CASES = [(q, n, m, k, offset, "dense") for q, n, m, k, offset in
+            PQ_CASES] + [
+    (1, 4000, 32, 80, 0, "ones"), (1, _MAIN, 32, 40, 0, "ones"),
+    (5, 41_829, 32, 80, 0, "ones"), (1, 4000, 32, 1, 16, "dense"),
+    (2, 3001, 32, 320, 5, "dense"), (3, 20_000, 16, 4096, 0, "dense"),
+    (2, 5000, 256, 10, 1, "dense"), (1, 3001, 13, 80, 0, "last"),
+    (4, 3001, 3, 10, 0, "empty")]
+K7_LAUNCHES = sorted({(q, n, m, k) for q, n, m, k, *_ in K7_CASES} |
+                     {(1, _MAIN, 32, 80), (5, 4000, 32, 80)})
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("q,n,d,k", STREAM_LAUNCHES)
-def test_stream_plan_fits_shared_memory(q, n, d, k):
-    """The C entry's plan for kernel 1 fits a block's 232,448 bytes with
-    its three-stage ring, the tile is at most the cap and plans itself
-    again, the per-warp lists stay in shared memory unless one query's do
-    not fit (then one partial per warp, 4 a chunk), and at the main shape
-    (q = 1, k = 10) two blocks share an SM, so the grid is one wave of 262
-    blocks."""
+@pytest.mark.parametrize("q,n,m,k,offset,mask", K7_CASES)
+def test_pq_stream_scan_matches_plain_version(q, n, m, k, offset, mask):
+    """Kernel 7 (the streaming pass 1 in its PQ mode, one launch) bit for
+    bit against its plain version: the same lookups added in subspace
+    order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    lut, codes, dense, _, _ = _pq_case_inputs(q, n, m, offset,
+                                              q * 23 + n + m + k)
+    m8 = {"dense": dense[0], "ones": torch.ones_like(dense[0]),
+          "last": dense[2], "empty": dense[1]}[mask].to(torch.int8)
+    ops.reset_launch_counts()
+    got = ops.scoped_topk_pq(lut, codes, m8, k)
+    assert ops.launch_counts()["scoped_topk_pq"] == 1
+    want = ref.scoped_topk_pq_ref(lut, codes, m8, k)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    admitted = int((m8 != 0).sum())
+    if admitted < k:
+        assert torch.all(got[1][:, admitted:] == -1)
+
+
+STREAM_PLAN_CASES = [("f32", *c) for c in STREAM_LAUNCHES] + [
+    ("pq", *c) for c in K7_LAUNCHES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,q,n,d,k", STREAM_PLAN_CASES)
+def test_stream_plan_fits_shared_memory(kind, q, n, d, k):
+    """The C entry's plan for kernels 1 and 7 fits a block's 232,448 bytes
+    with its three-stage ring, the tile is at most the cap (1 at PQ) and
+    plans itself again, the per-warp lists stay in shared memory unless
+    one query's do not fit (then one partial per warp, 4 a chunk). At
+    kernel 1's main shape (q = 1, k = 10) two blocks share an SM, so the
+    grid is one wave of 262 blocks; at kernel 7's (M = 32) the resident
+    LUT leaves room for four, and its chunks keep at least 1,024 rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     st = ops._st
     cap = min(q, st.STREAM_Q)
-    plan = st.stream_plan(cap, d, k)
+    plan = st.stream_plan(cap, d, k, kind)
     assert 0 < plan.smem <= st.SMEM_LIMIT and 1 <= plan.qt <= cap
     assert 1 <= plan.blocks <= 4 and plan.lists in (1, 4)
-    assert st.stream_plan(plan.qt, d, k) == plan
-    geo = st.stream_geometry(q, n, plan.qt, plan.blocks, None)
+    assert st.stream_plan(plan.qt, d, k, kind) == plan
+    floor = st.STREAM_PQ_ROWS if kind == "pq" else st.STREAM_ROWS
+    geo = st.stream_geometry(q, n, plan.qt, plan.blocks, None,
+                             min_rows=floor)
     assert 1 <= geo.n_chunks <= 65535
     assert geo.chunk_rows % st.STREAM_ROWS == 0 or geo.n_chunks == 1
-    if (n, d, k) == (_MAIN, 128, 10):
+    assert geo.chunk_rows >= min(floor, n)
+    if (kind, n, d, k) == ("f32", _MAIN, 128, 10):
         assert (plan.qt, plan.lists, plan.blocks) == (1, 1, 2)
         assert 256 <= geo.n_chunks <= 264
+    if kind == "pq":
+        assert plan.qt == 1
+        if (d, k) in ((32, 40), (32, 80)) and q == 1:
+            assert (plan.qt, plan.lists, plan.blocks) == (1, 1, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [1, 3, 60_625, 2 ** 20 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_mask_and_popcount_is_one_launch(n_words, offset):
+    """Kernel 4 equals its plain version bit for bit, with ``a`` aligned or
+    a view one word into a larger buffer (4-byte words then), and each call
+    is one launch of one kernel (torch.profiler)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n_words + offset)
+    buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_words + 1,), generator=g,
+                        device=dev, dtype=torch.int32)
+    a = buf[offset:offset + n_words]
+    b = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_words,), generator=g,
+                      device=dev, dtype=torch.int32)
+    ops.reset_launch_counts()
+    w1, c1 = ops.mask_and_popcount(a, b)
+    w2, c2 = ref.mask_and_popcount_ref(a, b)
+    assert torch.equal(w1, w2) and int(c1) == int(c2)
+    assert ops.launch_counts()["mask_and_popcount"] == 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.mask_and_popcount(a, b)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0.0) > 0]
+    assert [(("and_popc_kernel" in e.key), e.count) for e in kernels] == \
+        [(True, 5)], [(e.key, e.count) for e in kernels]
 
 
 @pytest.mark.gpu

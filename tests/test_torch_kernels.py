@@ -170,7 +170,7 @@ def test_bitmap_patch_matches_jax(rows, n_words):
         got, jref.bitmap_patch_np(masks, delta, signs))
 
 
-@pytest.mark.parametrize("n_words", [1, 77, 2049])
+@pytest.mark.parametrize("n_words", [1, 3, 77, 2049, 2 ** 20 + 3])
 def test_mask_and_popcount_matches_jax(n_words):
     rng = np.random.default_rng(n_words)
     a = rng.integers(0, 2 ** 32, size=n_words, dtype=np.uint32)
@@ -300,10 +300,24 @@ def test_i8_kernels_match_jax(q, n, k, metric):
                  label + " multi numpy")
 
 
-@pytest.mark.parametrize("q,n,k,metric", QSWEEP)
-def test_pq_kernels_match_jax(q, n, k, metric):
-    lut, codes = _pq_case(q, n, 16, 4, seed=q * 100 + n, metric=metric)
+# QSWEEP at M = 4 under dense masks, then kernel 7's widest real gather
+# launch cut to size (the PQ batch's gather plans: q = 5, k = r = 80, the
+# gathered codes under an all-ones mask) at M = 16 and 32, n not a
+# multiple of the 128-row tile
+PQ_SWEEP = [(q, n, k, metric, 4, False) for q, n, k, metric in QSWEEP] + [
+    (5, 2945, 80, "ip", 16, True), (5, 2945, 80, "l2", 32, True)]
+
+
+@pytest.mark.parametrize(
+    "q,n,k,metric,m,ones", PQ_SWEEP,
+    ids=[f"{q}-{n}-{k}-{metric}" + (f"-M{m}-ones" if ones else "")
+         for q, n, k, metric, m, ones in PQ_SWEEP])
+def test_pq_kernels_match_jax(q, n, k, metric, m, ones):
+    lut, codes = _pq_case(q, n, 2 * m if ones else 16, m, seed=q * 100 + n,
+                          metric=metric)
     dense = _dense_case(n, seed=n + k)
+    if ones:
+        dense[0] = True
     sid = (np.arange(q) % 3).astype(np.int32)
     mask = dense[0]
     words = _pack(dense)
@@ -483,6 +497,40 @@ def test_stream_geometry_fits_the_card(q, n, d, k, blocks):
         assert 256 <= geo.n_chunks <= 264
 
 
+# kernel 7's grid: (q, n) at the main shape, the widest real gather and
+# small launches; the C plan's PQ tile is one query and 1-4 blocks share an
+# SM (4 at M = 32, k <= 80)
+PQ_STREAM_SHAPES = [(q, n) for n in (_MAIN, 41_829, 1, 137, 4000)
+                    for q in (1, 5)]
+
+
+@pytest.mark.parametrize("q,n", PQ_STREAM_SHAPES)
+@pytest.mark.parametrize("blocks", [1, 4])
+def test_pq_stream_geometry_keeps_chunks_above_the_floor(q, n, blocks):
+    """Kernel 7's grid on an H100 (132 SMs): each chunk holds at least
+    STREAM_PQ_ROWS rows (so its codes outweigh its block's LUT copy)
+    unless the launch has fewer rows, the grid is at most one wave of
+    ``blocks`` per SM, chunks are whole 128-row tiles, at most 65535 of
+    them, covering the n rows. At the main shape (q = 1) the chunks split
+    the rows over the wave; at the widest gather (q = 5) the floor sets
+    them."""
+    st = ops._st
+    tiles = q
+    geo = st.stream_geometry(q, n, 1, blocks, None, 132, st.STREAM_PQ_ROWS)
+    assert geo.chunk_rows >= min(st.STREAM_PQ_ROWS, n)
+    assert geo.chunk_rows % st.STREAM_ROWS == 0
+    assert 1 <= geo.n_chunks <= 65535
+    assert geo.n_chunks * geo.chunk_rows >= n > (geo.n_chunks - 1) * \
+        geo.chunk_rows
+    assert geo.n_chunks * tiles <= max(132 * blocks, tiles)
+    if n <= st.STREAM_PQ_ROWS:
+        assert geo.n_chunks == 1
+    if n == 41_829 and blocks == 4:
+        assert geo.chunk_rows == st.STREAM_PQ_ROWS and geo.n_chunks == 41
+    if n == _MAIN and q == 1:
+        assert geo.n_chunks > 132 * blocks - 10
+
+
 def test_stream_geometry_keeps_a_given_block_n_and_refuses_bad_tiles():
     """A tuned block_n is kept, rounded up to whole mask words; a query
     tile outside [1, 8] or no block per SM is refused, and so is a plan's
@@ -494,6 +542,9 @@ def test_stream_geometry_keeps_a_given_block_n_and_refuses_bad_tiles():
     for qt, blocks in ((0, 1), (9, 1), (1, 0)):
         with pytest.raises(ValueError):
             st.stream_geometry(1, 100, qt, blocks, None, 132)
+    for min_rows in (0, 100):
+        with pytest.raises(ValueError):
+            st.stream_geometry(1, 100, 1, 1, None, 132, min_rows)
     for cap in (0, 9):
         with pytest.raises(ValueError):
             st.stream_plan(cap, 128, 10)

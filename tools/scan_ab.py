@@ -15,8 +15,10 @@ the other tree's ``src/repro_torch`` and ``chip_smoke.py`` together. Then,
 on inputs that are the same for both trees, kernel 9 in its three modes
 on a layout skewed like phase 5's k-means lists (64 lists, 8 probed per
 query, B = 64 over 1.94M rows): its candidate form, which every tree has,
-and its list form where the tree has one. Each tree builds its own kernels
-under its own ``build/``. Prints one JSON line: the label, the package's
+and its list form where the tree has one; and kernel 7 at the shape of
+its widest real launch, a PQ batch's gather plan (q = 5 over 41,829
+gathered rows, M = 32, k = 80, an all-ones mask). Each tree builds its own
+kernels under its own ``build/``. Prints one JSON line: the label, the package's
 path, the card's name and power limit, and per kernel and shape the
 CUDA-event time (``ms``), the profiler's device time (``device_ms``, and
 pass 1's alone where recorded), the bound (and the PQ scans' shared-memory
@@ -94,6 +96,22 @@ def skewed_ivf(torch, ops, ref, here) -> dict:
     return out
 
 
+def pq_gather(torch, ops, ref, here, peaks) -> dict:
+    """Kernel 7 at the shape of the PQ batch's widest gather-plan launch on
+    WIKI-Dir (q = 5, 41,829 gathered rows of M = 32 codes, k = r = 80, an
+    all-ones mask), on random LUTs and codes from seed 2, held bit for bit
+    against its plain version and timed by this checkout's
+    ``chip_smoke.dense_pq_record``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, n, M, k = 5, 41_829, 32, 80
+    lut, codes = here.pq_case(torch, g, q, n, M, dev)
+    ones = torch.ones(n, dtype=torch.int8, device=dev)
+    return {"scoped_topk_pq/gather_synthetic": here.dense_pq_record(
+        torch, ops, ref, peaks, (lut, codes, ones, k), {},
+        "scoped_topk_pq gather (synthetic)")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", required=True)
@@ -126,6 +144,7 @@ def main() -> int:
                 table[f"{name}/{sub}"] = {key: nested.get(key)
                                           for key in KEYS}
     table.update(skewed_ivf(torch, ops, ref, here))
+    table.update(pq_gather(torch, ops, ref, here, peaks))
     print(json.dumps({"label": args.label, "package": repro_torch.__file__,
                       "card": card, "kernels": table}), flush=True)
     return 0

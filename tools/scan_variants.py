@@ -3,6 +3,7 @@
 
     python3 tools/scan_variants.py                 # every variant below
     python3 tools/scan_variants.py --only final list_chunk_2048
+    python3 tools/scan_variants.py --only final pq_q1 --kernels 7
 
 Each variant is this checkout's ``src/repro_torch`` copied under
 ``build/variants/<name>/`` with the text substitutions listed in
@@ -11,20 +12,24 @@ mirror it). All variants are built at once, one process each; then each is
 timed in a process of its own, in turns (the list, then the list reversed):
 kernel 1 (``scoped_topk``) at q = 1 over 1.94M unit rows (d = 128, k = 10,
 ip, every row admitted), kernel 5 (``scoped_topk_i8``) on the same rows'
-int8 codes (k = 40), kernel 8 (``multi_scope_topk_pq``) at the main PQ
-shape (q = 64, M = 32, k = 80, 8 scopes, random codes) and kernel 9's list
+int8 codes (k = 40), kernel 7 (``scoped_topk_pq``) at its main shape
+(q = 1, M = 32, k = 40, every row admitted) and at the PQ batch's widest
+gather plan (q = 5 over 41,829 gathered rows, k = 80, keys ending
+" gather"), kernel 8 (``multi_scope_topk_pq``) at the main PQ shape
+(q = 64, M = 32, k = 80, 8 scopes, random codes) and kernel 9's list
 form in its three modes (``ivf_probe_topk*``, k = 10 / 40 / 80) on two
 layouts of those rows skewed like phase 5's k-means lists (``chip_smoke``'s
 ``synthetic_layout``: 64 lists, 8 probed per query, the 8 scopes), one for
 B = 64 queries and one for phase 5's B = 44 (keys ending " b44"),
 each checked against its plain version first (a variant that changes what
-is computed is marked ``"checked": false``). Prints one JSON line per run:
+is computed is marked ``"checked": false``); ``--kernels`` times some of
+them (1, 5, 7, 8, 9). Prints one JSON line per run:
 the CUDA-event time (``ms``), the profiler's device time (``device_ms``)
 and pass 1's alone (``pass1_ms``), with the card's name and power limit.
 
 The variants are the experiments behind the designs of
-``scan_pass1_stream``, its list mode and ``scan_pass1_pq`` (``PERF.md``
-section 6).
+``scan_pass1_stream``, its list and PQ modes and ``scan_pass1_pq``
+(``PERF.md`` section 6).
 """
 from __future__ import annotations
 
@@ -39,9 +44,40 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CU = "kernels/csrc/scoped_topk.cu"
 PY = "kernels/scoped_topk.py"
+BM = "kernels/csrc/bitmap_ops.cu"
 IVF_B = 44          # phase 5's IVF batch (B = 44 queries on its layout)
 _EPILOGUE = ("    if (s != ns - 1) continue;\n"
              "    // epilogue: per query, the admitted")
+
+
+_POPC_HEAD = """  if (rank == 0 && threadIdx.x == 0) {  // expect kPopBlocks totals' bytes
+    unsigned long long state;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\\n"
+                 : "=l"(state)
+                 : "r"(bar), "r"(4 * kPopBlocks)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+"""
+_POPC_SEND = """  if (threadIdx.x == 0) {       // into rank 0's totals[rank], on its barrier
+"""
+_POPC_WAIT = """    asm volatile(
+        "{\\n .reg .pred p;\\n WAIT%=:\\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\\n"
+        " @!p bra WAIT%=;\\n}\\n" ::"r"(bar)
+        : "memory");
+"""
+# kernel 4's first handoff: each block stores its total into rank 0's
+# shared memory, then a cluster barrier (every block waits on it)
+_POPC_SYNC = {
+    _POPC_HEAD: "",
+    _POPC_SEND: """  if (threadIdx.x == 0) *cluster.map_shared_rank(totals + rank, 0) = total;
+  cluster.sync();
+  if (false) {
+""",
+    _POPC_WAIT: ""}
 
 
 def _stream(threads: int, slice_: int, stages: int = 3) -> dict:
@@ -108,9 +144,39 @@ VARIANTS = {
                           "__device__ void warp_merge(",
                           "__device__ __noinline__ void warp_insert(":
                           "__device__ void warp_insert("}},
+    # kernel 7: the fewest rows of a chunk (its block's LUT copy against
+    # its codes), and the PQ query tile (occupancy against code re-reads)
+    "pq_floor_512": {PY: {"STREAM_PQ_ROWS = 1024": "STREAM_PQ_ROWS = 512"}},
+    "pq_floor_2048": {PY: {"STREAM_PQ_ROWS = 1024": "STREAM_PQ_ROWS = 2048"}},
+    "pq_floor_4096": {PY: {"STREAM_PQ_ROWS = 1024": "STREAM_PQ_ROWS = 4096"}},
+    "pq_q2": {CU: {"constexpr int kStreamPQQ = 1;":
+                   "constexpr int kStreamPQQ = 2;"}},
+    "pq_q5": {CU: {"constexpr int kStreamPQQ = 1;":
+                   "constexpr int kStreamPQQ = 5;"}},
+    # kernel 7's grid sized to a wave of at most 2 blocks per SM (fewer,
+    # longer chunks: fewer lists to merge, less occupancy)
+    "pq_wave2": {PY: {"            nq, n, plan.qt, plan.blocks, block_n, sms,":
+                      "            nq, n, plan.qt, min(plan.blocks, 2) if "
+                      "kind == 'pq' else plan.blocks, block_n, sms,"}},
+    # kernel 7's pass 1 without its lookups (staging and votes alone: every
+    # score 0); "stream_no_epilogue" above takes out its appends and merges
+    "pq_no_lookups": {CU: {
+        "      if (t * kStreamRows + threadIdx.x < count && "
+        "mt[threadIdx.x] != 0) {":
+        "      if (false) {"}},
+    # kernel 4: the cluster's blocks and threads, and the first handoff (a
+    # cluster barrier, at 8 x 1,024 as first built and at 16 x 512)
+    "popc_c8": {BM: {"kPopBlocks = 16;": "kPopBlocks = 8;"}},
+    "popc_t1024": {BM: {"kPopThreads = 512;": "kPopThreads = 1024;"}},
+    "popc_sync": {BM: _POPC_SYNC},
+    "popc_c8_t1024_sync": {BM: {**_POPC_SYNC,
+                                "kPopBlocks = 16;": "kPopBlocks = 8;",
+                                "kPopThreads = 512;": "kPopThreads = 1024;"}},
 }
+KERNELS = ("1", "4", "5", "7", "8", "9")
 # variants that change what a kernel computes (not held to its plain version)
-UNCHECKED = ("pq_lookups_only", "stream_no_epilogue", "stream_no_flush")
+UNCHECKED = ("pq_lookups_only", "stream_no_epilogue", "stream_no_flush",
+             "pq_no_lookups")
 
 
 def make(name: str) -> Path:
@@ -130,9 +196,9 @@ def make(name: str) -> Path:
     return src
 
 
-def time_here(name: str) -> dict:
-    """Kernels 1, 5, 8 and 9 with the ``repro_torch`` first on
-    ``sys.path``."""
+def time_here(name: str, kernels=KERNELS) -> dict:
+    """Kernels ``kernels`` (of 1, 4, 5, 7, 8 and 9) with the
+    ``repro_torch`` first on ``sys.path``."""
     import torch
 
     import chip_smoke as cs
@@ -144,6 +210,7 @@ def time_here(name: str) -> dict:
     Q1 = torch.randn(1, d, generator=g, device=dev)
     ones = torch.ones(n, dtype=torch.int8, device=dev)
     checked = name not in UNCHECKED
+    runs = []                   # (key, fn, calls timed)
 
     def exact(label, got, want):
         if checked:
@@ -152,17 +219,33 @@ def time_here(name: str) -> dict:
     def k1():
         return ops.scoped_topk(Q1, X, ones, 10)
 
-    if checked:
-        cs.topk_case(ref, f"{name} kernel 1", k1(),
-                     ref.scoped_topk_ref(Q1, X, ones, 10))
+    if "4" in kernels:          # phase 1's main shape: W = ceil(n / 32)
+        a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, ((n + 31) // 32,),
+                              generator=g, device=dev, dtype=torch.int32)
+                for _ in range(2))
+        w, c = ops.mask_and_popcount(a, b)
+        want_w, want_c = ref.mask_and_popcount_ref(a, b)
+        if checked and not (torch.equal(w, want_w) and
+                            int(c) == int(want_c)):
+            raise SystemExit(f"{name}: kernel 4 differs from its plain "
+                             f"version")
+        runs.append(("mask_and_popcount",
+                     lambda: ops.mask_and_popcount(a, b), 50))
+    if "1" in kernels:
+        if checked:
+            cs.topk_case(ref, f"{name} kernel 1", k1(),
+                         ref.scoped_topk_ref(Q1, X, ones, 10))
+        runs.append(("scoped_topk", k1, 30))
     x8, xs = cs.quantize(torch, X)
     q8, qs = cs.quantize(torch, Q1)
 
     def k5():
         return ops.scoped_topk_i8(q8, qs, x8, xs, None, ones, 40)
 
-    exact("kernel 5", k5(),
-          ref.scoped_topk_i8_ref(q8, qs, x8, xs, None, ones, 40))
+    if "5" in kernels:
+        exact("kernel 5", k5(),
+              ref.scoped_topk_i8_ref(q8, qs, x8, xs, None, ones, 40))
+        runs.append(("scoped_topk_i8", k5, 30))
     dense = torch.rand(S, n, generator=g, device=dev) < torch.linspace(
         0.2, 1.0, S, device=dev)[:, None]
     dense[-1] = True
@@ -171,38 +254,51 @@ def time_here(name: str) -> dict:
     lut = torch.randn(B, M, 256, generator=g, device=dev)
     codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
                           dtype=torch.int32).to(torch.uint8)
+    if "7" in kernels:          # the main shape, then the widest gather
+        ng = 41_829
+        gathered = codes[torch.randperm(n, generator=g, device=dev)[:ng]]
+        k7 = {"scoped_topk_pq": (lut[:1], codes, ones, 40),
+              "scoped_topk_pq gather": (lut[:5], gathered, ones[:ng], 80)}
+        for key, args in k7.items():
+            exact(key, ops.scoped_topk_pq(*args),
+                  ref.scoped_topk_pq_ref(*args))
+            runs.append((key, (lambda a: lambda: ops.scoped_topk_pq(*a))(
+                args), 30))
 
     def k8():
         return ops.multi_scope_topk_pq(lut, codes, words, sid, 80)
 
-    exact("kernel 8", k8(),
-          ref.multi_scope_topk_pq_ref(lut, codes, words, sid, 80))
-    QB = torch.randn(B, d, generator=g, device=dev)
-    qb, sb = cs.quantize(torch, QB)
-    k9 = {}
-    for b in (B, IVF_B):    # the layout's batch: phase 1's, phase 5's
-        layout, probe = cs.synthetic_layout(torch, g, n, b, dev)
-        listed = (*layout, probe, words, sid[:b])
-        tag = "" if b == B else f" b{b}"
-        k9.update({
-            "ivf_probe_topk" + tag: (QB[:b], X, *listed, 10),
-            "ivf_probe_topk_i8" + tag: (qb[:b], sb[:b], x8, xs, None,
-                                        *listed, 40),
-            "ivf_probe_topk_pq" + tag: (lut[:b], codes, *listed, 80)})
-    k9_fn = {key: getattr(ops, key.split()[0]) for key in k9}
-    for key, args in k9.items():
-        got = k9_fn[key](*args)
-        want = getattr(ref, key.split()[0] + "_ref")(*args)
-        if key.split()[0] != "ivf_probe_topk":     # int8, PQ: exact
-            exact(key, got, want)
-        elif checked:
-            cs.topk_case(ref, f"{name} kernel 9 {key}", got, want)
+    if "8" in kernels:
+        exact("kernel 8", k8(),
+              ref.multi_scope_topk_pq_ref(lut, codes, words, sid, 80))
+        runs.append(("multi_scope_topk_pq", k8, 10))
+    if "9" in kernels:
+        QB = torch.randn(B, d, generator=g, device=dev)
+        qb, sb = cs.quantize(torch, QB)
+        k9 = {}
+        for b in (B, IVF_B):    # the layout's batch: phase 1's, phase 5's
+            layout, probe = cs.synthetic_layout(torch, g, n, b, dev)
+            listed = (*layout, probe, words, sid[:b])
+            tag = "" if b == B else f" b{b}"
+            k9.update({
+                "ivf_probe_topk" + tag: (QB[:b], X, *listed, 10),
+                "ivf_probe_topk_i8" + tag: (qb[:b], sb[:b], x8, xs, None,
+                                            *listed, 40),
+                "ivf_probe_topk_pq" + tag: (lut[:b], codes, *listed, 80)})
+        for key, args in k9.items():
+            fn = getattr(ops, key.split()[0])
+            got = fn(*args)
+            want = getattr(ref, key.split()[0] + "_ref")(*args)
+            if key.split()[0] != "ivf_probe_topk":     # int8, PQ: exact
+                exact(key, got, want)
+            elif checked:
+                cs.topk_case(ref, f"{name} kernel 9 {key}", got, want)
+            runs.append((key, (lambda f, a: lambda: f(*a))(fn, args), 10))
     out = {"variant": name, "checked": checked}
-    runs = [("scoped_topk", k1, 30), ("scoped_topk_i8", k5, 30),
-            ("multi_scope_topk_pq", k8, 10)]
-    runs += [(key, (lambda f, a: lambda: f(*a))(k9_fn[key], args), 10)
-             for key, args in k9.items()]
     for key, fn, n_runs in runs:
+        if key == "mask_and_popcount":
+            out[key] = cs.timed(torch, fn, n_runs, ("and_popc_kernel",))
+            continue
         out[key] = {"ms": cs.median_ms(torch, fn, n_runs),
                     "device_ms": cs.device_ms(torch, fn, n_runs,
                                               ("scan_pass1", "scan_pass2")),
@@ -214,11 +310,13 @@ def time_here(name: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+", choices=list(VARIANTS))
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=list(KERNELS))
     ap.add_argument("--time", help=argparse.SUPPRESS)   # one timing process
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))                       # chip_smoke.py
     if args.time:
-        print(json.dumps(time_here(args.time)), flush=True)
+        print(json.dumps(time_here(args.time, args.kernels)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -240,7 +338,8 @@ def main() -> int:
             raise SystemExit(f"scan_variants: {name} did not build")
     for name in names + names[::-1]:
         run = subprocess.run(
-            [sys.executable, __file__, "--time", name],
+            [sys.executable, __file__, "--time", name, "--kernels",
+             *args.kernels],
             env={**os.environ, "PYTHONPATH": str(srcs[name])},
             capture_output=True, text=True)
         if run.returncode != 0:
