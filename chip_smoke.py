@@ -57,13 +57,38 @@ Phases (each prints one JSON line; any failure exits non-zero):
    448 launches of kernel 10 (``flash_decode``) per answer, finite logits,
    stats equal to a direct ``retrieve_batch``, prefill + decode against the
    full forward (bf16, tie-aware top-1), and kernel 10 against its plain
-   version on the arguments of every layer's call at steps 1 and 16.
+   version on the arguments of every layer's call at steps 1 and 16; then
+   (7f) the second answer's batch served through ``RAGServer.start`` /
+   ``submit`` (one size-flushed batch: the same tokens, stats and 448
+   kernel-10 launches as ``answer``) and ``ContextDatabase.submit_retrieve``
+   (== ``retrieve_batch``);
+7. the serving tier and online maintenance, on phase 5's database before
+   phase 6 frees it (printed before phase 6): (7a) ``ScheduledDSQ`` in
+   pump mode, bitwise equal to a direct ``dsq_batch`` of the 64-request
+   mix for flat fp32 / int8 / PQ and IVF nprobe 8; (7b) a batch staged,
+   then a racing ``dsm_batch`` move (kernel 3 patches the staged words),
+   then executed, equal to a fresh batch; (7c) 256 requests (the mix four
+   times) from 4 threads at ``open_loop_arrivals(qps=2000)`` through the
+   threaded scheduler (``max_batch=64``, ``max_wait_ms=2``, maintenance
+   attached), each ticket bitwise equal to its direct ``dsq``, with no
+   stage fault and no failed ticket; (7d) rmdirs of seeded subtrees until
+   1% of the rows are tombstoned, then ``db.maintenance(
+   MaintenancePolicy(tombstone_fraction=0.01)).run_all()``: the compaction
+   keeps every surviving row, the batch after it equals the batch before
+   it with ids mapped, the cached device words are rebuilt at the new
+   length, IVF batch == loop and nprobe = n_lists == flat; (7e) a PG
+   database of WIKI-Dir at scale 0.01 (the build is a host loop; the cut
+   is printed) with flat and 16-list IVF: PG batch == loop at fp32 / int8
+   / PQ, kernel 2 in the int8 / PQ rescore against its plain version,
+   recall@10 against flat at ef 64 / 128, the scheduler over PG, a repair
+   after 64 deletes, and crashes at the ``maint.apply`` seam recovered
+   bitwise to an uncrashed twin.
 
 Phase 1 also holds kernel 10 against its plain version at the reference's
 sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
 cache, and kernel 2 at ``gather_rescore``'s shapes.
 
-The kernels line's launch counts are the main path's: in phases 2-6, the
+The kernels line's launch counts are the main path's: in phases 2-7, the
 launches made around the entry points each phase drives (``MainPath``),
 not those of its checks (loops held against a batch, reference batches,
 warm-ups, timings, profiler sessions, the kernel records).
@@ -2086,6 +2111,479 @@ def phase5_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     emit({"phase": "5-kernels", **real})
 
 
+# --------------------------------------------------------------- phase 7
+SCHED_BATCH = 64           # SchedulerConfig(max_batch=64): the mix's size
+SCHED_QPS = 2000.0         # 7c's open-loop arrival rate
+SCHED_REQUESTS = 256       # the 64-request mix four times over
+SCHED_THREADS = 4
+SCHED_WAIT_MS = 2.0
+WAIT_S = 300.0             # every ticket's result() waits at most this
+# the reference policy's knob, lowered from 0.25 only so that compaction
+# comes due at 7d's churn of at least 1% of the rows
+MAINT_TOMBSTONE_FRACTION = 0.01
+# 7e: WIKI-Dir cut to a hundredth (19,400 entries): the PG build is a host
+# loop of one beam per node in both packages (~35 s for these 19,400 rows
+# on the H100 machine's host, printed as build_s, and more than linear in
+# the rows), so the full scale would take hours
+PG_SCALE = 0.01
+PG_PARAMS = {"max_degree": 16, "ef_construction": 64}  # bench_maintenance
+PG_IVF_LISTS = 16
+PG_EF = (64, 128)
+PG_DELETES = 64
+
+
+def planned_precision(db, res, precision: str, k: int, rescore_k) -> str:
+    """The precision ``dsq_batch`` ran a request's scope group at: the
+    planner serves a gather-plan scope that fits the rescore window at
+    exact fp32 (``BatchPlanner.plan``, as in the reference), so a loop
+    request is held against the batch at that precision."""
+    from repro_torch.vectordb.quant import resolve_rescore_k
+    if precision == "fp32":
+        return "fp32"
+    plan = db.planner().choose_plan(res.scope_size, len(db.store), k)
+    window = resolve_rescore_k(k, rescore_k, res.scope_size)
+    return precision if plan == "scan" or res.scope_size > window \
+        else "fp32"
+
+
+def record_remap(mgr, into: dict) -> None:
+    """Wrap ``mgr``'s compaction and remap: ``into`` gets the mapping and
+    the seconds of ``store.compact`` and of ``_propagate_remap``."""
+    store = mgr.db.store
+    compact, propagate = store.compact, mgr._propagate_remap
+
+    def timed_compact():
+        t0 = time.perf_counter()
+        out = compact()
+        into["compact_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_propagate(mapping):
+        into["mapping"] = np.array(mapping)
+        t0 = time.perf_counter()
+        out = propagate(mapping)
+        into["remap_s"] = time.perf_counter() - t0
+        return out
+
+    store.compact, mgr._propagate_remap = timed_compact, timed_propagate
+
+
+def clone_pg(pg, store):
+    """A twin of a built ``PGIndex`` over another store holding the same
+    rows: its arrays and RNG state copied (a second build of the same rows
+    gives the same graph, at a minute of host time)."""
+    import copy
+    twin = copy.copy(pg)
+    twin.store = store
+    for name in ("neighbors", "_n_edges", "_visit_gen"):
+        setattr(twin, name, getattr(pg, name).copy())
+    twin._pending_relink = list(pg._pending_relink)
+    twin._rng = copy.deepcopy(pg._rng)
+    return twin
+
+
+def sched_batch(sdsq, path, queries, paths, rec):
+    """Submit the requests to ``sdsq`` and ``pump()`` once inside the
+    main-path window; returns (served count, the tickets' results)."""
+    tickets = [sdsq.submit(queries[i], paths[i], recursive=rec[i])
+               for i in range(len(paths))]
+    with path.counted():
+        served = sdsq.pump()
+    return served, [t.result(WAIT_S) for t in tickets]
+
+
+def new_launches(before: dict, after: dict) -> dict:
+    return {key: after[key] - before[key] for key in after
+            if after[key] > before[key]}
+
+
+def dir_strings(idx):
+    from repro_torch.core import paths as P
+    return [P.to_str(d) for d in idx.list_dirs()]
+
+
+def phase7(torch, ops, ref, ds, db, tmp: str):
+    """The serving tier and online maintenance (module docstring, phase 7):
+    7a-7d on phase 5's database, 7e on a PG database of its own. Every
+    failed check is collected and reported at once. Returns the main
+    path's launch counts (the scheduled batches, the racing DSM, the
+    threaded run, the rmdirs, the maintenance ops and 7e's entry points;
+    not the direct batches and loops they are held against)."""
+    import dataclasses
+    import threading
+
+    from repro_torch.serving import (ScheduledDSQ, SchedulerConfig,
+                                     open_loop_arrivals)
+    from repro_torch.vectordb import MaintenancePolicy
+    t_phase = time.perf_counter()
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    queries, paths, rec = requests(ds)
+    k, B = 10, len(paths)
+    store = db.store
+    store.set_device_budget(None)          # phase 5 left a byte budget
+    store.device_vectors()
+    ops.reset_launch_counts()
+    path = MainPath(ops)
+    info = {"phase": 7, "entries": len(store)}
+
+    # 7a: pump mode, bitwise equal to a direct batch of the same requests
+    scheds = {}
+    for label, kw in (("flat_fp32", {}), ("flat_int8", {"precision": "int8"}),
+                      ("flat_pq", {"precision": "pq",
+                                   "rescore_k": PQ_RESCORE_K}),
+                      ("ivf_fp32", {"executor": "ivf",
+                                    "nprobe": IVF_NPROBE})):
+        direct = db.dsq_batch(queries, paths, k=k, recursive=rec, **kw)
+        sdsq = ScheduledDSQ(db, k=k, cfg=SchedulerConfig(
+            max_batch=SCHED_BATCH, max_wait_ms=1e4), **kw)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        served, got = sched_batch(sdsq, path, queries, paths, rec)
+        dt = time.perf_counter() - t0
+        gate(served == B and same_results(got, direct),
+             f"7a {label}: scheduled batch != direct dsq_batch (bitwise)")
+        gate(sdsq.scheduler.stage_faults == 0 and sdsq._stream is not None,
+             f"7a {label}: staging failed or did not reach the card")
+        scheds[label] = {"wall_ms": dt * 1e3, "launches": new_launches(
+            before, ops.launch_counts())}
+    info["7a"] = scheds
+    emit({"phase": "7a", **scheds})
+
+    # 7b: a DSM lands between stage and execute (tests/test_serving.py's
+    # racing-DSM case): the move vacates a scan group's chain, whose staged
+    # device words the delta patches with kernel 3
+    plans = [r.plan for r in db.dsq_batch(queries, paths, k=k,
+                                          recursive=rec)]
+    idx = db.namespaces["fs"]
+    dirs = dir_strings(idx)
+    target = None
+    for anchor, r, p in sorted(zip(paths, rec, plans),
+                               key=lambda t: t[2] != "scan"):
+        if not r or anchor == "/":
+            continue
+        sub = next((d for d in dirs if d.startswith(anchor)
+                    and d != anchor), None)
+        if sub is not None:
+            target = (sub, "/")
+            break
+    gate(target is not None, "7b: no anchor with a subdirectory to move")
+    sdsq = ScheduledDSQ(db, k=k, cfg=SchedulerConfig(max_batch=SCHED_BATCH,
+                                                     max_wait_ms=1e4))
+    sched = sdsq.scheduler
+    tickets = [sdsq.submit(queries[i], paths[i], recursive=rec[i])
+               for i in range(B)]
+    with sched._cond:
+        batch = sched._form_batch()
+    before = ops.launch_counts()
+    with path.counted():
+        staged, stage_s = sched._do_stage(batch)
+        if target is not None:
+            db.dsm_batch([("move",) + target])
+        sched._run_batch(batch, staged, stage_s, "racing-dsm")
+    launched = new_launches(before, ops.launch_counts())
+    got = [t.result(WAIT_S) for t in tickets]
+    fresh = db.dsq_batch(queries, paths, k=k, recursive=rec)
+    gate(same_results(got, fresh),
+         "7b: batch staged before a DSM != a fresh batch after it")
+    gate(type(staged).__name__ == "StagedQueries"
+         and torch.equal(staged.host, torch.from_numpy(queries))
+         and sched.stage_faults == 0,
+         "7b: the staged query matrix is not the batch's")
+    gate(launched.get("bitmap_patch", 0) > 0,
+         "7b: the racing DSM patched no staged device mask")
+    info["7b"] = {"move": target, "launches": launched}
+    emit({"phase": "7b", **info["7b"]})
+
+    # 7c: threaded, open loop, maintenance attached
+    direct = [db.dsq(queries[i], paths[i], k=k, recursive=rec[i])
+              for i in range(B)]
+    arrivals = open_loop_arrivals(qps=SCHED_QPS, n=SCHED_REQUESTS, seed=0)
+    sdsq = ScheduledDSQ(db, k=k, maintenance=True, cfg=SchedulerConfig(
+        max_batch=SCHED_BATCH, max_wait_ms=SCHED_WAIT_MS))
+    tickets = [None] * SCHED_REQUESTS
+    clock = sdsq.scheduler.clock
+
+    def client(j, t0):
+        for i in range(j, SCHED_REQUESTS, SCHED_THREADS):
+            due = t0 + arrivals[i]
+            while clock() < due:
+                time.sleep(max(0.0, min(due - clock(), 1e-3)))
+            r = i % B
+            tickets[i] = sdsq.submit(queries[r], paths[r], recursive=rec[r],
+                                     t_arrival=due)
+
+    with path.counted():
+        sdsq.start()
+        try:
+            t0 = clock()
+            threads = [threading.Thread(target=client, args=(j, t0))
+                       for j in range(SCHED_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            results = [t.result(WAIT_S) for t in tickets]
+            wall = clock() - t0
+        finally:
+            sdsq.stop()
+    gate(all(same_results([res], [direct[i % B]])
+             for i, res in enumerate(results)),
+         "7c: a threaded ticket != its direct dsq (bitwise)")
+    snap = sdsq.metrics.snapshot()
+    acct = snap["accounting"]
+    stage_ns, service_ns = acct["sched_stage_ns"], acct["sched_service_ns"]
+    c = {"requests": SCHED_REQUESTS, "qps_offered": SCHED_QPS,
+         "threads": SCHED_THREADS, "max_wait_ms": SCHED_WAIT_MS,
+         "wall_s": wall, "qps": SCHED_REQUESTS / wall,
+         "completed": snap["completed"], "failed": snap["failed"],
+         "batches": snap["batches"], "mean_batch": snap["mean_batch"],
+         "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+         "queue_p99_ms": snap["queue_p99_ms"],
+         "stage_share": stage_ns / max(stage_ns + service_ns, 1),
+         "stage_faults": sdsq.scheduler.stage_faults,
+         "maintenance_steps": sdsq.scheduler.maintenance_steps,
+         "maintenance_error": repr(sdsq.scheduler.maintenance_error),
+         "health": sdsq.health}
+    gate(c["completed"] == SCHED_REQUESTS and c["failed"] == 0
+         and c["stage_faults"] == 0 and c["health"] == "healthy"
+         and sdsq.scheduler.maintenance_error is None,
+         f"7c: threaded serving unhealthy: {c}")
+    info["7c"] = c
+    emit({"phase": "7c", **c})
+
+    # 7d: online maintenance at full scale: rmdir seeded subtrees (none
+    # holding an anchor of the mix) until at least 1% of the rows are
+    # tombstoned, then every due op
+    rng = np.random.default_rng(7)
+    dirs = [d for d in dir_strings(idx) if d != "/"]
+    chosen, dead = [], 0
+    want = int(np.ceil(0.01 * len(store)))
+    for j in rng.permutation(len(dirs)):
+        d = dirs[j]
+        if any(a.startswith(d) for a in paths) or any(
+                d.startswith(c) or c.startswith(d) for c in chosen):
+            continue
+        chosen.append(d)
+        dead += len(idx.resolve(d))
+        if dead >= want:
+            break
+    n_before = len(store)
+    with path.counted():
+        t0 = time.perf_counter()
+        res = db.dsm_batch([("remove", d) for d in chosen])
+        rmdir_s = time.perf_counter() - t0
+    tomb = store.n_deleted
+    gate(not any(res.errors) and tomb >= want,
+         f"7d: {tomb} tombstones from {len(chosen)} rmdirs, want {want}")
+    pre = db.dsq_batch(queries, paths, k=k, recursive=rec)
+    old_vectors = store.vectors.copy()
+    alive = ~store.deleted_mask()
+    cache = db.planner().cache
+    patched0 = cache.stats()["patched"]
+    n_cached = len(cache._entries)
+    policy = MaintenancePolicy(tombstone_fraction=MAINT_TOMBSTONE_FRACTION)
+    mgr = db.maintenance(policy=policy)
+    remap = {}
+    record_remap(mgr, remap)
+    with path.counted():
+        t0 = time.perf_counter()
+        ran = mgr.run_all()
+        maint_s = time.perf_counter() - t0
+    kinds = [r["kind"] for r in ran]
+    new_n = len(store)
+    gate("maint_compact" in kinds and new_n == n_before - tomb
+         and store.n_deleted == 0,
+         f"7d: compaction {kinds}: {n_before} -> {new_n} rows, {tomb} dead")
+    mapping = remap.get("mapping")
+    gate(mapping is not None
+         and np.array_equal(store.vectors, old_vectors[alive])
+         and np.array_equal(mapping[alive], np.arange(new_n)),
+         "7d: surviving rows moved or changed")
+    del old_vectors
+    entries = list(cache._entries.values())
+    gate(len(entries) == n_cached
+         and cache.stats()["patched"] - patched0 == n_cached
+         and all(e._words is None and e.n == new_n for e in entries),
+         "7d: cached scopes were not rebuilt for the compacted store")
+    gate(all(e.words.shape[0] == (new_n + 31) // 32 for e in entries),
+         "7d: rebuilt device words of the wrong length")
+    post = db.dsq_batch(queries, paths, k=k, recursive=rec)
+    if mapping is not None:
+        gate(all(np.array_equal(a.ids, np.where(
+            b.ids >= 0, mapping[np.maximum(b.ids, 0)], -1))
+            and np.array_equal(a.scores, b.scores)
+            for a, b in zip(post, pre)),
+            "7d: batch after compaction != batch before it, ids mapped")
+    ivf_kw = dict(k=k, executor="ivf", nprobe=IVF_NPROBE)
+    gate(same_results(
+        db.dsq_batch(queries, paths, recursive=rec, **ivf_kw),
+        [db.dsq(queries[i], paths[i], recursive=rec[i], **ivf_kw)
+         for i in range(B)]), "7d: after the remap ivf dsq_batch != loop")
+    sub = slice(0, 8)
+    full = db.dsq_batch(queries[sub], paths[sub], k=k, recursive=rec[sub],
+                        executor="ivf", nprobe=IVF_LISTS)
+    for i, (a, f) in enumerate(zip(full, post[sub])):
+        err = ref.topk_disagreement(a.ids, a.scores, f.ids, f.scores, TOL)
+        gate(err is None and a.scope_size == f.scope_size,
+             f"7d: after the remap nprobe={IVF_LISTS} request {i} != flat: "
+             f"{err}")
+    info["7d"] = {"policy": dataclasses.asdict(policy),
+                  "rmdirs": len(chosen), "rmdir_s": rmdir_s,
+                  "tombstones": tomb, "rows": [n_before, new_n],
+                  "ops": kinds, "op_us": {r["kind"]: r["us"] for r in ran},
+                  "maintenance_s": maint_s,
+                  "compact_s": remap.get("compact_s"),
+                  "remap_s": remap.get("remap_s"),
+                  "cached_scopes_rebuilt": n_cached,
+                  "words": (new_n + 31) // 32}
+    emit({"phase": "7d", **info["7d"]})
+    info["7e"] = phase7_pg(torch, ops, ref, path, gate, tmp)
+    info["launches_main_path"] = counts = dict(path.counts)
+    info["launches_phase"] = ops.launch_counts()
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return counts
+
+
+def phase7_pg(torch, ops, ref, path, gate, tmp: str) -> dict:
+    """7e: the PG executor on a WIKI-Dir database of its own (PG_SCALE),
+    with flat and 16-list IVF beside it: batch == loop at three precisions,
+    kernel 2 inside the int8 / PQ rescore against its plain version, recall
+    against flat, the scheduler over PG, a repair after deletes, and
+    crashes at the ``maint.apply`` seam recovered to an uncrashed twin."""
+    from repro_torch import faults
+    from repro_torch.datasets import make_wiki_dir
+    from repro_torch.serving import ScheduledDSQ, SchedulerConfig
+    from repro_torch.vectordb import DirectoryVectorDB
+    out = {"scale": PG_SCALE, "scale_planned": 1.0, "cut": True,
+           "params": PG_PARAMS, "ivf_lists": PG_IVF_LISTS}
+    ds = make_wiki_dir(scale=PG_SCALE, dim=128, n_queries=64, seed=0)
+    queries, paths, rec = requests(ds)
+    k, B = 10, len(paths)
+
+    def new_db(tag):
+        db = DirectoryVectorDB(dim=128, scope_strategy="triehi",
+                               calibration=False, device="cuda",
+                               journal_path=str(Path(tmp) / f"pg.{tag}"))
+        db.ingest(ds.vectors, ds.entry_paths)
+        db.build_ann("flat")
+        return db
+
+    db = new_db("a")
+    out["entries"] = len(db.store)
+    with path.counted():
+        db.build_ann("ivf", n_lists=PG_IVF_LISTS, seed=0)
+        t0 = time.perf_counter()
+        db.build_ann("pg", **PG_PARAMS)
+        out["build_s"] = time.perf_counter() - t0
+    emit({"phase": "7e-build", **out})
+    twin = new_db("b")
+    twin.executors["pg"] = clone_pg(db.executors["pg"], twin.store)
+    fp = db.dsq_batch(queries, paths, k=k, recursive=rec)        # flat
+    rescores, checked = [], {}
+    for prec, rk in (("fp32", None), ("int8", None), ("pq", PQ_RESCORE_K)):
+        kw = dict(k=k, executor="pg", precision=prec, rescore_k=rk,
+                  ef_search=PG_EF[1])
+        calls = []
+        t0 = time.perf_counter()
+        with path.counted(), recorded_calls(ops, "multi_scope_topk",
+                                            range(1 << 30), calls):
+            b = db.dsq_batch(queries, paths, recursive=rec, **kw)
+        tb = time.perf_counter() - t0
+        loop = [db.dsq(queries[i], paths[i], recursive=rec[i],
+                       **{**kw, "precision": planned_precision(
+                           db, b[i], prec, k, rk)}) for i in range(B)]
+        gate(same_results(b, loop), f"7e pg {prec}: dsq_batch != loop")
+        gate(prec == "fp32" or len(calls) > 0,
+             f"7e pg {prec}: the rescore launched no kernel 2")
+        rescores += calls
+        checked[prec] = {"batch_ms": tb * 1e3, "rescore_launches": len(calls),
+                         "precision_groups": b[0].batch.precision_groups,
+                         "recall_at_10_vs_flat": set_recall(fp, b)}
+    errs = []
+    for _, args, kw in rescores:
+        a = bound_args(ops, "multi_scope_topk", args, kw)
+        plain = ref.multi_scope_topk_ref(
+            a["queries"], a["rows"], a["mask_words"], a["scope_ids"],
+            a["k"], a["metric"], a["sq"])
+        errs.append(topk_case(ref, "7e kernel 2 in the PG rescore",
+                              ops.multi_scope_topk(*args, **kw), plain))
+    out["rescore_kernel2"] = {"calls_checked": len(errs),
+                              "max_abs_err": max(errs, default=0.0)}
+    out["precisions"] = checked
+    out["recall_at_10_vs_flat"] = {
+        str(ef): set_recall(fp, db.dsq_batch(
+            queries, paths, k=k, recursive=rec, executor="pg",
+            ef_search=ef)) for ef in PG_EF}
+    sdsq = ScheduledDSQ(db, k=k, executor="pg", ef_search=PG_EF[1],
+                        cfg=SchedulerConfig(max_batch=SCHED_BATCH,
+                                            max_wait_ms=1e4))
+    served, got = sched_batch(sdsq, path, queries, paths, rec)
+    direct = db.dsq_batch(queries, paths, k=k, recursive=rec, executor="pg",
+                          ef_search=PG_EF[1])
+    gate(served == B and same_results(got, direct)
+         and sdsq.scheduler.stage_faults == 0,
+         "7e: scheduled pg batch != direct (bitwise)")
+    # deletes, then the repair: run as is on db, crashed at maint.apply
+    # and recovered on the twin; then the same for a compaction
+    victims = np.random.default_rng(11).choice(len(db.store), PG_DELETES,
+                                               replace=False)
+    for d in (db, twin):
+        for v in np.sort(victims):
+            d.delete(int(v))
+    pg, tpg = db.executors["pg"], twin.executors["pg"]
+    dead_before = pg.audit()["dead"]
+    mgr, tmgr = db.maintenance(), twin.maintenance()
+    with path.counted():
+        t0 = time.perf_counter()
+        step = mgr.step()
+        out["repair_s"] = time.perf_counter() - t0
+    audit = pg.audit()
+    gate(step is not None and step["kind"] == "maint_pg_repair"
+         and audit["dead"] == 0 and pg.repair_gen == 1,
+         f"7e: repair {step and step['kind']}: audit {audit}, "
+         f"repair_gen {pg.repair_gen}")
+    out["repair"] = {"dead_before": dead_before, "audit": audit,
+                     "result": step and step["result"]}
+    crashes = {}
+    for kind in ("maint_pg_repair", "maint_compact"):
+        if kind == "maint_compact":
+            with path.counted():
+                mgr._run(kind)
+        plan = faults.FaultPlan().add("maint.apply", kind="crash")
+        try:
+            with faults.FaultInjector(plan):
+                tmgr._run(kind)
+            crashes[kind] = "no crash"
+        except faults.InjectedCrash:
+            crashes[kind] = [o.kind for o in twin.recover()["fs"]]
+    gate(crashes == {"maint_pg_repair": ["maint_pg_repair"],
+                     "maint_compact": ["maint_compact"]},
+         f"7e: crash recovery replayed {crashes}")
+    gate(np.array_equal(pg.neighbors, tpg.neighbors)
+         and np.array_equal(pg._n_edges, tpg._n_edges)
+         and pg._entry == tpg._entry and pg.repair_gen == tpg.repair_gen
+         and np.array_equal(db.store.vectors, twin.store.vectors),
+         "7e: the recovered twin's graph or store != the uncrashed one")
+    for ex in ("flat", "pg"):
+        gate(same_results(
+            db.dsq_batch(queries, paths, k=k, recursive=rec, executor=ex),
+            twin.dsq_batch(queries, paths, k=k, recursive=rec, executor=ex)),
+             f"7e: the recovered twin's {ex} batch != the uncrashed one")
+    out["crash_recovery"] = crashes
+    out["rows_after_compact"] = len(db.store)
+    emit({"phase": "7e", **out})
+    return out
+
+
 # --------------------------------------------------------------- phase 6
 # WIKI-Dir at a tenth (194,000 context entries) is the deployment's scale;
 # ``add_context`` one entry at a time takes ~1.4 ms on the H100 host, so
@@ -2193,6 +2691,75 @@ def rag_ingest(ds, ctx, vocab: int, scale: float) -> dict:
             "per_entry_us": dt / max(n, 1) * 1e6}
 
 
+def serve_rag(ops, ctx, server, rcfg, reqs, prompt, tokens, path,
+              gate) -> dict:
+    """7f: the batch of phase 6's second answer served through the
+    continuous-batching front ends. ``RAGServer.start`` with
+    ``max_batch`` = the batch's size flushes the submitted requests as one
+    batch, whose tokens and retrieval stats must equal ``answer``'s
+    (``tokens``) with the same kernel-10 launches; then
+    ``ContextDatabase.submit_retrieve`` must equal ``retrieve_batch``."""
+    from repro_torch.serving import SchedulerConfig
+    queries, paths, rec = reqs
+    B = len(paths)
+    steps = tokens.shape[1]
+    direct = ctx.retrieve_batch(queries, paths, rcfg, recursive=rec)
+
+    def strip(stats):
+        return {key: v for key, v in stats.items()
+                if key not in _TIMING_KEYS and not key.startswith("sched_")}
+
+    before = ops.launch_counts()
+    with path.counted():
+        server.start(SchedulerConfig(max_batch=B, max_wait_ms=1e4),
+                     max_new_tokens=steps)
+        try:
+            t0 = time.perf_counter()
+            tickets = [server.submit(queries[i], paths[i], prompt=prompt,
+                                     recursive=rec[i]) for i in range(B)]
+            served = [t.result(WAIT_S) for t in tickets]
+            wall = time.perf_counter() - t0
+            snap = server.serving_stats()
+        finally:
+            server.stop()
+    launched = new_launches(before, ops.launch_counts())
+    per_batch = server.lm_cfg.n_layers * steps
+    gate(all(t.batch_size == B for t in tickets),
+         f"7f: served in batches of {sorted({t.batch_size for t in tickets})}")
+    gate(np.array_equal(np.stack([r["tokens"] for r in served]), tokens),
+         "7f: served tokens != answer's tokens for the same batch")
+    gate([strip(r["retrieval_stats"]) for r in served]
+         == [strip(st) for _, st in direct]
+         and all([h.entry_id for h in r["hits"]]
+                 == [h.entry_id for h in d] for r, (d, _) in zip(served,
+                                                                  direct)),
+         "7f: served retrieval != retrieve_batch")
+    gate(launched.get("flash_decode", 0) == per_batch,
+         f"7f: flash_decode launched {launched.get('flash_decode', 0)}, "
+         f"want {per_batch}")
+    with path.counted():
+        ctx.start_serving(rcfg, SchedulerConfig(max_batch=B,
+                                                max_wait_ms=1e4))
+        try:
+            rt = [ctx.submit_retrieve(queries[i], paths[i], recursive=rec[i])
+                  for i in range(B)]
+            got = [t.result(WAIT_S) for t in rt]
+            rsnap = ctx.serving_stats()
+        finally:
+            ctx.stop_serving()
+    gate(all([h.entry_id for h in g] == [h.entry_id for h in d]
+             and strip(gs) == strip(ds) and "sched_occupancy" in gs
+             for (g, gs), (d, ds) in zip(got, direct)),
+         "7f: submit_retrieve != retrieve_batch")
+    gate(snap["completed"] == B and snap["failed"] == 0
+         and rsnap["completed"] == B and rsnap["failed"] == 0,
+         "7f: a served request failed")
+    return {"answer_wall_s": wall, "tokens_per_s": B * steps / wall,
+            "batches": snap["batches"], "mean_batch": snap["mean_batch"],
+            "launches": launched, "retrieve_batches": rsnap["batches"],
+            "retrieve_p50_ms": rsnap["p50_ms"]}
+
+
 def phase6(torch, ops, args, cfg=None, device="cuda"):
     """The RAG decode path on the card (module docstring, phase 6) with the
     LM ``cfg`` (full-width ``qwen3-0.6b`` when None). Every failed check is
@@ -2295,6 +2862,8 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
     ctx.db.check_invariants()
     info["merge"] = merged
     info["answer_2"] = one_answer("answer 2", record=False)
+    info["served"] = serve_rag(ops, ctx, server, rcfg, (queries, paths, rec),
+                               prompt[0], answers[-1], path, gate)
     counts = dict(path.counts)
     gate(all(bool(f) for f in flags) and len(flags) == 2 * (1 + RAG_STEPS),
          f"non-finite logits in {sum(not bool(f) for f in flags)} of "
@@ -2447,14 +3016,16 @@ def main() -> int:
         del captured, rescores
         c5, captured = phase5(torch, ops, ref, ds, db)
         phase5_kernels(torch, ops, ref, peaks, captured, measured)
-        del captured, ds, db, batched, looped
+        del captured
+        c7 = phase7(torch, ops, ref, ds, db, tmp)
+        del ds, db, batched, looped
     gc.collect()
     torch.cuda.empty_cache()
     c6, captured = phase6(torch, ops, args)
     phase6_kernels(torch, ops, ref, peaks, captured, measured)
     del captured
     launches = {key: c2[key] + c3[key] + c4[key] + c5[key] + c6[key]
-                for key in c2}
+                + c7[key] for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

@@ -1,5 +1,5 @@
 """Directory-scoped RAG / agent-context serving (the OpenViking deployment of
-§IV-C), the port of ``repro/serving/rag.py``'s synchronous path.
+§IV-C), the port of ``repro/serving/rag.py``.
 
 Pipeline per request batch:
   1. DSQ: TrieHI resolves the ``viking://``-style directory scope (recursive
@@ -12,9 +12,12 @@ Pipeline per request batch:
      ``decode_step``s whose attention is kernel 10 on a card.
 
 DSM ops (memory consolidation, subtree reorganization) run against the same
-database between serving steps. The async surface of the reference
-(``start_serving``, ``submit_retrieve``, ``RetrievalTicket``, ``start``,
-``submit``) waits for the scheduler port (ROADMAP queue 1 item 8).
+database between serving steps. Besides the synchronous ``retrieve_batch``
+and ``answer``, the continuous-batching surface (``start_serving`` /
+``submit_retrieve`` and ``RAGServer.start`` / ``submit``) coalesces
+concurrent requests through :mod:`.scheduler`; a served answer batch
+decodes on the scheduler's executing thread with the same kernel-10
+launches as ``answer``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import torch
 
 from ..models import decode_step, prefill
 from ..vectordb import DirectoryVectorDB
+from .scheduler import (ContinuousScheduler, ScheduledDSQ, SchedulerConfig,
+                        ServingTicket, StagedQueries, assemble_dsq, stage_dsq)
 
 TIERS = ("L0", "L1", "L2")
 
@@ -58,6 +63,7 @@ class ContextDatabase:
                  calibration=None, device=None):
         self.db = DirectoryVectorDB(dim=dim, scope_strategy=scope_strategy,
                                     calibration=calibration, device=device)
+        self._serving: Optional[ScheduledDSQ] = None
         self.payloads: Dict[int, ContextEntry] = {}
 
     def add_context(self, vector: np.ndarray, path: str, tier: str,
@@ -99,7 +105,10 @@ class ContextDatabase:
 
     def _format_result(self, res) -> Tuple[List[ContextEntry],
                                            Dict[str, float]]:
-        """(payload hits, stats dict) for one DSQResult."""
+        """(payload hits, stats dict) for one DSQResult — shared by the
+        direct ``retrieve_batch`` path and the scheduled async path, so a
+        scheduled request surfaces the same stats plus the scheduler's own
+        terms."""
         hits = [self.payloads[int(i)] for i in res.ids[0] if int(i) >= 0]
         stats = {"directory_us": res.directory_ns / 1e3,
                  "ann_us": res.ann_ns / 1e3, "scope_size": res.scope_size,
@@ -128,6 +137,15 @@ class ContextDatabase:
             stats["rescore_fetch_bytes"] = res.batch.rescore_fetch_bytes
             stats["rows_device_pinned"] = res.batch.rows_device_pinned
             stats["rows_host"] = res.batch.rows_host
+        if res.batch is not None and res.batch.sched_batches:
+            # continuous-batching terms stamped by the scheduler: where this
+            # request's batch sat in the serving pipeline, and how full it was
+            b = res.batch
+            stats["sched_queue_ms"] = (b.sched_queue_ns
+                                       / max(b.batch_size, 1)) / 1e6
+            stats["sched_stage_ms"] = b.sched_stage_ns / 1e6
+            stats["sched_service_ms"] = b.sched_service_ns / 1e6
+            stats["sched_occupancy"] = b.sched_occupancy / b.sched_batches
         return hits, stats
 
     def retrieve(self, query_vec: np.ndarray, scope: str, cfg: RAGConfig,
@@ -156,6 +174,88 @@ class ContextDatabase:
             return np.zeros(1, dtype=np.int32)
         return np.concatenate(parts).astype(np.int32)
 
+    # ------------------------------------------------- async serving surface
+    def start_serving(self, cfg: RAGConfig,
+                      sched: Optional[SchedulerConfig] = None
+                      ) -> "ScheduledDSQ":
+        """Start the continuous-batching retrieval front end: concurrent
+        :meth:`submit_retrieve` calls coalesce into scheduler-filled
+        ``dsq_batch`` launches under the SLO flush policy, with weighted-fair
+        admission and double-buffered mask/query staging. Results are
+        bit-identical to :meth:`retrieve_batch` over the same batch."""
+        if self._serving is not None:
+            raise RuntimeError("serving already started")
+        self._serving = ScheduledDSQ(
+            self.db, k=cfg.k, executor=cfg.executor, precision=cfg.precision,
+            rescore_k=cfg.rescore_k, cfg=sched).start()
+        return self._serving
+
+    def submit_retrieve(self, query_vec: np.ndarray, scope: str,
+                        recursive: bool = True, exclude: Sequence[str] = (),
+                        tenant: str = "default",
+                        t_arrival: Optional[float] = None,
+                        deadline_ms: Optional[float] = None
+                        ) -> "RetrievalTicket":
+        """Async submit: admit one retrieval into the scheduler (raises
+        :class:`~repro_torch.serving.scheduler.AdmissionError` at queue
+        capacity, :class:`~repro_torch.serving.scheduler.SchedulerUnhealthy`
+        when a dead worker flipped the scheduler readonly). ``.result()``
+        awaits the scheduler-filled batch and returns the same
+        ``(hits, stats)`` pair :meth:`retrieve` would; a request still
+        queued past ``deadline_ms`` instead raises a typed
+        ``DeadlineExceeded``."""
+        if self._serving is None:
+            raise RuntimeError("call start_serving(cfg) first")
+        ticket = self._serving.submit(query_vec, scope, recursive=recursive,
+                                      exclude=exclude, tenant=tenant,
+                                      t_arrival=t_arrival,
+                                      deadline_ms=deadline_ms)
+        return RetrievalTicket(ticket, self._format_result)
+
+    def stop_serving(self) -> None:
+        if self._serving is not None:
+            self._serving.stop()
+            self._serving = None
+
+    def serving_stats(self, reset: bool = False) -> Dict[str, object]:
+        """Window snapshot of the serving metrics: QPS, p50/p95/p99 latency,
+        batch occupancy, shed rate, health state + degrade counters, merged
+        batch accounting. ``reset=True`` starts the next window."""
+        if self._serving is None:
+            raise RuntimeError("serving not started")
+        out = self._serving.metrics.snapshot(reset=reset)
+        out["degrade_level"] = self._serving.degrade_level
+        return out
+
+
+class RetrievalTicket:
+    """Await handle whose ``result()`` maps the scheduled DSQResult to the
+    ``(hits, stats)`` pair of the synchronous retrieve path."""
+
+    def __init__(self, ticket: ServingTicket, fmt):
+        self._ticket = ticket
+        self._fmt = fmt
+
+    def done(self) -> bool:
+        return self._ticket.done()
+
+    def cancel(self) -> bool:
+        """Abandon the retrieval (e.g. after ``result(timeout)`` timed
+        out): its admission-queue slot is reclaimed at the next batch
+        formation instead of leaking."""
+        return self._ticket.cancel()
+
+    def result(self, timeout: Optional[float] = None):
+        return self._fmt(self._ticket.result(timeout))
+
+    @property
+    def latency_s(self) -> float:
+        return self._ticket.latency_s
+
+    @property
+    def batch_size(self) -> int:
+        return self._ticket.batch_size
+
 
 class RAGServer:
     """Batched scoped retrieval + greedy decode. ``lm_params`` is the port's
@@ -167,6 +267,11 @@ class RAGServer:
         self.params = lm_params
         self.lm_cfg = lm_cfg
         self.cfg = cfg
+        self._sched: Optional[ContinuousScheduler] = None
+        self._serving_new_tokens = 16
+        # side stream of the staged query copies (made at the first stage
+        # of a CUDA database)
+        self._stream: Optional["torch.cuda.Stream"] = None
 
     def answer(self, query_vecs: np.ndarray, scopes: Sequence[str],
                prompts: Sequence[np.ndarray], max_new_tokens: int = 16,
@@ -232,3 +337,69 @@ class RAGServer:
     def assemble_with_prompt(self, hits, prompt: np.ndarray) -> np.ndarray:
         ctx = self.ctx.assemble(hits, self.cfg)
         return np.concatenate([ctx, np.asarray(prompt, np.int32)])
+
+    # ------------------------------------------------- async serving surface
+    def start(self, sched: Optional[SchedulerConfig] = None,
+              max_new_tokens: int = 16) -> "RAGServer":
+        """Start the continuous-batching answer front end: concurrent
+        :meth:`submit` calls coalesce into scheduler-filled batches that run
+        the full retrieve -> assemble -> prefill -> decode pipeline. The
+        retrieval staging (scope masks + query upload) double-buffers
+        against the previous batch's ranking and decode."""
+        if self._sched is not None:
+            raise RuntimeError("server already started")
+        self._serving_new_tokens = max_new_tokens
+        self._sched = ContinuousScheduler(
+            self._serve_batch, stage=self._stage_batch, cfg=sched).start()
+        return self
+
+    def submit(self, query_vec: np.ndarray, scope: str,
+               prompt: Sequence[int] = (), recursive: bool = True,
+               tenant: str = "default",
+               t_arrival: Optional[float] = None) -> ServingTicket:
+        """Admit one answer request (typed :class:`AdmissionError` at queue
+        capacity). ``.result()`` returns ``{"tokens", "hits",
+        "retrieval_stats"}`` for this request, produced by a
+        scheduler-filled batch."""
+        if self._sched is None:
+            raise RuntimeError("call start() first")
+        payload = (np.asarray(query_vec, np.float32), scope, bool(recursive),
+                   (), np.asarray(prompt, np.int32))
+        return self._sched.submit(payload, tenant=tenant, t_arrival=t_arrival)
+
+    def stop(self) -> None:
+        if self._sched is not None:
+            self._sched.stop()
+            self._sched = None
+
+    def serving_stats(self, reset: bool = False) -> Dict[str, object]:
+        if self._sched is None:
+            raise RuntimeError("server not started")
+        return self._sched.metrics.snapshot(reset=reset)
+
+    def _stage_batch(self, payloads) -> object:
+        db = self.ctx.db
+        if self._stream is None and db.device.type == "cuda":
+            self._stream = torch.cuda.Stream(device=db.device)
+        return stage_dsq(db, payloads, self.cfg.k, "fs", self.cfg.executor,
+                         stream=self._stream)
+
+    def _serve_batch(self, payloads, staged) -> List[Dict[str, object]]:
+        """Execute one scheduler-coalesced answer batch: same pipeline as
+        :meth:`answer`, returning one result dict per request."""
+        queries, scopes, rec, _ = assemble_dsq(payloads)
+        prompts = [p[4] for p in payloads]
+        try:
+            retrieved = self.ctx.retrieve_batch(queries, scopes, self.cfg,
+                                                recursive=rec)
+        finally:
+            # retrieval ranks the host matrix; the staged device copy is
+            # never read, and its pinned buffer goes once the copy is done
+            if isinstance(staged, StagedQueries):
+                staged.release()
+        contexts = [self.assemble_with_prompt(hits, prompt)
+                    for (hits, _), prompt in zip(retrieved, prompts)]
+        tokens = self._decode_batch(contexts, self._serving_new_tokens)
+        return [{"tokens": tokens[i], "hits": retrieved[i][0],
+                 "retrieval_stats": retrieved[i][1]}
+                for i in range(len(payloads))]

@@ -4,14 +4,16 @@ torch device.
 Composes (1) one or more *namespaces* (independent directory hierarchies,
 e.g. ARXIV-Dir's subject + temporal trees), each backed by a pluggable
 ScopeIndex strategy, with (2) a vector store mirrored on the database's
-device and the flat and IVF executors at fp32, int8 or PQ precision, with
-tiered storage past a device byte budget. DSQ runs scope resolution first,
-then ranks inside the resolved candidate set; DSM goes through the
-journaled, region-locked executor (§IV-A consistency ordering), and its
-delta events patch the planner's device-resident scope masks.
+device and the flat, IVF and proximity-graph executors at fp32, int8 or PQ
+precision, with tiered storage past a device byte budget. DSQ runs scope
+resolution first, then ranks inside the resolved candidate set; DSM goes
+through the journaled, region-locked executor (§IV-A consistency ordering),
+and its delta events patch the planner's device-resident scope masks.
+Online maintenance (:meth:`DirectoryVectorDB.maintenance`) compacts the
+store, repairs the graph and repartitions IVF under the same journal.
 
-Only the proximity-graph and sharded executors and online maintenance still
-raise ``NotImplementedError``, until their slices land.
+Only the sharded executor still raises ``NotImplementedError``, until its
+slice lands (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..core.interface import normalize_batch
 from ..device import resolve_device
 from .costmodel import install_kernel_tuning, model_of, resolve_calibration
 from .flat import PRECISIONS, FlatExecutor
+from .graph import PGIndex
 from .ivf import IVFIndex
 from .planner import BatchAccounting, BatchPlanner, ScopeMaskCache
 from .quant import resolve_rescore_k
@@ -110,9 +113,12 @@ class DirectoryVectorDB:
             self.executors["flat"] = FlatExecutor(self.store)
         elif kind == "ivf":
             self.executors["ivf"] = IVFIndex(self.store, **params)
-        elif kind in ("pg", "sharded"):
+        elif kind == "pg":
+            self.executors["pg"] = PGIndex(self.store, **params)
+        elif kind == "sharded":
             raise NotImplementedError(
-                f"the {kind!r} executor is not ported yet (ROADMAP queue 1)")
+                "the 'sharded' executor is not ported yet (ROADMAP queue 1 "
+                "item 9)")
         else:
             raise ValueError(f"unknown ANN executor {kind!r}")
 
@@ -131,6 +137,9 @@ class DirectoryVectorDB:
         ivf = self.executors.get("ivf")
         if ivf is not None:
             ivf.add(ids)
+        pg = self.executors.get("pg")
+        if pg is not None:
+            pg.add(ids)
         return ids
 
     def _bind(self, ids: np.ndarray,
@@ -240,8 +249,14 @@ class DirectoryVectorDB:
         ``ivf_probe_topk*`` launch (``nprobe`` may be one value or one per
         request). Results are bit-identical to calling :meth:`dsq` per
         request, but the directory and kernel work is amortized (see
-        ``DSQResult.batch``). Executor params the planner cannot plan (e.g. a
-        forced ``plan="scan"``) take the per-request fallback loop.
+        ``DSQResult.batch``). On the PG executor each unique scope's dense
+        bool mask is built once and shared by its requests' beams (one
+        ``search_batch`` per scope, ``ef_search`` planned); there a request
+        equals :meth:`dsq` at its group's planned precision (a gather scope
+        the rescore window covers runs exact fp32, as in the reference).
+        Executor params
+        the planner cannot plan (e.g. a forced ``plan="scan"``) take the
+        per-request fallback loop.
 
         With ``precision="int8"`` / ``"pq"`` the planner picks the precision
         per scope group (scan groups quantize; gather groups only when they
@@ -267,7 +282,12 @@ class DirectoryVectorDB:
             return self._dsq_batch_ivf(ex, queries, paths, k, recursive,
                                        exclude, namespace, nprobe, precision,
                                        rescore_k)
-        if executor_params:
+        if isinstance(ex, PGIndex) and set(executor_params) <= {"ef_search"}:
+            return self._dsq_batch_pg(ex, queries, paths, k, recursive,
+                                      exclude, namespace,
+                                      executor_params.get("ef_search", 64),
+                                      precision, rescore_k)
+        if not isinstance(ex, FlatExecutor) or executor_params:
             return self._dsq_batch_fallback(queries, paths, k, recursive,
                                             exclude, namespace, executor,
                                             precision=precision,
@@ -381,6 +401,40 @@ class DirectoryVectorDB:
 
         return self._dsq_batch_planned(queries, paths, k, recursive, exclude,
                                        namespace, launch_ivf, label="ivf",
+                                       precision=precision,
+                                       rescore_k=rescore_k)
+
+    def _dsq_batch_pg(self, ex: PGIndex, queries, paths, k, recursive,
+                      exclude, namespace, ef_search, precision="fp32",
+                      rescore_k=None) -> List[DSQResult]:
+        """Batched PG DSQ: unique scopes resolve once (cache-first), each
+        group's dense bool mask is built once and shared by every request in
+        the group — one ``search_batch`` call per unique scope."""
+
+        def launch_pg(groups, out_scores, out_ids, acct):
+            alive = self.store.alive_bool()
+            for g in groups:
+                if g.plan == "empty":
+                    continue
+                valid = g.bool_mask
+                if alive is not None:
+                    valid = valid & alive
+                rows = np.asarray(g.request_idx)
+                s, i = ex.search_batch(queries[rows], k, valid_mask=valid,
+                                       ef_search=ef_search,
+                                       precision=g.precision,
+                                       rescore_k=rescore_k)
+                out_scores[rows] = s
+                out_ids[rows] = i
+                acct.launches += 1
+                if g.precision != "fp32":
+                    # the quantized beam collects max(ef, window) per query
+                    acct.rescore_candidates += len(rows) * max(
+                        ef_search,
+                        resolve_rescore_k(k, rescore_k, len(self.store)))
+
+        return self._dsq_batch_planned(queries, paths, k, recursive, exclude,
+                                       namespace, launch_pg, label="pg",
                                        precision=precision,
                                        rescore_k=rescore_k)
 
@@ -523,9 +577,25 @@ class DirectoryVectorDB:
         return out
 
     # ---------------------------------------------------------- maintenance
-    def maintenance(self, namespace: str = DEFAULT_NS, policy=None):
-        raise NotImplementedError(
-            "online maintenance is not ported yet (ROADMAP queue 1 item 6)")
+    def maintenance(self, namespace: str = DEFAULT_NS,
+                    policy=None) -> "MaintenanceManager":
+        """Per-namespace-journal :class:`~repro_torch.vectordb.maintenance
+        .MaintenanceManager` (created on first access, and anew when another
+        ``policy`` object is passed). Constructing it also wires its
+        :meth:`replay` hook into the namespace's DSM executor, so call this
+        *before* :meth:`recover` on restart — otherwise crashed ``maint_*``
+        suspects are dropped (harmless: the next due check re-triggers them)
+        instead of rolled forward."""
+        if not hasattr(self, "_maintenance"):
+            self._maintenance: Dict[str, object] = {}
+        mgr = self._maintenance.get(namespace)
+        if mgr is None or (policy is not None and mgr.policy is not policy):
+            from .maintenance import MaintenanceManager
+            self.namespace(namespace)
+            mgr = MaintenanceManager(self, namespace=namespace, policy=policy)
+            self._maintenance[namespace] = mgr
+            self._dsm[namespace].maintenance_replay = mgr.replay
+        return mgr
 
     # ------------------------------------------------------------------ DSM
     def move(self, src: str, new_parent: str, namespace: str = DEFAULT_NS,

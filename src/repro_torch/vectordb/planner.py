@@ -62,8 +62,9 @@ class CachedScope:
     packed words were built for (ingest growth changes the word count).
 
     The roaring bitmap is the compact resident form; the id array (gather
-    plan) and the packed device words (scan plan) are materialized on first
-    use — each executor reads exactly one form, so the other never costs
+    plan), the packed device words (scan-plan flat and batched IVF launches)
+    and the host dense bool mask (PG traversal) are materialized on first
+    use — each executor reads exactly one form, so the others never cost
     memory."""
     tokens: Tuple
     n: int
@@ -72,6 +73,7 @@ class CachedScope:
     device: torch.device
     _ids: Optional[np.ndarray] = None
     _words: Optional[torch.Tensor] = None
+    _bool: Optional[np.ndarray] = None
 
     @property
     def candidate_ids(self) -> np.ndarray:   # sorted uint32 member ids
@@ -81,10 +83,20 @@ class CachedScope:
 
     @property
     def words(self) -> torch.Tensor:         # packed, ceil(n/32), on device
+        # uploaded on the caller's current stream: the scheduler stages
+        # words on its collector thread and reads them on its executing
+        # thread, both on the legacy default stream, which orders the
+        # upload before every later kernel (serving/scheduler.py)
         if self._words is None:
             self._words = kops.as_words(
                 self.scope.to_words(max(self.n, 1))).to(self.device)
         return self._words
+
+    @property
+    def bool_mask(self) -> np.ndarray:       # dense (n,) bool, host
+        if self._bool is None:
+            self._bool = self.scope.to_bool_mask(self.n)
+        return self._bool
 
 
 class ScopeMaskCache:
@@ -229,6 +241,25 @@ class ScopeMaskCache:
             self.delta_evictions += len(evict)
             return {"patched": len(patch), "evicted": len(evict)}
 
+    def apply_remap(self, mapping, new_n: int) -> int:
+        """Store-compaction id remap: rewrite every resident entry's member
+        ids through ``mapping`` (old row -> new row, -1 = reclaimed) and
+        re-stamp it for the compacted store size. Directory membership did
+        not change — the scope-epoch contract deliberately skips the bump —
+        so the tokens are carried over unchanged and the entries stay live;
+        every materialized form (the id array, the host bool mask and the
+        device words, whose word count changed) is dropped with the old
+        entry and rebuilt on its next read. Returns the number of entries
+        patched."""
+        with self._lock:
+            for key, ent in list(self._entries.items()):
+                scope = ScopeIndex._remap_bitmap(ent.scope, mapping)
+                self._entries[key] = CachedScope(
+                    tokens=ent.tokens, n=new_n, scope_size=len(scope),
+                    scope=scope, device=self.device)
+            self.patched += len(self._entries)
+            return len(self._entries)
+
     def revalidate(self, index: ScopeIndex, n: int) -> Tuple[int, int]:
         """(still-valid, total) over the resident entries, without evicting —
         the cache-survival metric of the DSM benchmarks."""
@@ -268,6 +299,10 @@ class PlanGroup:
     @property
     def words(self) -> torch.Tensor:         # scan plan reads this
         return self.entry.words
+
+    @property
+    def bool_mask(self) -> np.ndarray:       # PG traversal reads this
+        return self.entry.bool_mask
 
 
 @dataclass

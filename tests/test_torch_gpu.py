@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card,
+and the device seams of the serving tier and online maintenance (the
+threaded scheduler, the staged query copy, compaction's rebuilt words).
 
 Marked ``gpu``: the kernels have no CPU mode, so without a CUDA device the
 test skips. It imports nothing of JAX, so it also runs where only the port
@@ -1023,3 +1025,160 @@ def test_list_plan_fits_shared_memory(kind, q, depth, k):
         assert (plan.qt, plan.lists, plan.blocks) == (8, 1, 2)
     if (kind, depth, k, q) == ("pq", 32, 80, 64):
         assert plan.qt == 4
+
+
+# ------------------------------------------- serving and maintenance on card
+def _wiki_db(with_ivf=False):
+    """A small WIKI-Dir database on the card (flat; IVF when asked)."""
+    from repro_torch.datasets import make_wiki_dir
+    from repro_torch.vectordb import DirectoryVectorDB
+    ds = make_wiki_dir(scale=0.002, dim=32, n_queries=24, seed=7)
+    db = DirectoryVectorDB(dim=32, calibration=False, device="cuda")
+    db.ingest(ds.vectors, ds.entry_paths)
+    db.build_ann("flat")
+    if with_ivf:
+        db.build_ann("ivf", n_lists=8)
+    return ds, db
+
+
+def _mix(ds, n):
+    paths = [(ds.query_anchors[i % 6] or "/") for i in range(n)]
+    paths[0] = "/"
+    rec = [bool(i % 3) for i in range(n)]
+    rec[0] = True                          # the whole tree: a scan group
+    return ds.queries[np.arange(n) % len(ds.queries)], paths, rec
+
+
+@pytest.mark.gpu
+def test_threaded_scheduler_on_card_equals_direct_dsq():
+    """The collector / executor threads on a CUDA database: every ticket
+    equals its direct single-request ``dsq`` bit for bit, no stage fault
+    was absorbed, and the scheduled batches launched the scan kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import threading
+    from repro_torch.serving import ScheduledDSQ, SchedulerConfig
+    ds, db = _wiki_db()
+    n = 96
+    queries, paths, rec = _mix(ds, n)
+    direct = [db.dsq(queries[i], paths[i], k=10, recursive=rec[i])
+              for i in range(n)]            # builds the kernels first
+    tickets = [None] * n
+    ops.reset_launch_counts()
+    sdsq = ScheduledDSQ(db, k=10, cfg=SchedulerConfig(max_batch=16,
+                                                      max_wait_ms=2.0))
+    with sdsq:
+        def client(lo):
+            for i in range(lo, n, 4):
+                tickets[i] = sdsq.submit(queries[i], paths[i],
+                                         recursive=rec[i])
+        threads = [threading.Thread(target=client, args=(j,))
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = [t.result(60.0) for t in tickets]
+    launched = ops.launch_counts()
+    assert launched["multi_scope_topk"] + launched["scoped_topk"] > 0
+    for res, want in zip(results, direct):
+        np.testing.assert_array_equal(res.ids, want.ids)
+        np.testing.assert_array_equal(res.scores, want.scores)
+    snap = sdsq.metrics.snapshot()
+    assert snap["completed"] == n and snap["failed"] == 0
+    assert sdsq.scheduler.stage_faults == 0 and sdsq.health == "healthy"
+
+
+@pytest.mark.gpu
+def test_staged_query_copy_completes_before_first_use():
+    """``stage_dsq`` stages a batch's query matrix in pinned memory and
+    copies it on the owner's side stream. With that stream held busy, a
+    large matrix's copy is still queued when it was issued, and a consumer
+    ordered by ``wait`` reads the whole matrix. Then, threaded, an execute
+    delayed past the next stage still finds its own batch's device copy
+    intact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.serving import (ScheduledDSQ, SchedulerConfig,
+                                     StagedQueries)
+    from repro_torch.serving.scheduler import assemble_dsq, stage_dsq
+    ds, db = _wiki_db()
+    queries, paths, rec = _mix(ds, 64)
+    side = torch.cuda.Stream()
+    staged = stage_dsq(db, [(queries[i], paths[i], rec[i], ())
+                            for i in range(64)], 10, "fs", "flat",
+                       stream=side)
+    assert isinstance(staged, StagedQueries) and staged.host.is_pinned()
+    assert torch.equal(staged.wait().cpu(), torch.from_numpy(queries))
+    big = np.random.default_rng(0).normal(
+        size=(1 << 20, 32)).astype(np.float32)            # 128 MiB
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1_000_000_000)                  # ~0.5 s of spinning
+    staged = StagedQueries(big, db.device, side)
+    assert not staged.event.query()                       # still queued
+    got = staged.wait()                   # this stream now waits on it
+    assert torch.equal(got, torch.from_numpy(big).to(db.device))
+    staged.release()
+    assert staged.event.query()
+
+    sdsq = ScheduledDSQ(db, k=10, cfg=SchedulerConfig(max_batch=64,
+                                                      max_wait_ms=2.0))
+    execute = sdsq.scheduler.execute_fn
+    seen = []
+
+    def delayed(batch_payloads, staged):
+        import time
+        time.sleep(0.02)                  # the next batch stages meanwhile
+        queries = assemble_dsq(batch_payloads)[0]
+        seen.append(torch.equal(staged.wait().cpu(),
+                                torch.from_numpy(queries)))
+        return execute(batch_payloads, staged)
+
+    sdsq.scheduler.execute_fn = delayed
+    queries, paths, rec = _mix(ds, 256)
+    with sdsq:
+        tickets = [sdsq.submit(queries[i], paths[i], recursive=rec[i])
+                   for i in range(256)]
+        results = [t.result(60.0) for t in tickets]
+    assert len(results) == 256 and seen and all(seen)
+    assert sdsq.scheduler.stage_faults == 0
+
+
+@pytest.mark.gpu
+def test_compaction_rebuilds_cached_device_words():
+    """After ``maint_compact`` every cached scope's device words are
+    rebuilt for the compacted store, ``ceil(new_n / 32)`` long, and the
+    batch after compaction is the batch before it, ids mapped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.vectordb import MaintenancePolicy
+    ds, db = _wiki_db(with_ivf=True)
+    queries, paths, rec = _mix(ds, 32)
+    db.dsq_batch(queries, paths, k=10, recursive=rec)
+    deep = sorted(set(ds.entry_paths), key=lambda p: (-p.count("/"), p))
+    victims = [p for p in deep[:64]
+               if not any(q != p and q.startswith(p) for q in deep)][:8]
+    assert not any(r for r in db.dsm_batch(
+        [("remove", p) for p in victims]).errors)
+    assert 0 < db.store.n_deleted < len(db.store) // 4
+    before = db.dsq_batch(queries, paths, k=10, recursive=rec)
+    cache = db.planner().cache
+    assert any(ent._words is not None for ent in cache._entries.values())
+    mgr = db.maintenance(policy=MaintenancePolicy(tombstone_fraction=0.0,
+                                                  tombstone_min=1))
+    seen = []
+    propagate = mgr._propagate_remap
+    mgr._propagate_remap = lambda m: (seen.append(np.array(m)),
+                                      propagate(m))[1]
+    kinds = [r["kind"] for r in mgr.run_all()]
+    assert "maint_compact" in kinds and len(seen) == 1
+    new_n = len(db.store)
+    for ent in cache._entries.values():
+        assert ent._words is None and ent.n == new_n
+        w = ent.words
+        assert w.is_cuda and w.shape[0] == (new_n + 31) // 32
+    after = db.dsq_batch(queries, paths, k=10, recursive=rec)
+    for a, b in zip(after, before):
+        mapped = np.where(b.ids >= 0, seen[0][np.maximum(b.ids, 0)], -1)
+        np.testing.assert_array_equal(a.ids, mapped)
+        np.testing.assert_array_equal(a.scores, b.scores)
