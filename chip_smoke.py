@@ -82,13 +82,39 @@ Phases (each prints one JSON line; any failure exits non-zero):
    / PQ, kernel 2 in the int8 / PQ rescore against its plain version,
    recall@10 against flat at ef 64 / 128, the scheduler over PG, a repair
    after 64 deletes, and crashes at the ``maint.apply`` seam recovered
-   bitwise to an uncrashed twin.
+   bitwise to an uncrashed twin;
+8. the sharded tier on phase 5's database (printed between phases 5 and 7,
+   so that 7d's compaction remaps it): ``build_ann("sharded",
+   n_shards=4)``, four row shards on the one card (capacity 2,097,152,
+   524,288 rows a shard). (8a) the 64-request mix at fp32, int8 (window
+   40) and PQ (window 80): the sharded batch bitwise equal to the flat
+   batch with one launch of kernel 2, 6 or 8 per shard, and a loop of
+   ``dsq(executor="sharded")`` equal to a loop over flat; (8b) the batch
+   again: every scan group a slot hit, no mask bytes uploaded; each
+   shard's launch and the flat batch's launch over all rows held against
+   their plain versions and timed; (8c) a ``dsm_batch`` of 5 moves, 5
+   merges and 2 removes: slots patched, no surviving slot re-uploaded,
+   sharded == flat; (8d) 8 rmdirs, the alive words patched by range;
+   (8e) 1,000 rows ingested inside the capacity (no re-shard), then rows
+   past it (one re-shard to twice the capacity), sharded == flat after
+   both; (8f) ``ScheduledDSQ(executor="sharded")`` pumped (the staged
+   pre-pin makes every execute-time pin a hit), then a fault plan at
+   ``sharded.h2d``: the breaker trips to flat int8, answers equal the
+   direct flat int8 batch, and sharded fp32 returns when it closes; (8g,
+   after phase 7) the compaction patched every slot in place (none
+   evicted, no re-shard) and sharded == flat at three precisions;
+9. calibration (after 8g): ``calibrate(smoke=True, device="cuda")`` into
+   a temporary file, the reference's schema with ``backend == "cuda"``, a
+   fresh CUDA database loads it as ``"measured"`` with its clamps held,
+   and phase 5's database under the measured model and its installed
+   kernel blocks gives the mix's batch == a loop of ``dsq`` == the batch
+   under the heuristic model.
 
 Phase 1 also holds kernel 10 against its plain version at the reference's
 sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
 cache, and kernel 2 at ``gather_rescore``'s shapes.
 
-The kernels line's launch counts are the main path's: in phases 2-7, the
+The kernels line's launch counts are the main path's: in phases 2-9, the
 launches made around the entry points each phase drives (``MainPath``),
 not those of its checks (loops held against a batch, reference batches,
 warm-ups, timings, profiler sessions, the kernel records).
@@ -2111,6 +2137,463 @@ def phase5_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     emit({"phase": "5-kernels", **real})
 
 
+# --------------------------------------------------------------- phase 8
+SHARDS = 4                 # row shards of phase 8's executor, on one card
+SHARD_PRECISIONS = (("fp32", None), ("int8", None), ("pq", PQ_RESCORE_K))
+SHARD_SCAN = {"fp32": "multi_scope_topk", "int8": "multi_scope_topk_i8",
+              "pq": "multi_scope_topk_pq"}
+SHARD_SMALL_INGEST = 1000  # 8e: rows that stay inside the capacity
+
+
+def shard_record(torch, ops, ref, name, args, kw, label) -> dict:
+    """One launch of kernel 2, 6 or 8 (``name``) on the arguments the main
+    path gave it (a shard's rows and words, or the flat batch's over all
+    rows): held against its plain version (fp32 ids tie-aware within TOL,
+    int8 / PQ bit for bit) and timed."""
+    def fn():
+        return getattr(ops, name)(*args, **kw)
+
+    def plain():
+        return getattr(ref, name + "_ref")(*args, **kw)
+
+    got = fn()
+    err = (topk_case(ref, label, got, plain()) if name == "multi_scope_topk"
+           else exact_case(torch, label, got, plain()))
+    del got
+    a = bound_args(ops, name, args, kw)
+    rows = a.get("rows", a.get("rows_i8", a.get("codes")))
+    scopes = ops.as_words(a["mask_words"]).shape[0]
+    return {"max_abs_err": err,
+            **timed(torch, fn, 10, ("scan_pass1", "scan_pass2")),
+            "plain_ms": median_ms(torch, plain, 3),
+            "shape": f"q={a['scope_ids'].shape[0]} n={rows.shape[0]} "
+                     f"k={a['k']} scopes={scopes}"}
+
+
+def phase8(torch, ops, ref, args, ds, db, card: str):
+    """The sharded tier (module docstring, phase 8) on phase 5's database.
+    Every failed check is collected and reported at once. Returns the main
+    path's launch counts (the build, the first sharded batch of each
+    precision, the DSM, the rmdirs, the ingests, the scheduled batches; not
+    the flat batches, loops and records they are held against) and the
+    state 8g reads after phase 7's compaction."""
+    from repro_torch import faults
+    from repro_torch.serving import ScheduledDSQ, SchedulerConfig
+    from repro_torch.vectordb import model_of
+    t_phase = time.perf_counter()
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    def sync_s(t0: float) -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    queries, paths, rec = requests(ds)
+    k, B = 10, len(paths)
+    store = db.store
+    store.set_device_budget(None)           # phase 5 left a byte budget
+    store.device_vectors()
+    ops.reset_launch_counts()
+    path = MainPath(ops)
+    info = {"phase": 8, "card": card, "entries": len(store),
+            "shards": SHARDS}
+
+    def batch(executor, prec, rk, **kw):
+        return db.dsq_batch(queries, paths, k=k, recursive=rec,
+                            executor=executor, precision=prec, rescore_k=rk,
+                            **kw)
+
+    def both_equal(label):
+        for prec, rk in SHARD_PRECISIONS:
+            gate(same_results(batch("sharded", prec, rk),
+                              batch("flat", prec, rk)),
+                 f"{label} {prec}: sharded batch != flat batch (bitwise)")
+
+    with path.counted():
+        t0 = time.perf_counter()
+        db.build_ann("sharded", n_shards=SHARDS)
+        info["build_s"] = sync_s(t0)
+    ex = db.executors["sharded"]
+    gate(len(ex.mesh) == SHARDS
+         and all(d.type == db.device.type for d in ex.mesh),
+         f"8: mesh {ex.mesh}")
+
+    # 8a-8b: the mix at three precisions; the shards' launches recorded
+    shard_calls, whole_calls, a_info = {}, {}, {}
+    for prec, rk in SHARD_PRECISIONS:
+        name = SHARD_SCAN[prec]
+        with first_calls(ops, (name,), whole_calls):
+            flat = batch("flat", prec, rk)
+        calls = []
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        with path.counted(), recorded_calls(ops, name, range(1 << 30),
+                                            calls):
+            first = batch("sharded", prec, rk)
+        first_s = sync_s(t0)
+        launched = new_launches(before, ops.launch_counts())
+        shard_calls[prec] = calls
+        gate(same_results(first, flat),
+             f"8a {prec}: sharded batch != flat batch (bitwise)")
+        gate(launched.get(name, 0) == SHARDS and len(calls) == SHARDS,
+             f"8a {prec}: {launched} launches, want {SHARDS} of {name}")
+        kw = dict(k=k, precision=prec, rescore_k=rk)
+        loop_s = [db.dsq(queries[i], paths[i], recursive=rec[i],
+                         executor="sharded", **kw) for i in range(B)]
+        loop_f = [db.dsq(queries[i], paths[i], recursive=rec[i], **kw)
+                  for i in range(B)]
+        gate(same_results(loop_s, loop_f),
+             f"8a {prec}: loop of sharded dsq != loop of flat dsq")
+        m0 = ex.mask_bytes_uploaded
+        again = batch("sharded", prec, rk)
+        acct = again[0].batch
+        gate(same_results(again, flat), f"8b {prec}: second batch differs")
+        gate(acct.shard_mask_hits == acct.plan_groups.get("scan", 0) > 0
+             and acct.shard_mask_bytes == 0 and ex.mask_bytes_uploaded == m0,
+             f"8b {prec}: hits {acct.shard_mask_hits} of "
+             f"{acct.plan_groups} scan groups, "
+             f"{acct.shard_mask_bytes} mask bytes")
+        walls = {"flat": [], "sharded": []}
+        for label in ("flat", "sharded", "sharded", "flat"):   # in turns
+            t0 = time.perf_counter()
+            batch(label, prec, rk)
+            walls[label].append(sync_s(t0) * 1e3)
+        names = ("scan_pass1", "scan_pass2")
+        a_info[prec] = {
+            "first_batch_s": first_s, "launches": launched,
+            "batch_wall_ms": walls,
+            "device_ms": {
+                "flat": device_ms(torch, lambda: batch("flat", prec, rk), 3,
+                                  names),
+                "sharded": device_ms(torch,
+                                     lambda: batch("sharded", prec, rk), 3,
+                                     names)},
+            "scan_groups": acct.plan_groups.get("scan", 0),
+            "shard_mask_hits": acct.shard_mask_hits,
+            "collective_bytes": acct.collective_bytes,
+            "shard_db_bytes_first": first[0].batch.shard_db_bytes,
+            "rescore_candidates": acct.rescore_candidates}
+    info["8a"] = a_info
+    emit({"phase": "8a", "card": card, **a_info})
+
+    # the shards' launches of kernels 2, 6 and 8 against one launch of the
+    # same kernel over all rows (the flat batch's)
+    kernels = {}
+    for prec, _ in SHARD_PRECISIONS:
+        name = SHARD_SCAN[prec]
+        recs = [shard_record(torch, ops, ref, name, a, kw,
+                             f"8 {name} shard {s}")
+                for s, (_, a, kw) in enumerate(shard_calls[prec])]
+        whole = shard_record(torch, ops, ref, name, *whole_calls[name],
+                             f"8 {name} all rows")
+        dev = [r["device_ms"] for r in recs]
+        kernels[name] = {
+            "shards": recs, "all_rows": whole,
+            "shard_device_ms_sum": (sum(dev) if None not in dev else None)}
+    shard_calls.clear()
+    whole_calls.clear()
+    info["kernels"] = kernels
+    emit({"phase": "8-kernels", "card": card, **kernels})
+
+    # 8c: DSM of phase 3's kinds of templates (moves, merges and removes
+    # not yet applied); surviving slots patch, the batch stays flat's
+    idx = db.namespaces["fs"]
+    rng = np.random.default_rng(args.seed + 8)
+    templates = ([("move", s, d) for s, d in ds.moves[10:15]]
+                 + [("merge", s, d) for s, d in ds.merges[10:15]])
+    touched = [p for op in templates for p in op[1:]]
+
+    def small_dirs(n):
+        """``n`` seeded directories holding one entry each, off the mix's
+        anchors' and the templates' chains: an rmdir of one tombstones one
+        row."""
+        out = []
+        for j in rng.permutation(len(dirs)):
+            d = dirs[j]
+            if d == "/" or any(a.startswith(d) or d.startswith(a)
+                               for a in touched + out) or any(
+                    a.startswith(d) for a in paths):
+                continue
+            if len(idx.resolve(d)) == 1:
+                out.append(d)
+            if len(out) == n:
+                break
+        return out
+
+    dirs = dir_strings(idx)
+    templates += [("remove", d) for d in small_dirs(2)]
+    st0 = ex.stats()
+    with path.counted():
+        t0 = time.perf_counter()
+        res = db.dsm_batch(templates)
+        dsm_s = time.perf_counter() - t0
+    st1 = ex.stats()
+    m0 = ex.mask_bytes_uploaded
+    after = batch("sharded", "fp32", None)
+    acct = after[0].batch
+    misses = acct.plan_groups.get("scan", 0) - acct.shard_mask_hits
+    gate(st1["masks_patched"] > st0["masks_patched"],
+         f"8c: no slot patched: {st0} -> {st1}")
+    gate(ex.mask_bytes_uploaded - m0 == misses * ex.view.n_words * 4,
+         f"8c: a surviving slot re-uploaded ({misses} misses, "
+         f"{ex.mask_bytes_uploaded - m0} bytes)")
+    both_equal("8c")
+    info["8c"] = {"ops": len(templates),
+                  "rejected": sum(e is not None for e in res.errors),
+                  "dsm_s": dsm_s, "stats_before": st0, "stats_after": st1,
+                  "misses_after": misses}
+    emit({"phase": "8c", **info["8c"]})
+
+    # 8d: rmdirs, a batch after each; the alive words patch by range
+    dirs = dir_strings(idx)
+    touched = []
+    victims = small_dirs(8)
+    a0, dead0 = ex.view.alive_bytes_uploaded, store.n_deleted
+    with path.counted():
+        for d in victims:
+            db.rmdir(d)
+            batch("sharded", "fp32", None)
+    grown = ex.view.alive_bytes_uploaded - a0
+    gate(store.n_deleted - dead0 == len(victims) > 0
+         and 0 < grown < ex.view.n_words * 4,
+         f"8d: {len(victims)} rmdirs, alive words grew {grown} bytes of "
+         f"{ex.view.n_words * 4}")
+    both_equal("8d")
+    info["8d"] = {"rmdirs": len(victims), "tombstones": store.n_deleted,
+                  "alive_bytes": grown, "alive_full_bytes":
+                  ex.view.n_words * 4}
+    emit({"phase": "8d", **info["8d"]})
+
+    # 8e: ingest inside the capacity, then past it
+    cap0, r0 = ex.view.cap, ex.view.reshards
+
+    def ingest(n_new):
+        pick = rng.integers(0, len(ds.vectors), size=n_new)
+        new = ds.vectors[pick] + rng.normal(
+            size=(n_new, store.dim)).astype(np.float32) * 0.01
+        with path.counted():
+            t0 = time.perf_counter()
+            db.ingest(new.astype(np.float32),
+                      [ds.entry_paths[i] for i in pick])
+            batch("sharded", "fp32", None)
+            return sync_s(t0)
+
+    small_s = ingest(SHARD_SMALL_INGEST)  # with the sharded batch after it
+    gate(ex.view.reshards == r0 and ex.view.cap == cap0,
+         f"8e: {SHARD_SMALL_INGEST} rows re-sharded ({r0} -> "
+         f"{ex.view.reshards})")
+    grow = cap0 - len(store) + SHARD_SMALL_INGEST
+    big_s = ingest(grow)
+    gate(ex.view.reshards == r0 + 1 and ex.view.cap == 2 * cap0,
+         f"8e: past the capacity: reshards {r0} -> {ex.view.reshards}, cap "
+         f"{cap0} -> {ex.view.cap}")
+    both_equal("8e")
+    info["8e"] = {"cap": [cap0, ex.view.cap], "n_loc": ex.view.n_loc,
+                  "ingested": [SHARD_SMALL_INGEST, grow],
+                  "ingest_and_batch_s": [small_s, big_s],
+                  "entries": len(store),
+                  "reshards": ex.view.reshards}
+    emit({"phase": "8e", **info["8e"]})
+
+    # 8f: the scheduler; the stage pre-pins, then the sharded.h2d rung
+    with ex._lock:
+        ex._reset_table()                   # every slot pinned anew
+    direct = batch("sharded", "fp32", None)
+    with ex._lock:
+        ex._reset_table()
+    sdsq = ScheduledDSQ(db, k=k, executor="sharded", cfg=SchedulerConfig(
+        max_batch=B, max_wait_ms=1e4))
+    served, got = sched_batch(sdsq, path, queries, paths, rec)
+    acct = got[0].batch
+    gate(served == B and same_results(got, direct),
+         "8f: scheduled sharded batch != direct batch (bitwise)")
+    gate(acct.shard_mask_hits == acct.plan_groups.get("scan", 0) > 0
+         and acct.shard_mask_bytes == 0
+         and sdsq.scheduler.stage_faults == 0,
+         f"8f: execute-time pins {acct.shard_mask_hits} hits of "
+         f"{acct.plan_groups}, {acct.shard_mask_bytes} bytes")
+    sdsq = ScheduledDSQ(db, k=k, executor="sharded", stage=False,
+                        cfg=SchedulerConfig(max_batch=B,
+                                            breaker_trip_after=2,
+                                            breaker_reset_after=2))
+    plan = faults.FaultPlan().add("sharded.h2d", kind="error", count=2)
+    tripped = []
+    with faults.FaultInjector(plan):
+        for _ in range(2):
+            t = sdsq.submit(queries[0], "/")
+            with path.counted():
+                sdsq.pump()
+            try:
+                t.result(WAIT_S)
+            except faults.FaultError:
+                tripped.append(True)
+    down = (sdsq.health, sdsq.executor, sdsq.precision)
+    gate(len(tripped) == 2 and down == ("degraded", "flat", "int8"),
+         f"8f: breaker: {len(tripped)} failed batches, {down}")
+    want = db.dsq_batch(queries, paths, k=k, recursive=rec,
+                        precision="int8", rescore_k=sdsq.rescore_k)
+    for _ in range(2):              # two successes close the breaker
+        _, got = sched_batch(sdsq, path, queries, paths, rec)
+        gate(same_results(got, want),
+             "8f: degraded batch != direct flat int8 batch (bitwise)")
+    up = (sdsq.health, sdsq.executor, sdsq.precision)
+    _, got = sched_batch(sdsq, path, queries, paths, rec)
+    gate(up == ("healthy", "sharded", "fp32")
+         and same_results(got, direct),
+         f"8f: after the breaker closed: {up}")
+    gate(sdsq.rescore_k is None or sdsq.rescore_k == model_of(
+        store).pick_rescore_k(k, None, len(store)),
+         f"8f: rescore_k {sdsq.rescore_k}")
+    snap = sdsq.metrics.snapshot()
+    info["8f"] = {"pump_hits": acct.shard_mask_hits, "degraded": down,
+                  "restored": up, "degrades": snap["degrades"],
+                  "recoveries": snap["recoveries"],
+                  "failed": snap["failed"]}
+    emit({"phase": "8f", **info["8f"]})
+
+    # 8g's evidence: phase 7d's compaction goes through apply_remap
+    remapped = {}
+    apply_remap = ex.apply_remap
+
+    def recorded_remap(mapping):
+        remapped.update(slots=len(ex._slots), evicted=ex.masks_evicted,
+                        cap=ex.view.cap, reshards=ex.view.reshards)
+        t0 = time.perf_counter()
+        remapped["patched"] = apply_remap(mapping)
+        remapped["s"] = time.perf_counter() - t0
+        remapped["evicted_after"] = ex.masks_evicted
+        return remapped["patched"]
+
+    ex.apply_remap = recorded_remap
+    info["stats"] = ex.stats()
+    info["launches_main_path"] = counts = dict(path.counts)
+    info["launches_phase"] = ops.launch_counts()
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return counts, remapped
+
+
+def phase8_compacted(torch, ops, ds, db, remapped, card: str) -> dict:
+    """8g, after phase 7d's compaction: the slots pinned when it began
+    (7d re-pins them, after its concurrent rmdirs, with a sharded batch
+    held to the flat one) were patched through the remap (none evicted,
+    no re-shard), and the sharded batch equals the flat one at three
+    precisions (7d holds the flat batch after the compaction to the one
+    before it, ids mapped)."""
+    queries, paths, rec = requests(ds)
+    ops.reset_launch_counts()
+    path = MainPath(ops)
+    ex = db.executors["sharded"]
+    failed = []
+    r = dict(remapped)
+    if not r:
+        failed.append("8g: the compaction did not reach apply_remap")
+    elif not (r["patched"] == r["slots"] > 0
+              and r["evicted_after"] == r["evicted"]
+              and ex.view.cap == r["cap"]
+              and ex.view.reshards == r["reshards"]):
+        failed.append(f"8g: slots not patched in place: {r}")
+    for prec, rk in SHARD_PRECISIONS:
+        kw = dict(k=10, recursive=rec, precision=prec, rescore_k=rk)
+        with path.counted():
+            got = db.dsq_batch(queries, paths, executor="sharded", **kw)
+        if not same_results(got, db.dsq_batch(queries, paths, **kw)):
+            failed.append(f"8g {prec}: sharded != flat after compaction")
+    info = {"phase": "8g", "card": card, "remap": r, "stats": ex.stats(),
+            "launches_main_path": dict(path.counts), "failed": failed}
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return dict(path.counts)
+
+
+# --------------------------------------------------------------- phase 9
+def phase9(torch, ops, ds, db, tmp: str, card: str) -> dict:
+    """Calibration on the card: ``calibrate(smoke=True, device="cuda")``
+    into a temporary file, its schema and backend, the measured model's
+    clamps on a fresh CUDA database, then phase 5's database under the
+    measured model and its installed kernel blocks: the mix's batch equals
+    a loop of ``dsq`` and the batch under the heuristic model."""
+    from repro_torch.analysis.calibrate import calibrate
+    from repro_torch.vectordb import (CalibrationArtifact, DirectoryVectorDB,
+                                      model_of, resolve_calibration)
+    from repro_torch.vectordb.costmodel import (NPROBE_FLOOR,
+                                                THRESHOLD_BOUNDS,
+                                                install_kernel_tuning)
+    from repro_torch.vectordb.quant import DEFAULT_RESCORE_FACTOR
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    t0 = time.perf_counter()
+    art = calibrate(smoke=True, device=db.device)
+    cal_s = time.perf_counter() - t0
+    out = str(Path(tmp) / "cuda.json")
+    art.save(out)
+    data = CalibrationArtifact.load(out).data
+    want = json.loads((ROOT / "calibration" / "cpu.json").read_text())
+    gate(sorted(data) == sorted(want)
+         and sorted(data["terms"]) == sorted(want["terms"]),
+         f"9: artifact keys {sorted(data)} / {sorted(data['terms'])}")
+    gate(data["backend"] == db.device.type == "cuda"
+         and data["device_kind"] == torch.cuda.get_device_name(0),
+         f"9: backend {data['backend']} on {data['device_kind']}")
+    fresh = DirectoryVectorDB(dim=data["dim"], calibration=out,
+                              device=db.device)
+    model = model_of(fresh.store)
+    lo, hi = THRESHOLD_BOUNDS
+    clamps = {"source": model.source,
+              "gather_threshold": model.gather_threshold(len(db.store), 10),
+              "rescore_k": model.pick_rescore_k(10, None, len(db.store)),
+              "nprobe": model.default_nprobe(IVF_LISTS)}
+    gate(model.source == "measured", f"9: source {model.source}")
+    gate(lo <= clamps["gather_threshold"] <= hi
+         and clamps["rescore_k"] >= DEFAULT_RESCORE_FACTOR * 10
+         and clamps["nprobe"] >= NPROBE_FLOOR, f"9: clamps {clamps}")
+    del fresh
+    queries, paths, rec = requests(ds)
+    ops.reset_launch_counts()
+    path = MainPath(ops)
+    store = db.store
+    before = db.dsq_batch(queries, paths, k=10, recursive=rec)
+    heuristic = store.cost_model
+    store.cost_model = resolve_calibration(out, db.device)
+    install_kernel_tuning(store.cost_model)
+    db._planners.clear()                    # planners read the new model
+    try:
+        with path.counted():
+            got = db.dsq_batch(queries, paths, k=10, recursive=rec)
+        loop = [db.dsq(queries[i], paths[i], k=10, recursive=rec[i])
+                for i in range(len(paths))]
+        blocks = ops.get_block_overrides()
+        gate(blocks == model.kernel_blocks() and len(blocks) == 6,
+             f"9: installed blocks {blocks}")
+        gate(same_results(got, loop),
+             "9: calibrated dsq_batch != loop of dsq (bitwise)")
+        gate(same_results(got, before),
+             "9: calibrated batch != heuristic batch (bitwise)")
+        plans = got[0].batch.plan_groups
+    finally:
+        store.cost_model = heuristic
+        ops.set_block_overrides({})
+        db._planners.clear()
+    info = {"phase": 9, "card": card, "calibrate_s": cal_s,
+            "terms": data["terms"], "clamps": clamps,
+            "plans_measured": plans,
+            "plans_heuristic": before[0].batch.plan_groups,
+            "launches_main_path": dict(path.counts), "failed": failed}
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return dict(path.counts)
+
+
 # --------------------------------------------------------------- phase 7
 SCHED_BATCH = 64           # SchedulerConfig(max_batch=64): the mix's size
 SCHED_QPS = 2000.0         # 7c's open-loop arrival rate
@@ -2381,6 +2864,13 @@ def phase7(torch, ops, ref, ds, db, tmp: str):
     gate(not any(res.errors) and tomb >= want,
          f"7d: {tomb} tombstones from {len(chosen)} rmdirs, want {want}")
     pre = db.dsq_batch(queries, paths, k=k, recursive=rec)
+    if "sharded" in db.executors:
+        # re-pin phase 8's slots: the concurrent rmdirs above may have
+        # evicted them (delta events arrive out of epoch order), and 8g
+        # checks that the compaction patches the pinned ones in place
+        gate(same_results(db.dsq_batch(queries, paths, k=k, recursive=rec,
+                                       executor="sharded"), pre),
+             "7d: sharded batch before the compaction != flat (bitwise)")
     old_vectors = store.vectors.copy()
     alive = ~store.deleted_mask()
     cache = db.planner().cache
@@ -2970,6 +3460,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
                     help="WIKI-Dir scale (1.0 = published size)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 8's DSM picks and ingested rows")
     args = ap.parse_args()
 
     import torch
@@ -3017,7 +3509,10 @@ def main() -> int:
         c5, captured = phase5(torch, ops, ref, ds, db)
         phase5_kernels(torch, ops, ref, peaks, captured, measured)
         del captured
+        c8, remapped = phase8(torch, ops, ref, args, ds, db, smi)
         c7 = phase7(torch, ops, ref, ds, db, tmp)
+        c8g = phase8_compacted(torch, ops, ds, db, remapped, smi)
+        c9 = phase9(torch, ops, ds, db, tmp, smi)
         del ds, db, batched, looped
     gc.collect()
     torch.cuda.empty_cache()
@@ -3025,7 +3520,7 @@ def main() -> int:
     phase6_kernels(torch, ops, ref, peaks, captured, measured)
     del captured
     launches = {key: c2[key] + c3[key] + c4[key] + c5[key] + c6[key]
-                + c7[key] for key in c2}
+                + c7[key] + c8[key] + c8g[key] + c9[key] for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

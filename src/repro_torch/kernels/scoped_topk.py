@@ -235,6 +235,33 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def launch_geometry(name: str, kind: str, nq: int, n: int, depth: int,
+                    k: int, block_q: int, block_n: Optional[int],
+                    sms: int = 132) -> Tuple[TiledGeometry, int]:
+    """(grid, partial lists per chunk) of one launch of the dense-mask or
+    scope-word scan ``name``: the plan the C entry gives for the query tile
+    ``block_q`` asks for, and the geometry ``block_n`` (``None``: one
+    wave) sizes. Builds the library; the calibration sweep reads the
+    ``chunk_rows`` a default launch resolves to."""
+    if block_q < 1:
+        raise ValueError(f"block_q={block_q} must be >= 1")
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    if name in STREAMED:
+        plan = stream_plan(max(1, min(block_q, nq, STREAM_Q)), depth, k, kind)
+        if plan.smem == 0:
+            raise ValueError(f"no streaming plan fits shared memory: {name} "
+                             f"depth={depth} k={k}")
+        return stream_geometry(
+            nq, n, plan.qt, plan.blocks, block_n, sms,
+            STREAM_PQ_ROWS if kind == "pq" else STREAM_ROWS), plan.lists
+    qt, smem = tiled_plan(kind, max(1, min(block_q, nq, TILE_Q)), depth, k)
+    if smem == 0:
+        raise ValueError(f"no tiled plan fits shared memory: {name} "
+                         f"depth={depth} k={k}")
+    return tiled_geometry(kind, nq, n, k, qt, block_n, sms), 1
+
+
 def _launch(name: str, kind: str, q: torch.Tensor, q_scale,
             rows: torch.Tensor, row_scale, sq, mask, words, sids, depth: int,
             k: int, l2: bool, block_q: int, block_n: Optional[int]
@@ -258,27 +285,8 @@ def _launch(name: str, kind: str, q: torch.Tensor, q_scale,
     sms = _sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
     streaming = name in STREAMED
-    lists = 1                          # partial lists per chunk
-    if block_q < 1:
-        raise ValueError(f"block_q={block_q} must be >= 1")
-    if k < 1:
-        raise ValueError(f"k={k} must be >= 1")
-    if streaming:
-        plan = stream_plan(max(1, min(block_q, nq, STREAM_Q)), depth, k, kind)
-        if plan.smem == 0:
-            raise ValueError(f"no streaming plan fits shared memory: {name} "
-                             f"depth={depth} k={k}")
-        geo = stream_geometry(
-            nq, n, plan.qt, plan.blocks, block_n, sms,
-            STREAM_PQ_ROWS if kind == "pq" else STREAM_ROWS)
-        lists = plan.lists
-    else:
-        qt, smem = tiled_plan(kind, max(1, min(block_q, nq, TILE_Q)), depth,
-                              k)
-        if smem == 0:
-            raise ValueError(f"no tiled plan fits shared memory: {name} "
-                             f"depth={depth} k={k}")
-        geo = tiled_geometry(kind, nq, n, k, qt, block_n, sms)
+    geo, lists = launch_geometry(name, kind, nq, n, depth, k, block_q,
+                                 block_n, sms)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:

@@ -2,8 +2,10 @@
 :class:`ArchConfig`, field for field, with its accounting).
 
 The logical-axis sharding rules of the reference (``DEFAULT_RULES``,
-``logical_spec``, ``constrain``, ...) do not come over: one card has no
-mesh. They wait for the sharded tier (ROADMAP queue 1 item 9).
+``logical_spec``, ``constrain``, ...) do not come over: they shard a
+model, not the vector store (the port's sharded serving tier splits store
+rows only), and wait for the training and launch port (ROADMAP queue 1
+item 11).
 """
 from __future__ import annotations
 

@@ -93,6 +93,9 @@ class ContextDatabase:
                        ) -> List[Tuple[List[ContextEntry], Dict[str, float]]]:
         """Batched scoped retrieval: N concurrent requests resolve repeated
         scopes once and share ranking launches (``dsq_batch``). With
+        ``cfg.executor == "sharded"`` the shared scan runs on the row
+        shards (bitwise the flat result; the shard and merge bytes are
+        surfaced in the stats). With
         ``cfg.precision`` "int8" or "pq" the ranking runs the two-phase
         quantized plan (the byte split and rescored candidate counts are
         surfaced in the stats)."""

@@ -955,8 +955,11 @@ def stage_dsq(db, payloads: List[Tuple], k: int, namespace: str,
     """Staging pass for a coalesced DSQ batch (runs on the collector thread
     while the previous batch ranks): resolve the batch's unique scopes
     through the planner's epoch-validated mask cache, materialize the packed
-    device form the executor's scan will read (words for flat/ivf, the dense
-    bool mask for pg), and start the query matrix's host->device transfer.
+    device form the executor's scan will read (words for flat/ivf/sharded,
+    the dense bool mask for pg), pre-pin sharded scan scopes into the
+    executor's resident scope table (token-validated: the execute-time
+    ``ensure_scope`` then hits without re-uploading), and start the query
+    matrix's host->device transfer.
     Everything staged here is validated by scope-epoch tokens at execute
     time, so a DSM landing between stage and execute invalidates rather than
     corrupts.
@@ -968,20 +971,33 @@ def stage_dsq(db, payloads: List[Tuple], k: int, namespace: str,
     scope words upload on this thread's current stream — the legacy default
     stream, which the executing thread's kernels also run on (module
     docstring)."""
+    from ..vectordb.sharded import ShardedExecutor
+
     queries, paths, rec, exc = assemble_dsq(payloads)
     idx = db.namespaces[namespace]
     planner = db.planner(namespace)
     n = len(db.store)
     keys = [ScopeKey.from_spec(s) for s in normalize_batch(paths, rec, exc)]
     resolved, _ = planner.resolve_scopes(idx, n, keys)
+    ex = db.executors.get(executor)
+    scan_entries = []
     for key, ent in resolved.items():
         if planner.choose_plan(ent.scope_size, n, k) != "scan":
             continue
         if executor == "pg":
             ent.bool_mask                    # PG traversal reads dense bool
         else:
-            ent.words                        # packed words: flat/ivf
-    # the sharded mask-table pre-pin returns with ROADMAP queue 1 item 9
+            ent.words                        # packed words: flat/ivf/sharded
+        scan_entries.append((key, ent))
+    if isinstance(ex, ShardedExecutor) and scan_entries:
+        # pre-pin the scan scopes into the shards' scope table (token-
+        # validated, so the execute-time ensure_scope hits), never between
+        # the executing batch's pins and its launch
+        with ex.pinned():
+            ex.sync()
+            ex.reserve(len(scan_entries))
+            for key, ent in scan_entries:
+                ex.ensure_scope(namespace, key, ent)
     if db.device.type != "cuda":
         return queries
     if stream is None:

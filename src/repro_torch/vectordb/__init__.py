@@ -8,10 +8,11 @@ from .ivf import IVFIndex
 from .maintenance import MaintenanceManager, MaintenancePolicy
 from .planner import (BatchAccounting, BatchPlanner, PlanGroup, ScopeKey,
                       ScopeMaskCache, device_popcount)
-from .store import VectorStore, pack_ids_to_words
+from .sharded import ShardedExecutor
+from .store import ShardedStoreView, VectorStore, pack_ids_to_words
 
 __all__ = ["DirectoryVectorDB", "DSQResult", "FlatExecutor", "PGIndex",
-           "IVFIndex", "VectorStore",
+           "IVFIndex", "VectorStore", "ShardedExecutor", "ShardedStoreView",
            "BatchAccounting", "BatchPlanner", "PlanGroup", "ScopeKey",
            "ScopeMaskCache", "device_popcount", "pack_ids_to_words",
            "CalibrationArtifact", "CostModel", "HEURISTIC", "model_of",

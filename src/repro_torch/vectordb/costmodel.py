@@ -7,8 +7,8 @@ constants. This module replaces the constants with a :class:`CostModel` that
 answers each question from one of three sources, in strength order:
 
 * ``"measured"`` — a per-backend microbenchmark sweep
-  (``repro.analysis.calibrate`` in the JAX package; the port's own sweep
-  is still to come) persisted as a versioned JSON
+  (``repro_torch.analysis.calibrate``, run on the device it calibrates)
+  persisted as a versioned JSON
   **calibration artifact**: linear scan/gather/rescore cost terms fitted
   against corpus size, the measured gather/scan crossover, a recall-gated
   rescore factor, an nprobe recall/latency curve, the fastest kernel block

@@ -12,11 +12,14 @@ and its delta events patch the planner's device-resident scope masks.
 Online maintenance (:meth:`DirectoryVectorDB.maintenance`) compacts the
 store, repairs the graph and repartitions IVF under the same journal.
 
-Only the sharded executor still raises ``NotImplementedError``, until its
-slice lands (ROADMAP queue 1 item 9).
+The sharded executor (``build_ann("sharded")``) splits the store's rows
+over a shard mesh (one card or several) and ranks each batch's scan groups
+with one launch per shard and a shard merge; its resident scope table
+follows the same DSM deltas and compaction remaps.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -34,6 +37,7 @@ from .graph import PGIndex
 from .ivf import IVFIndex
 from .planner import BatchAccounting, BatchPlanner, ScopeMaskCache
 from .quant import resolve_rescore_k
+from .sharded import ShardedExecutor
 from .store import VectorStore
 
 DEFAULT_NS = "fs"
@@ -47,7 +51,7 @@ class DSQResult:
     directory_ns: int                # directory-only latency (candidate set gen)
     ann_ns: int                      # executor latency
     resolve_stats: ResolveStats = field(default_factory=ResolveStats)
-    plan: str = ""                   # "gather" | "scan" | "ivf" | "empty"
+    plan: str = ""    # "gather" | "scan" | "ivf" | "pg" | "sharded" | "empty"
     scope_shared: int = 1            # requests sharing this scope in the batch
     batch: Optional[BatchAccounting] = None   # shared-resolution accounting
 
@@ -92,6 +96,7 @@ class DirectoryVectorDB:
         self._dsm: Dict[str, DSMExecutor] = {}
         self._planners: Dict[str, BatchPlanner] = {}
         self._journal_path = journal_path
+        self._sharded_subs: Dict[str, object] = {}   # ns -> delta listener
         # ns -> {scope key -> last resolved candidate ids}: the candidate
         # pool the tiered hot-pin ranking draws from, so scopes absent from
         # the current batch keep competing for the pin budget
@@ -106,6 +111,11 @@ class DirectoryVectorDB:
             journal = DSMJournal(
                 f"{self._journal_path}.{name}" if self._journal_path else None)
             self._dsm[name] = DSMExecutor(idx, journal)
+            ex = self.executors.get("sharded")
+            if ex is not None:
+                self._sharded_subs[name] = functools.partial(
+                    ex.apply_delta, namespace=name)
+                idx.subscribe_dsm(self._sharded_subs[name])
         return self.namespaces[name]
 
     def build_ann(self, kind: str, **params) -> None:
@@ -116,9 +126,21 @@ class DirectoryVectorDB:
         elif kind == "pg":
             self.executors["pg"] = PGIndex(self.store, **params)
         elif kind == "sharded":
-            raise NotImplementedError(
-                "the 'sharded' executor is not ported yet (ROADMAP queue 1 "
-                "item 9)")
+            # the sharded serving tier: subscribed to every namespace's DSM
+            # delta stream so its resident scope slots patch in place. A
+            # rebuild drops the old executor's subscriptions first; they
+            # would otherwise keep its shards and table alive. Without a
+            # ``mesh`` a CPU database shards on the CPU and a CUDA one over
+            # the visible cards (``n_shards`` round-robin over them).
+            for name, fn in self._sharded_subs.items():
+                self.namespaces[name].unsubscribe_dsm(fn)
+            self._sharded_subs.clear()
+            ex = ShardedExecutor(self.store, **params)
+            self.executors["sharded"] = ex
+            for name, idx in self.namespaces.items():
+                self._sharded_subs[name] = functools.partial(
+                    ex.apply_delta, namespace=name)
+                idx.subscribe_dsm(self._sharded_subs[name])
         else:
             raise ValueError(f"unknown ANN executor {kind!r}")
 
@@ -287,6 +309,10 @@ class DirectoryVectorDB:
                                       exclude, namespace,
                                       executor_params.get("ef_search", 64),
                                       precision, rescore_k)
+        if isinstance(ex, ShardedExecutor) and not executor_params:
+            return self._dsq_batch_sharded(ex, queries, paths, k, recursive,
+                                           exclude, namespace, precision,
+                                           rescore_k)
         if not isinstance(ex, FlatExecutor) or executor_params:
             return self._dsq_batch_fallback(queries, paths, k, recursive,
                                             exclude, namespace, executor,
@@ -349,6 +375,78 @@ class DirectoryVectorDB:
             rows.extend(g.request_idx)
             sids.extend([si] * len(g.request_idx))
         return np.asarray(rows), np.asarray(sids, np.int32)
+
+    def _dsq_batch_sharded(self, ex: ShardedExecutor, queries, paths, k,
+                           recursive, exclude, namespace, precision="fp32",
+                           rescore_k=None) -> List[DSQResult]:
+        """Batched DSQ on the sharded tier: unique scopes resolve once
+        (cache-first); scan-plan groups pin their packed words into the
+        executor's resident scope table (token-validated: repeated and
+        DSM-patched scopes never re-upload) and ride one launch per shard
+        per precision; selective gather-plan groups stay on the flat
+        executor's gather launch. Bitwise equal to ``executor="flat"``.
+        When the per-shard depth does not fit the shards' rows
+        (``scan_on_mesh``), the scan groups run on the flat twin."""
+
+        def launch_sharded(groups, out_scores, out_ids, acct):
+            db0 = (ex.view.db_bytes_uploaded + ex.view.q_bytes_uploaded
+                   + ex.view.pq_bytes_uploaded)
+            m0 = ex.mask_bytes_uploaded
+            self._launch_gather(ex.flat, queries, k, groups, out_scores,
+                                out_ids, acct, rescore_k)
+            scan_all = [g for g in groups if g.plan == "scan"]
+            if scan_all:
+                # only the shard path reads the mirrors: a gather-only
+                # batch never pays the store upload
+                ex.sync()
+            for prec in PRECISIONS:
+                scan_groups = [g for g in scan_all if g.precision == prec]
+                if not scan_groups:
+                    continue
+                if ex.scan_on_mesh(k, prec, rescore_k):
+                    rows, sids = [], []
+                    with ex.pinned():
+                        ex.reserve(len(scan_all))
+                        for g in scan_groups:
+                            slot, hit = ex.ensure_scope(namespace, g.key,
+                                                        g.entry)
+                            acct.shard_mask_hits += int(hit)
+                            rows.extend(g.request_idx)
+                            sids.extend([slot] * len(g.request_idx))
+                        rows = np.asarray(rows)
+                        s, i = ex.search_slots(queries[rows],
+                                               np.asarray(sids, np.int32), k,
+                                               precision=prec,
+                                               rescore_k=rescore_k)
+                    # the merge moves k (fp32) or rescore_k (int8 / PQ)
+                    # (score, id) pairs a request from every shard
+                    depth = ex.phase_depth(k, prec, rescore_k)
+                    acct.collective_bytes += (ex.n_shards * len(rows)
+                                              * depth * 8)
+                else:
+                    # too few rows a shard for the depth: the flat twin
+                    # runs the same kernels over the whole store
+                    words = torch.stack([g.words for g in scan_groups])
+                    rows, sids = self._scan_assembly(scan_groups)
+                    s, i = ex.flat.search_multi(queries[rows], words, sids,
+                                                k, precision=prec,
+                                                rescore_k=rescore_k)
+                out_scores[rows] = s
+                out_ids[rows] = i
+                acct.launches += 1
+                if prec != "fp32":
+                    acct.rescore_candidates += len(rows) * resolve_rescore_k(
+                        k, rescore_k, len(self.store))
+            acct.n_shards = ex.n_shards
+            acct.shard_db_bytes += (ex.view.db_bytes_uploaded
+                                    + ex.view.q_bytes_uploaded
+                                    + ex.view.pq_bytes_uploaded - db0)
+            acct.shard_mask_bytes += ex.mask_bytes_uploaded - m0
+
+        return self._dsq_batch_planned(queries, paths, k, recursive, exclude,
+                                       namespace, launch_sharded,
+                                       label="sharded", precision=precision,
+                                       rescore_k=rescore_k)
 
     def _dsq_batch_ivf(self, ex: IVFIndex, queries, paths, k, recursive,
                        exclude, namespace, nprobe, precision="fp32",

@@ -37,9 +37,8 @@ Device state follows the remap: ``store.compact`` resets every device
 mirror (they re-upload from row 0 on the next read), the mask caches
 rebuild each entry without its device words (the word count changed), and
 the IVF index drops its device CSR layout, so nothing on the device keeps
-the old numbering. The sharded branch of :meth:`_propagate_remap` waits for
-the sharded tier's port (ROADMAP queue 1 item 9); until then no
-``"sharded"`` executor can be built.
+the old numbering; the sharded executor re-mirrors its shards at the same
+capacity and rewrites its resident scope slots through the mapping.
 
 Concurrency contract: :meth:`step` serializes against structural DSM via
 the root region lock, but it mutates store arrays the DSQ paths read — run

@@ -625,3 +625,266 @@ class VectorStore:
 
     def pq_codebook_nbytes(self) -> int:
         return self._pq.nbytes() if self._pq is not None else 0
+
+
+def shard_spans(lo: int, hi: int, per: int):
+    """The pieces of the global range ``[lo, hi)`` over shards of ``per``
+    items each: ``(shard, first, end, local first, local end)``."""
+    for s in range(lo // per, (hi - 1) // per + 1 if hi > lo else 0):
+        a, b = max(lo, s * per), min(hi, (s + 1) * per)
+        yield s, a, b, a - s * per, b - s * per
+
+
+class ShardedStoreView:
+    """Row-sharded mirror of a :class:`VectorStore` over a shard mesh.
+
+    The mirror is sized to a padded *capacity* (a multiple of
+    ``32 * n_shards``, so every shard's rows stay whole mask words) and
+    shard ``s`` permanently owns rows ``[s*n_loc, (s+1)*n_loc)``, held as
+    one tensor per shard on ``mesh[s]``. That fixed block layout makes
+    ingest incremental: new rows are copied into the shards that cover
+    them, and only growth *past* the capacity re-shards, at a doubled
+    capacity, so re-shard cost is amortised O(1) a row. Capacity-padding
+    rows are zero and are masked by the packed alive words
+    (:meth:`alive_device`), which also carry the store's tombstones. The
+    int8 (codes + scales) and PQ mirrors are built on first use and kept
+    up the same way. Counters: ``*_bytes_uploaded`` count the bytes
+    copied to the shards (a full rebuild counts the padded capacity, an
+    incremental copy only the new rows), ``reshards`` the capacity
+    rebuilds."""
+
+    def __init__(self, store: VectorStore, mesh):
+        self.store = store
+        self.mesh = tuple(mesh)
+        self.n_shards = len(self.mesh)
+        self.row_align = 32 * self.n_shards
+        self._db: Optional[list] = None      # per shard (n_loc, dim) f32
+        self._sq: Optional[list] = None      # per shard (n_loc,) f32, l2
+        self._sq_n = 0
+        self._cap = 0
+        self._synced = 0
+        self._alive: Optional[list] = None   # per shard (n_loc/32,) int32
+        self._alive_host: Optional[np.ndarray] = None   # (cap/32,) uint32
+        self._alive_n = 0                    # rows covered by the words
+        # registered tombstone-log cursor: consuming through the store's
+        # API lets the store drop the consumed prefix of its log
+        self._log_consumer = store.register_log_consumer()
+        self._compact_gen = store.compact_gen
+        self._qdb: Optional[list] = None     # per shard (n_loc, dim) int8
+        self._qscale: Optional[list] = None  # per shard (n_loc,) f32
+        self._qsq: Optional[list] = None     # per shard (n_loc,) f32, l2
+        self._q_synced = 0
+        self._pqdb: Optional[list] = None    # per shard (n_loc, M) uint8
+        self._pq_synced = 0
+        self.db_bytes_uploaded = 0
+        self.alive_bytes_uploaded = 0
+        self.q_bytes_uploaded = 0
+        self.pq_bytes_uploaded = 0
+        self.reshards = 0
+
+    @property
+    def cap(self) -> int:
+        return self._cap
+
+    @property
+    def n_loc(self) -> int:
+        return self._cap // self.n_shards if self._cap else 0
+
+    @property
+    def n_words(self) -> int:
+        return self._cap // 32
+
+    @property
+    def db(self) -> list:
+        assert self._db is not None, "call sync() before reading the view"
+        return self._db
+
+    # ------------------------------------------------------------ copying
+    def _blank(self, tail: tuple, dtype: torch.dtype) -> list:
+        return [torch.zeros((self.n_loc,) + tail, dtype=dtype, device=dev)
+                for dev in self.mesh]
+
+    def _copy_rows(self, shards: list, host: np.ndarray, lo: int,
+                   hi: int) -> None:
+        """Copy host rows ``[lo, hi)`` (global ids) into the shards that
+        cover them."""
+        for s, a, b, la, lb in shard_spans(lo, hi, self.n_loc):
+            shards[s][la:lb] = torch.from_numpy(
+                np.ascontiguousarray(host[a:b])).to(self.mesh[s])
+
+    def sync(self) -> bool:
+        """Mirror any new store rows onto the shards. Returns True when the
+        padded capacity changed (a full re-shard: masks packed for the old
+        capacity are invalid and must be rebuilt)."""
+        n = len(self.store)
+        # Seam: the shards' host-to-device staging edge. A fault here models
+        # a stalled or failed transfer; callers (staging, the sharded
+        # launch) surface it to the scheduler's degradation ladder, which
+        # downshifts the group to the flat executor.
+        faults.fire("sharded.h2d")
+        if self._compact_gen != self.store.compact_gen:
+            # the store compacted without apply_remap (no maintenance
+            # manager attached): every row moved, so rebuild below
+            self._compact_gen = self.store.compact_gen
+            self._db = None
+        if self._db is None or n > self._cap:
+            cap = max(self._cap, self.row_align)
+            while cap < n:
+                cap *= 2
+            self._cap = cap
+            self._db = self._blank((self.store.dim,), torch.float32)
+            self._copy_rows(self._db, self.store.vectors, 0, n)
+            self._synced = n
+            self._sq, self._sq_n = None, 0
+            self.db_bytes_uploaded += cap * self.store.dim * 4
+            self.reshards += 1
+            self._alive = None
+            self._qdb = self._qscale = self._qsq = None
+            self._pqdb = None
+            return True
+        if n > self._synced:
+            self._copy_rows(self._db, self.store.vectors, self._synced, n)
+            self.db_bytes_uploaded += (n - self._synced) * self.store.dim * 4
+            self._synced = n
+        return False
+
+    def sq_device(self) -> list:
+        """Per-shard fp32 squared row norms (the l2 term), computed on each
+        shard from its own rows for the rows copied since the last call."""
+        db = self.db
+        if self._sq is None:
+            self._sq = self._blank((), torch.float32)
+            self._sq_n = 0
+        for s, _, _, la, lb in shard_spans(self._sq_n, self._synced,
+                                           self.n_loc):
+            self._sq[s][la:lb] = row_sq_norms(db[s][la:lb])
+        self._sq_n = self._synced
+        return self._sq
+
+    def q_device(self) -> Tuple[list, list]:
+        """Per-shard int8 mirror ``(codes (n_loc, d) int8, scales (n_loc,)
+        f32)``, built on the first quantized scan and then kept up by
+        copying only the new rows. Padding rows are zero codes with zero
+        scale (masked by the alive words anyway). Call :meth:`sync`
+        first."""
+        assert self._db is not None, "call sync() before q_device()"
+        n = len(self.store)
+        st = self.store
+        if self._qdb is None:
+            self._qdb = self._blank((st.dim,), torch.int8)
+            self._qscale = self._blank((), torch.float32)
+            self._q_synced = 0
+            self.q_bytes_uploaded += self._cap * (st.dim + 4)
+            lo = 0
+        else:
+            lo = self._q_synced
+            self.q_bytes_uploaded += (n - lo) * (st.dim + 4)
+        if n > lo:
+            self._copy_rows(self._qdb, st.q_vectors, lo, n)
+            self._copy_rows(self._qscale, st.q_scales, lo, n)
+            if self._qsq is not None:
+                self._copy_rows(self._qsq, st.q_sq_norms(), lo, n)
+        self._q_synced = n
+        return self._qdb, self._qscale
+
+    def q_sq_device(self) -> list:
+        """Per-shard squared norms of the dequantized rows (the int8 l2
+        term): the store's host values, so every shard reads the flat
+        executor's bits."""
+        self.q_device()
+        if self._qsq is None:
+            self._qsq = self._blank((), torch.float32)
+            self._copy_rows(self._qsq, self.store.q_sq_norms(), 0,
+                            len(self.store))
+        return self._qsq
+
+    def pq_device(self) -> list:
+        """Per-shard PQ code mirror ``(n_loc, M) uint8``, same lazy build
+        and incremental copy as :meth:`q_device`. Call :meth:`sync`
+        first."""
+        assert self._db is not None, "call sync() before pq_device()"
+        n = len(self.store)
+        m = self.store.pq_codebook.m
+        if self._pqdb is None:
+            self._pqdb = self._blank((m,), torch.uint8)
+            self.pq_bytes_uploaded += self._cap * m
+            lo = 0
+        else:
+            lo = self._pq_synced
+            self.pq_bytes_uploaded += (n - lo) * m
+        if n > lo:
+            self._copy_rows(self._pqdb, self.store.pq_codes, lo, n)
+        self._pq_synced = n
+        return self._pqdb
+
+    def apply_remap(self) -> None:
+        """Re-mirror a just-compacted store at the SAME capacity. Not a
+        re-shard: the scope table's word layout (``cap/32`` words a scope)
+        survives, which is what lets ``ShardedExecutor.apply_remap`` patch
+        its slots through the id remap instead of evicting them."""
+        self._compact_gen = self.store.compact_gen
+        if self._db is None:
+            return
+        n = len(self.store)
+        for t in self._db:
+            t.zero_()
+        self._copy_rows(self._db, self.store.vectors, 0, n)
+        self.db_bytes_uploaded += self._cap * self.store.dim * 4
+        self._synced = n
+        self._sq, self._sq_n = None, 0
+        self._alive = None                  # rebuilt from the store next read
+        self._qdb = self._qscale = self._qsq = None
+        self._pqdb = None
+        self.store.log_consumer_reset(self._log_consumer)
+
+    # -------------------------------------------------------------- alive
+    def _upload_alive(self, w_lo: int, w_hi: int) -> None:
+        for s, a, b, la, lb in shard_spans(w_lo, w_hi, self.n_loc // 32):
+            self._alive[s][la:lb] = torch.from_numpy(
+                self._alive_host[a:b].view(np.int32)).to(self.mesh[s])
+        self.alive_bytes_uploaded += (w_hi - w_lo) * 4
+
+    def _patch_alive_range(self, w_lo: int, w_hi: int) -> None:
+        """Recompute words ``[w_lo, w_hi)`` from the store's state and copy
+        only that range to the shards that hold it."""
+        n = len(self.store)
+        g0, g1 = w_lo * 32, w_hi * 32
+        seg = np.zeros(g1 - g0, dtype=bool)
+        hi = min(n, g1)
+        if hi > g0:
+            seg[: hi - g0] = ~self.store.deleted_mask()[g0:hi]
+        self._alive_host[w_lo:w_hi] = np.packbits(
+            seg, bitorder="little").view(np.uint32)
+        self._upload_alive(w_lo, w_hi)
+
+    def alive_device(self) -> list:
+        """Per-shard ``(n_loc/32,)`` int32 alive ∧ in-range words:
+        capacity-padding rows and tombstoned rows are 0. Appended rows and
+        newly tombstoned ids (the store's tombstone log) patch only the
+        word range they touch; the whole mask is rebuilt only after a
+        re-shard or a compaction."""
+        n = len(self.store)
+        if self._alive is None:
+            padded = np.zeros(self._cap, dtype=bool)
+            ab = self.store.alive_bool()
+            padded[:n] = True if ab is None else ab
+            self._alive_host = np.packbits(
+                padded, bitorder="little").view(np.uint32)
+            self._alive = [torch.zeros(self.n_loc // 32, dtype=torch.int32,
+                                       device=dev) for dev in self.mesh]
+            self._upload_alive(0, self.n_words)
+            self._alive_n = n
+            self.store.log_consumer_reset(self._log_consumer)
+            return self._alive
+        dirty: Optional[Tuple[int, int]] = None
+        if n > self._alive_n:
+            dirty = (self._alive_n >> 5, ((n - 1) >> 5) + 1)
+            self._alive_n = n
+        fresh = self.store.consume_deleted_log(self._log_consumer)
+        if fresh:
+            lo, hi = min(fresh) >> 5, (max(fresh) >> 5) + 1
+            dirty = ((min(dirty[0], lo), max(dirty[1], hi))
+                     if dirty else (lo, hi))
+        if dirty is not None:
+            self._patch_alive_range(*dirty)
+        return self._alive

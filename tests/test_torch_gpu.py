@@ -1182,3 +1182,63 @@ def test_compaction_rebuilds_cached_device_words():
         mapped = np.where(b.ids >= 0, seen[0][np.maximum(b.ids, 0)], -1)
         np.testing.assert_array_equal(a.ids, mapped)
         np.testing.assert_array_equal(a.scores, b.scores)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,rescore_k", [("fp32", None),
+                                                 ("int8", None),
+                                                 ("pq", 80)])
+def test_four_shard_batch_on_card_equals_flat(precision, rescore_k):
+    """The sharded tier on one card, 4 row shards: the batch equals the
+    flat batch bit for bit, each scan group launching its kernel (2, 6 or
+    8) once per shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ds, db = _wiki_db()
+    db.build_ann("sharded", n_shards=4)
+    ex = db.executors["sharded"]
+    assert [d.type for d in ex.mesh] == ["cuda"] * 4
+    queries, paths, rec = _mix(ds, 32)
+    kw = dict(k=10, recursive=rec, precision=precision, rescore_k=rescore_k)
+    flat = db.dsq_batch(queries, paths, **kw)
+    db.dsq_batch(queries, paths, executor="sharded", **kw)   # pins slots
+    ops.reset_launch_counts()
+    got = db.dsq_batch(queries, paths, executor="sharded", **kw)
+    kernel = {"fp32": "multi_scope_topk", "int8": "multi_scope_topk_i8",
+              "pq": "multi_scope_topk_pq"}[precision]
+    acct = got[0].batch
+    assert acct.plan_groups.get("scan", 0) > 0
+    assert ops.launch_counts()[kernel] == 4
+    assert acct.shard_mask_hits == acct.plan_groups["scan"]
+    for a, b in zip(got, flat):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.scores, b.scores)
+
+
+@pytest.mark.gpu
+def test_shard_merge_on_card_keeps_empty_lanes():
+    """A scope of 3 rows inside shard 2 of 4, ranked for k = 10 on the
+    card: the 7 empty lanes are -1 (not the previous shard's last row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.distributed import search as dsearch
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    mesh = make_mesh_for_devices(n_shards=4)
+    n, d = 4096, 32
+    g = np.random.default_rng(3)
+    rows = g.normal(size=(n, d)).astype(np.float32)
+    members = [2100, 2101, 2140]
+    words = np.zeros((1, n // 32), np.uint32)
+    for i in members:
+        words[0, i >> 5] |= np.uint32(1 << (i & 31))
+    alive = np.full(n // 32, 0xFFFFFFFF, np.uint32)
+    q = torch.from_numpy(g.normal(size=(3, d)).astype(np.float32))
+    fn = dsearch.make_sharded_batch_search(mesh, n, d, 10)
+    vals, ids = fn(dsearch.shard_rows(mesh, rows, n),
+                   dsearch.shard_words(mesh, words, n),
+                   dsearch.shard_words(mesh, alive, n),
+                   np.zeros(3, np.int32), q.cuda())
+    ids = ids.cpu().numpy()
+    assert (ids[:, 3:] == -1).all()
+    assert {int(x) for x in ids[:, :3].ravel()} == set(members)
+    assert (vals[:, 3:] == ref.NEG_INF).all()

@@ -47,3 +47,25 @@ def test_default_device_without_cuda_raises():
         DirectoryVectorDB(dim=16)
     db = DirectoryVectorDB(dim=16, device="cpu")
     assert db.device.type == "cpu"
+
+
+_SLICE_PROBE = """
+import importlib, sys
+for name in ("repro_torch.launch.mesh", "repro_torch.distributed.search",
+             "repro_torch.vectordb.sharded", "repro_torch.analysis.calibrate"):
+    importlib.import_module(name)
+print(" ".join(sorted(n for n in sys.modules
+                      if n.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
+def test_sharded_tier_and_calibration_import_alone():
+    """The mesh, the sharded search and executor and the calibration sweep
+    import neither JAX nor the reference package."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, "-c", _SLICE_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"imported {proc.stdout.strip()}"

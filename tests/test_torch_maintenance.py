@@ -1,6 +1,7 @@
 """The port's online maintenance (``repro_torch.vectordb.maintenance``)
 against the reference ``repro.vectordb.maintenance``, on
-``tests/test_maintenance.py``'s setups without the sharded executor.
+``tests/test_maintenance.py``'s setups (its sharded case is in
+``tests/test_torch_sharded.py``).
 
 Across packages: one compaction propagates the same old -> new mapping to
 the same scope postings, catalogs, mask-cache entries, IVF member lists

@@ -1,7 +1,7 @@
 """The port's continuous-batching front end (``repro_torch.serving.scheduler``
 and the async surface of ``serving/rag.py``) against the reference, on
-``tests/test_serving.py``'s and ``tests/test_faults.py``'s setups without
-the sharded executor.
+``tests/test_serving.py``'s and ``tests/test_faults.py``'s setups (their
+sharded cases are in ``tests/test_torch_sharded.py``).
 
 The scheduler adds no numeric path: a pumped batch is bit-identical to the
 port's direct ``dsq_batch`` of the same requests on the flat, IVF and PG

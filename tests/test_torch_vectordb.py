@@ -267,15 +267,19 @@ def test_crash_replay_is_bitwise(kill, tmp_path):
 
 def test_quantized_precisions_and_other_executors_raise():
     """int8 and pq are served now (tests/test_torch_quantized.py), and so
-    are the IVF (tests/test_torch_ivf.py) and PG (tests/test_torch_graph.py)
-    executors; the sharded executor and unknown precisions still raise."""
+    are the IVF (tests/test_torch_ivf.py), PG (tests/test_torch_graph.py)
+    and sharded (tests/test_torch_sharded.py) executors; an unknown
+    executor and unknown precisions raise."""
     db = _port_db(_wiki())
     db.build_ann("ivf", n_lists=8)
     assert db.dsq(db.store.vectors[0], "/", executor="ivf").ids[0, 0] >= 0
     db.build_ann("pg", max_degree=8, ef_construction=16)
     assert db.dsq(db.store.vectors[0], "/", executor="pg").ids[0, 0] >= 0
-    with pytest.raises(NotImplementedError):
-        db.build_ann("sharded")
+    db.build_ann("sharded")
+    assert db.dsq(db.store.vectors[0], "/",
+                  executor="sharded").ids[0, 0] >= 0
+    with pytest.raises(ValueError, match="unknown ANN executor"):
+        db.build_ann("hnsw")
     q = db.store.vectors[0]
     for precision in ("fp16", "int4"):
         with pytest.raises(ValueError, match="precision"):
