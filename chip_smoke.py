@@ -110,6 +110,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    kernel blocks gives the mix's batch == a loop of ``dsq`` == the batch
    under the heuristic model.
 
+10. training (after phase 6 frees its model): the full-width
+   ``qwen3-0.6b`` (28 layers, bf16 parameters, fp32 AdamW moments, tied
+   embeddings, ``remat="full"``) from ``torch.Generator`` seed 0, trained
+   by ``launch/train.py``'s loop and step function on ``SyntheticLMData``
+   at 8 x 512 tokens for 20 steps, under
+   ``torch.use_deterministic_algorithms(True)``: every loss finite and the
+   last 5 below the first 5; an asynchronous checkpoint at step 9 written
+   while steps 10-19 run; one more step under ``torch.profiler`` (device
+   time, idle share); a fresh model (seed 1) and optimizer restore step 9
+   bit for bit and resume at step 10 with the uninterrupted run's losses
+   and final parameters, bit for bit; ``accum_steps=2``'s first loss
+   within 1e-3 of the whole batch's. It prints the step time (median),
+   tokens/s, peak device memory and the checkpoint's snapshot and write
+   times beside the card. The training path reaches no TPU kernel, so it
+   adds no kernel and no launch to the kernels line.
+
 Phase 1 also holds kernel 10 against its plain version at the reference's
 sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
 cache, and kernel 2 at ``gather_rescore``'s shapes.
@@ -128,6 +144,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3136,12 +3153,14 @@ def finite_logits(torch, rag, into: list):
             setattr(rag, n, fn)
 
 
-def trace(torch, fn, kernel: str, want: int) -> dict:
+def trace(torch, fn, kernel: str, want: int, top: int = 0) -> dict:
     """One ``fn`` call under ``torch.profiler`` (device activity only):
     wall time (synced, profiler on), summed kernel device time, kernel
     count, the share of ``kernel``, and the device's idle share of the
     wall time. None for the device numbers when the session did not see
-    ``want`` launches of ``kernel`` (it lost events)."""
+    ``want`` launches of ``kernel`` (it lost events); ``kernel=""`` with
+    ``want=None`` checks no count. ``top`` > 0 adds the ``top`` kernels by
+    device time (name, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3152,11 +3171,16 @@ def trace(torch, fn, kernel: str, want: int) -> dict:
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0.0) > 0]
     mine = [e for e in events if kernel in e.key]
-    if sum(e.count for e in mine) != want:
+    if want is not None and sum(e.count for e in mine) != want:
         return {"wall_ms": wall, "device_ms": None,
                 "seen": sum(e.count for e in mine), "want": want}
     dev = sum(e.device_time_total for e in events) / 1e3
-    return {"wall_ms": wall, "device_ms": dev,
+    out = {}
+    if top:
+        out["top_kernels"] = [
+            (e.key[:90], e.device_time_total / 1e3, e.count)
+            for e in sorted(events, key=lambda e: -e.device_time_total)[:top]]
+    return {**out, "wall_ms": wall, "device_ms": dev,
             "kernels": sum(e.count for e in events),
             f"{kernel}_ms": sum(e.device_time_total for e in mine) / 1e3,
             "idle_share": max(0.0, 1.0 - dev / wall)}
@@ -3455,6 +3479,181 @@ def phase6_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     emit({"phase": "6-kernels", "flash_decode": real})
 
 
+# ---------------------------------------------------------------- phase 10
+TRAIN_BATCH = 8            # sequences a step
+TRAIN_SEQ = 512            # tokens a sequence: 4,096 tokens a step
+TRAIN_STEPS = 20
+TRAIN_SAVE_AT = 9          # the checkpoint the restart restores (step m)
+TRAIN_LR = 3e-4            # launch/train.py's default
+# accum_steps=2's first loss against accum_steps=1's: the two halves' bf16
+# products may round differently from the whole batch's (other cuBLAS
+# tiles), so each position's loss moves by ~2^-8 of its logits' spread and
+# the mean over 4,096 positions far less; 1e-3 of the loss (~0.012 at
+# ln(151,936) = 11.9) holds that with room
+TRAIN_ACCUM_RTOL = 1e-3
+
+
+def fingerprint(torch, params) -> list:
+    """Each parameter's bits summed as int64: equal lists mean equal
+    parameters with overwhelming probability, read back in one copy."""
+    sums = [(p.view(torch.int16) if p.element_size() == 2
+             else p.view(torch.int32)).sum(dtype=torch.int64)
+            for p in params.values()]
+    return torch.stack(sums).tolist()
+
+
+def phase10(torch, ops, card: str, cfg=None, device="cuda",
+            steps=TRAIN_STEPS, save_at=TRAIN_SAVE_AT, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ) -> dict:
+    """Training on the card (module docstring, phase 10) under
+    ``torch.use_deterministic_algorithms(True)``. ``cfg``, ``device`` and
+    the sizes exist for the CPU rehearsal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import (CheckpointManager, DataConfig,
+                                      OptConfig, SyntheticLMData,
+                                      make_train_step)
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    cfg = (cfg or get_arch("qwen3-0.6b")).replace(remat="full")
+    info = {"phase": 10, "card": card, "model": cfg.name,
+            "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "params": cfg.param_count(), "batch": batch, "seq": seq,
+            "tokens_per_step": batch * seq, "remat": cfg.remat,
+            "attn_impl": cfg.attn_impl, "steps": steps, "save_at": save_at,
+            "deterministic": True}
+    opt_cfg = OptConfig(lr=TRAIN_LR, total_steps=steps,
+                        warmup_steps=max(1, steps // 10))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, seq, batch))
+    lines = []
+    log = lines.append
+    launches0 = dict(ops.launch_counts())
+    torch.use_deterministic_algorithms(True)
+    # deterministic mode also fills every new tensor with NaN (a check for
+    # reads of uninitialized memory; 8,065 fills, 41 ms a step in the
+    # first card run); nothing here reads memory before writing it
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            ckpt = CheckpointManager(Path(tmp) / "ckpt", keep=1)
+            step_fn = make_train_step(cfg, opt_cfg)
+            t0 = time.perf_counter()
+            model, params, opt = launcher.build(cfg, device, seed=0)
+            torch.cuda.synchronize()
+            info["init_s"] = time.perf_counter() - t0
+            opt, recs = launcher.train(model, opt, step_fn, data,
+                                       range(0, save_at + 1), device,
+                                       log_every=5, log=log)
+            saved = {"params": {n: p.to("cpu", copy=True)
+                                for n, p in params.items()},
+                     "opt": {"mu": {n: t.to("cpu", copy=True)
+                                    for n, t in opt["mu"].items()},
+                             "nu": {n: t.to("cpu", copy=True)
+                                    for n, t in opt["nu"].items()},
+                             "step": opt["step"].cpu()}}
+            t0 = time.perf_counter()
+            ckpt.save_async(save_at, {"params": params, "opt": opt})
+            info["ckpt_snapshot_s"] = time.perf_counter() - t0
+            # the write overlaps the next steps, as in launch/train.py
+            opt, more = launcher.train(model, opt, step_fn, data,
+                                       range(save_at + 1, steps), device,
+                                       log_every=5, log=log)
+            recs += more
+            t0 = time.perf_counter()
+            ckpt.wait()
+            info["ckpt_wait_s"] = time.perf_counter() - t0
+            info["ckpt_write_s"] = ckpt.last_write_s
+            info["ckpt_bytes"] = ckpt.last_write_bytes
+            info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            final = fingerprint(torch, params)
+            losses = [r["loss"] for r in recs]
+            step_s = [r["s"] for r in recs[1:]]      # step 0 warms up
+            med = statistics.median(step_s)
+            info["losses"] = losses
+            info["grad_norms"] = [r["grad_norm"] for r in recs]
+            info["step_ms_median"] = med * 1e3
+            info["step_ms_min"] = min(step_s) * 1e3
+            info["step_ms_max"] = max(step_s) * 1e3
+            info["tokens_per_s"] = batch * seq / med
+            gate(all(np.isfinite(losses)), f"10: a loss is not finite "
+                 f"{losses}")
+            gate(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                 f"10: loss did not fall: first 5 {losses[:5]}, last 5 "
+                 f"{losses[-5:]}")
+            # one more step under the profiler (its batch made first):
+            # device time and idle share of the step function alone
+            box = {"opt": opt, "batch": {
+                k: torch.from_numpy(v).to(device)
+                for k, v in data.batch(steps).items()}}
+
+            def one_step():
+                box["opt"], m = step_fn(model, box["opt"], box["batch"])
+                float(m["loss"])
+            info["trace_step"] = trace(torch, one_step, "", None, top=15)
+            del model, params, opt, box
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # restart: a fresh model and optimizer restore step m
+            model, params, opt = launcher.build(cfg, device, seed=1)
+            t0 = time.perf_counter()
+            opt, at = launcher.restore(ckpt, params, opt, device)
+            torch.cuda.synchronize()
+            info["restore_s"] = time.perf_counter() - t0
+            gate(at == save_at, f"10: restored step {at} != {save_at}")
+            same = all(torch.equal(p.cpu(), saved["params"][n])
+                       for n, p in params.items()) and all(
+                torch.equal(opt[key][n].cpu(), saved["opt"][key][n])
+                for key in ("mu", "nu") for n in params) and torch.equal(
+                opt["step"].cpu(), saved["opt"]["step"])
+            gate(same, "10: the restored state differs from the saved one")
+            del saved
+            opt, resumed = launcher.train(model, opt, step_fn, data,
+                                          range(at + 1, steps), device,
+                                          log_every=5, log=log)
+            again = [r["loss"] for r in resumed]
+            info["resumed_losses"] = again
+            info["resume_bitwise"] = again == losses[at + 1:] and \
+                fingerprint(torch, params) == final
+            gate(info["resume_bitwise"],
+                 f"10: resumed losses {again} != {losses[at + 1:]} or the "
+                 "final parameters differ")
+            del model, params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # accum_steps=2: the first step's loss against accum_steps=1's
+            model, params, opt = launcher.build(cfg, device, seed=0)
+            _, first = launcher.train(
+                model, opt, make_train_step(cfg, opt_cfg, accum_steps=2),
+                data, range(0, 1), device, log=log)
+            info["accum2_first_loss"] = first[0]["loss"]
+            info["accum2_diff"] = abs(first[0]["loss"] - losses[0])
+            info["accum2_rtol"] = TRAIN_ACCUM_RTOL
+            gate(info["accum2_diff"] <= TRAIN_ACCUM_RTOL * abs(losses[0]),
+                 f"10: accum_steps=2 first loss {first[0]['loss']} vs "
+                 f"{losses[0]}")
+            del model, params, opt
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        gc.collect()
+        torch.cuda.empty_cache()
+    info["port_kernel_launches"] = sum(ops.launch_counts().values()) - sum(
+        launches0.values())
+    info["log"] = lines
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return info
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3464,6 +3663,9 @@ def main() -> int:
                     help="seed of phase 8's DSM picks and ingested rows")
     args = ap.parse_args()
 
+    # phase 10 runs under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's fixed workspace chosen before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3519,6 +3721,9 @@ def main() -> int:
     c6, captured = phase6(torch, ops, args)
     phase6_kernels(torch, ops, ref, peaks, captured, measured)
     del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase10(torch, ops, smi)
     launches = {key: c2[key] + c3[key] + c4[key] + c5[key] + c6[key]
                 + c7[key] + c8[key] + c8g[key] + c9[key] for key in c2}
     for key, n in launches.items():

@@ -1,14 +1,17 @@
-"""The LM stack the RAG server decodes with: the dense decoder families of
-the reference (``qwen3-0.6b``, ``qwen2.5-3b``, ``granite-8b``,
-``minitron-4b``), with the reference's parameter shapes and entry points,
-and decode attention through kernel 10."""
+"""The LM stack the RAG server decodes with and the trainer trains: the
+dense decoder families of the reference (``qwen3-0.6b``, ``qwen2.5-3b``,
+``granite-8b``, ``minitron-4b``), with the reference's parameter shapes and
+entry points, decode attention through kernel 10, and ``loss_fn`` for
+training."""
 from .common import ArchConfig
 from .convert import from_reference, to_reference
 from .layers import init_params
 from .transformer import (DecoderLayer, Transformer, cache_schema,
-                          decode_step, forward, logits_from_hidden,
-                          model_schema, prefill)
+                          decode_step, forward, forward_train,
+                          logits_from_hidden, loss_fn, model_schema,
+                          prefill)
 
 __all__ = ["ArchConfig", "Transformer", "DecoderLayer", "model_schema",
-           "init_params", "forward", "logits_from_hidden", "prefill",
+           "init_params", "forward", "forward_train", "logits_from_hidden",
+           "loss_fn", "prefill",
            "decode_step", "cache_schema", "from_reference", "to_reference"]

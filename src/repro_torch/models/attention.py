@@ -15,10 +15,21 @@ and never reaches its Pallas ``flash_decode``; both compute the same
 function. The static-band variants (``local_attention``,
 ``chunked_attention``, only with ``layer_group > 1``) wait for the hybrid
 configs (ROADMAP queue 1).
+
+Training differentiates through :func:`flash_attention`, a
+``torch.autograd.Function`` carrying the reference's custom VJP
+(``repro/models/attention.py:171-258``): a blocked forward with an online
+softmax that saves the fp32 output and each row's running max and sum, and
+a backward that recomputes ``p`` block by block from them, so neither pass
+holds more than one (block_q, block_k) tile of scores per head. Or through
+:func:`naive_attention` (``cfg.attn_impl == "naive"``), plain autograd over
+the whole score matrix. :func:`attention` (prefill) stays as it is: it works
+in place and carries no gradient. No TPU kernel lies on the training path:
+the reference's flash attention is lax, not Pallas.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +137,156 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.matmul(p, vt).div_(l.clamp_min_(1e-30))   # (b,KV,G,Sq,hd)
         out[sl] = o.permute(0, 3, 1, 2, 4).reshape(-1, Sq, H, hd).to(q.dtype)
     return out
+
+
+# ------------------------------------------------------------- training path
+
+
+def _grouped(q: torch.Tensor, KV: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, KV, G, S, hd)."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+
+
+def _ungrouped(o: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, S, hd) -> (B, S, KV * G, hd)."""
+    B, KV, G, S, hd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, KV * G, hd)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, chunk: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Unblocked attention (materializes the (Sq, Skv) scores), plain
+    autograd: fp32 scores, a softmax, ``p`` rounded to v's type for the PV
+    product (``repro/models/attention.py::naive_attention``)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    valid = _local_mask(q_offset + torch.arange(Sq, device=dev),
+                        torch.arange(Skv, device=dev), causal, int(window),
+                        int(chunk))
+    s = _grouped(q, KV).float() @ k.permute(0, 2, 3, 1).float()[:, :, None]
+    s = (s * (1.0 / np.sqrt(hd))).masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill(~valid, 0.0)
+    out = p.to(v.dtype).float() @ v.permute(0, 2, 1, 3).float()[:, :, None]
+    return _ungrouped(out).to(q.dtype)
+
+
+def _spans(n: int, block: int) -> List[Tuple[int, int]]:
+    return [(i, min(i + block, n)) for i in range(0, n, block)]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_core`` with its custom VJP (``_flash_fwd`` / ``_flash_bwd``).
+    Tiles are (B, KV, G * bq, ...) so that a GQA group's queries share one
+    product with their key block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset, block_q,
+                block_k):
+        B, Sq, H, hd = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        G = H // KV
+        scale = 1.0 / np.sqrt(hd)
+        dev = q.device
+        qg = _grouped(q, KV)                          # (B, KV, G, Sq, hd)
+        kt = k.permute(0, 2, 3, 1)                    # (B, KV, hd, Skv)
+        vt = v.permute(0, 2, 1, 3)                    # (B, KV, Skv, hd)
+        out = torch.empty(B, KV, G, Sq, hd, dtype=torch.float32, device=dev)
+        m = torch.empty(B, KV, G, Sq, dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        for q0, q1 in _spans(Sq, block_q):
+            bq = q1 - q0
+            qb = qg[:, :, :, q0:q1].float().reshape(B, KV, G * bq, hd)
+            q_pos = q_offset + torch.arange(q0, q1, device=dev)
+            m_i = torch.full((B, KV, G, bq), NEG_INF, device=dev)
+            l_i = torch.zeros(B, KV, G, bq, device=dev)
+            acc = torch.zeros(B, KV, G, bq, hd, device=dev)
+            for k0, k1 in _spans(Skv, block_k):
+                invalid = ~_local_mask(q_pos, torch.arange(k0, k1, device=dev),
+                                       causal, window, chunk)
+                s = (qb @ kt[..., k0:k1].float()).view(B, KV, G, bq, k1 - k0)
+                s = (s * scale).masked_fill(invalid, NEG_INF)
+                m_new = torch.maximum(m_i, s.amax(dim=-1))
+                alpha = torch.exp(m_i - m_new)
+                p = torch.exp(s - m_new[..., None]).masked_fill(invalid, 0.0)
+                l_i = l_i * alpha + p.sum(dim=-1)
+                pv = (p.to(v.dtype).float().view(B, KV, G * bq, k1 - k0)
+                      @ vt[:, :, k0:k1].float()).view(B, KV, G, bq, hd)
+                acc = acc * alpha[..., None] + pv
+                m_i = m_new
+            out[:, :, :, q0:q1] = acc / l_i.clamp_min(1e-30)[..., None]
+            m[..., q0:q1] = m_i
+            l[..., q0:q1] = l_i
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, window, chunk, q_offset, block_q, block_k)
+        return _ungrouped(out).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        """Block recompute of ``p`` from the saved max and sum; dq
+        accumulates over key blocks in order and dk / dv over query blocks
+        in order, as the reference's two passes do."""
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, window, chunk, q_offset, block_q, block_k = ctx.args
+        B, Sq, H, hd = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        G = H // KV
+        scale = 1.0 / np.sqrt(hd)
+        dev = q.device
+        do = _grouped(dout, KV).float()               # (B, KV, G, Sq, hd)
+        l_safe = l.clamp_min(1e-30)
+        D = (do * out).sum(dim=-1)                    # (B, KV, G, Sq)
+        qg = _grouped(q, KV)
+        kt = k.permute(0, 2, 1, 3)                    # (B, KV, Skv, hd)
+        vt = v.permute(0, 2, 1, 3)
+        dq = torch.zeros(B, KV, G, Sq, hd, device=dev)
+        dk = torch.zeros(B, KV, Skv, hd, device=dev)
+        dv = torch.zeros(B, KV, Skv, hd, device=dev)
+        for q0, q1 in _spans(Sq, block_q):
+            bq = q1 - q0
+            qb = qg[:, :, :, q0:q1].float().reshape(B, KV, G * bq, hd)
+            dob = do[:, :, :, q0:q1].reshape(B, KV, G * bq, hd)
+            q_pos = q_offset + torch.arange(q0, q1, device=dev)
+            m_b = m[..., q0:q1, None]
+            l_b = l_safe[..., q0:q1, None]
+            D_b = D[..., q0:q1, None]
+            dq_b = torch.zeros(B, KV, G * bq, hd, device=dev)
+            for k0, k1 in _spans(Skv, block_k):
+                bk = k1 - k0
+                invalid = ~_local_mask(q_pos, torch.arange(k0, k1, device=dev),
+                                       causal, window, chunk)
+                kb = kt[:, :, k0:k1].float()
+                vb = vt[:, :, k0:k1].float()
+                s = (qb @ kb.transpose(-1, -2)).view(B, KV, G, bq, bk) * scale
+                p = (torch.exp(s.masked_fill(invalid, NEG_INF) - m_b) / l_b
+                     ).masked_fill(invalid, 0.0)
+                dp = (dob @ vb.transpose(-1, -2)).view(B, KV, G, bq, bk)
+                ds = (p * (dp - D_b) * scale).view(B, KV, G * bq, bk)
+                p = p.view(B, KV, G * bq, bk)
+                dv[:, :, k0:k1] += p.transpose(-1, -2) @ dob
+                dq_b += ds @ kb
+                dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qb
+            dq[:, :, :, q0:q1] = dq_b.view(B, KV, G, bq, hd)
+        return (_ungrouped(dq).to(q.dtype),
+                dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, chunk: int = 0,
+                    q_offset: int = 0, block_q: int = 1024,
+                    block_k: int = 1024) -> torch.Tensor:
+    """q (B, Sq, H, hd); k, v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's
+    type, differentiable in q, k and v (``repro/models/attention.py::
+    flash_attention``). The last block of either axis may be short: no
+    padding, so no padded-key mask."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 int(chunk), int(q_offset),
+                                 max(1, min(block_q, q.shape[1])),
+                                 max(1, min(block_k, k.shape[1])))
 
 
 # --------------------------------------------------------------- decode path

@@ -4,8 +4,8 @@
 The logical-axis sharding rules of the reference (``DEFAULT_RULES``,
 ``logical_spec``, ``constrain``, ...) do not come over: they shard a
 model, not the vector store (the port's sharded serving tier splits store
-rows only), and wait for the training and launch port (ROADMAP queue 1
-item 11).
+rows only), and the trainer runs the whole model on one card
+(``launch/train.py``); a model-sharded launch is ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@
 A model is described by a *schema*: a nested dict whose leaves are
 :class:`Spec` (shape, logical axis names, init kind). :func:`init_params`
 draws parameters from it; the shapes are the reference's, so its parameter
-pytrees load into the port unchanged (``models.convert``). ``cross_entropy``
-waits for the training port (ROADMAP queue 1 item 11).
+pytrees load into the port unchanged (``models.convert``).
+:func:`cross_entropy` is the training loss.
 """
 from __future__ import annotations
 
@@ -151,3 +151,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean CE over valid positions; logits (..., V) any float dtype
+    (``repro/models/layers.py:125-143``): computed in fp32 against the row
+    max, which carries no gradient. The gold logit is gathered (the
+    reference's iota mask sums the same single term); an ignored label
+    gathers column 0 and is weighted 0."""
+    logits = logits.float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    labels = labels.long()
+    valid = labels != ignore_id
+    gold = shifted.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    weight = valid.float()
+    return ((lse - gold) * weight).sum() / weight.sum().clamp_min(1.0)

@@ -6,12 +6,23 @@ GQA path) as ``nn.Module``s, with the reference's entry points:
                     returns the last position's logits
 * ``decode_step`` — one token against the caches, attention through kernel
                     10 (``kernels.ops.flash_decode``)
+* ``loss_fn``     — the training forward (:func:`forward_train`) and the
+                    mean cross entropy, optionally in ``cfg.loss_chunk``
+                    chunks of the sequence
 
 Parameters keep the reference's shapes (``wq`` (D, H, hd), ``wo``
 (H, hd, D), ...), one :class:`DecoderLayer` per layer instead of stacked
-``(L, ...)`` leaves; layers run as a Python loop (no scan, no remat). The
-KV cache keeps the reference's ``(L, B, KV, S, hd)`` layout, so each layer's
-slice is already the kernel's ``(b, kv_h, s, d)``.
+``(L, ...)`` leaves; layers run as a Python loop (no scan). The KV cache
+keeps the reference's ``(L, B, KV, S, hd)`` layout, so each layer's slice is
+already the kernel's ``(b, kv_h, s, d)``.
+
+Serving (``forward``, ``prefill``, ``decode_step``) runs without autograd
+and with the prefill attention. Training (:func:`forward_train`,
+:func:`loss_fn`) runs with autograd, the attention of ``cfg.attn_impl``
+(``attention.flash_attention`` or ``naive_attention``) and ``cfg.remat``
+per layer (:func:`_remat`); a model is trainable once its parameters
+require grad (``Transformer(..., trainable=True)`` or
+``model.requires_grad_()``).
 
 The MoE, SSM, hybrid, encoder-decoder, meta-token and patch-embedding
 families and ``layer_group > 1`` bands are not ported yet (ROADMAP queue 1):
@@ -23,12 +34,16 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from . import attention as A
 from .common import ArchConfig
-from .layers import Spec, mlp_apply, mlp_schema, rms_norm, stack_schema
+from .layers import (Spec, cross_entropy, mlp_apply, mlp_schema, rms_norm,
+                     stack_schema)
 
 # ------------------------------------------------------------------- schemas
 
@@ -117,16 +132,24 @@ class DecoderLayer(nn.Module):
                              self.cfg.act)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int,
-                kv_out=None) -> torch.Tensor:
+                kv_out=None, train: bool = False) -> torch.Tensor:
         """Full-sequence layer (x (B, S, D)). ``kv_out`` = (k, v) cache
-        slices (B, KV, >= S, hd) that receive this layer's keys/values."""
+        slices (B, KV, >= S, hd) that receive this layer's keys/values.
+        ``train`` selects the differentiable attention of
+        ``cfg.attn_impl`` instead of the prefill attention."""
         cfg = self.cfg
         q, k, v = A.qkv_project(self.attn, rms_norm(x, self.ln1,
                                                     cfg.norm_eps),
                                 cfg, positions)
-        attn = A.attention(q, k, v, causal=True,
-                           window=window if cfg.sliding_window else 0,
-                           chunk=window if cfg.attn_chunk else 0)
+        local = dict(window=window if cfg.sliding_window else 0,
+                     chunk=window if cfg.attn_chunk else 0)
+        if not train:
+            attend = A.attention
+        elif cfg.attn_impl == "naive":
+            attend = A.naive_attention
+        else:
+            attend = A.flash_attention
+        attn = attend(q, k, v, causal=True, **local)
         if kv_out is not None:
             S = x.shape[1]
             kv_out[0][:, :, :S].copy_(k.transpose(1, 2))
@@ -163,10 +186,13 @@ class Transformer(nn.Module):
     ``models.convert`` give it; every leaf is cast to
     ``cfg.param_dtype()`` and placed on ``device`` (``None`` = ``"cuda"``,
     which raises without a card). The layers hold views of the stacked
-    leaves."""
+    leaves. ``trainable`` makes every parameter require grad (the
+    optimizer's leaves are then ``dict(model.named_parameters())``); a
+    trainable model copies ``params``, since training updates its leaves
+    in place (a serving model may share the caller's tensors)."""
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any],
-                 device=None):
+                 device=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -176,7 +202,7 @@ class Transformer(nn.Module):
         def put(tree):
             if isinstance(tree, dict):
                 return {key: put(sub) for key, sub in tree.items()}
-            return tree.to(device=dev, dtype=dtype)
+            return tree.to(device=dev, dtype=dtype, copy=trainable)
 
         params = put(params)
         self.embed = _frozen(params["embed"])
@@ -192,6 +218,7 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, layer(i, stacked))
             for i in range(cfg.n_layers))
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -207,15 +234,49 @@ def _tokens(params: Transformer, tokens) -> torch.Tensor:
     return tokens.to(device=params.device, dtype=torch.long)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, layer: DecoderLayer):
+    """The reference's ``_remat`` (``repro/models/transformer.py:209``) for
+    one layer: ``"none"`` keeps every activation; ``"full"`` (its
+    ``nothing_saveable``) keeps only the layer's input and recomputes the
+    layer in the backward (``torch.utils.checkpoint``, non-reentrant);
+    ``"dots"`` (its ``checkpoint_dots``) is a selective checkpoint that
+    keeps the outputs of the matrix products (``aten.mm`` / ``bmm`` /
+    ``addmm``, the projections, the MLP and the attention tiles) and
+    recomputes the elementwise work around them."""
+    if cfg.remat == "none":
+        return layer
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: none | dots | full")
+    kw = {} if cfg.remat == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(
+            _save_dots)}
+
+    def run(*args):
+        return checkpoint(layer, *args, use_reentrant=False, **kw)
+    return run
+
+
 def _run(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
-         kv_out=None) -> torch.Tensor:
-    x = params.embed[tokens]
+         kv_out=None, train: bool = False) -> torch.Tensor:
+    x = F.embedding(tokens, params.embed)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     windows = cfg.layer_windows()
     for i, lay in enumerate(params.layers):
-        x = lay(x, positions, int(windows[i]),
-                None if kv_out is None else (kv_out[0][i], kv_out[1][i]))
+        if train:
+            x = _remat(cfg, lay)(x, positions, int(windows[i]), None, True)
+        else:
+            x = lay(x, positions, int(windows[i]),
+                    None if kv_out is None else (kv_out[0][i], kv_out[1][i]))
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -237,11 +298,42 @@ def forward(params: Transformer, tokens, cfg: ArchConfig,
     return h, ((k, v), None, None)
 
 
+def forward_train(params: Transformer, tokens, cfg: ArchConfig
+                  ) -> torch.Tensor:
+    """The training forward: hidden states (B, S, D) with autograd, the
+    attention of ``cfg.attn_impl`` and ``cfg.remat`` per layer."""
+    return _run(params, _tokens(params, tokens), cfg, train=True)
+
+
 def logits_from_hidden(params: Transformer, h: torch.Tensor,
                        cfg: ArchConfig) -> torch.Tensor:
     """(..., D) -> (..., V) fp32 logits (the product in the params' type)."""
     head = params.embed.t() if cfg.tie_embeddings else params.lm_head
     return (h @ head.to(h.dtype)).float()
+
+
+def loss_fn(params: Transformer, batch: Dict[str, Any],
+            cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token CE of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-1 ignored), a 0-dim fp32 tensor with autograd
+    (``repro/models/transformer.py:351-376``). With ``cfg.loss_chunk`` below
+    the sequence length the logits are formed ``loss_chunk`` positions at a
+    time and the chunks' losses weighted by their valid counts; positions
+    past the last whole chunk are left out, as in the reference."""
+    h = forward_train(params, batch["tokens"], cfg)
+    labels = _tokens(params, batch["labels"])
+    S = h.shape[1]
+    if cfg.loss_chunk and cfg.loss_chunk < S:
+        C = cfg.loss_chunk
+        losses, counts = [], []
+        for c0 in range(0, S // C * C, C):
+            ll = labels[:, c0:c0 + C]
+            logits = logits_from_hidden(params, h[:, c0:c0 + C], cfg)
+            losses.append(cross_entropy(logits, ll))
+            counts.append((ll != -1).sum())
+        w = torch.stack(counts).float()
+        return (torch.stack(losses) * w).sum() / w.sum().clamp_min(1.0)
+    return cross_entropy(logits_from_hidden(params, h, cfg), labels)
 
 
 @torch.no_grad()

@@ -1242,3 +1242,50 @@ def test_shard_merge_on_card_keeps_empty_lanes():
     assert (ids[:, 3:] == -1).all()
     assert {int(x) for x in ids[:, :3].ravel()} == set(members)
     assert (vals[:, 3:] == ref.NEG_INF).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_differential_fuzz_on_card(seed):
+    """``tests/test_torch_differential.py``'s seeded op fuzz with every
+    database on the card (dim 16, k 5, ~100-200 rows, 8 IVF lists): the
+    kernels' tiny-shape paths in front of the pure-Python oracle, the three
+    strategies and the flat / sharded / IVF / PG executors at fp32, int8
+    and PQ, sharded == flat bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from test_torch_differential import run_fuzz_seed
+    run_fuzz_seed(seed, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_on_card_matches_cpu(accum):
+    """One ``make_train_step`` step of the smoke qwen3-0.6b (fp32, 2
+    layers) on the card against the same step on the CPU, from the same
+    parameters and batch: losses within rtol 1e-5, every updated parameter
+    within 1e-4 of its largest magnitude (plain IEEE fp32 on both; the
+    products are summed in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Transformer, init_params, model_schema
+    from repro_torch.training import (DataConfig, OptConfig,
+                                      SyntheticLMData, init_opt_state,
+                                      make_train_step)
+    cfg = smoke_config("qwen3-0.6b")
+    tree = init_params(model_schema(cfg), torch.Generator().manual_seed(0),
+                       cfg.param_dtype(), "cpu")
+    batch = SyntheticLMData(DataConfig(cfg.vocab_size, 32, 8)).batch(0)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1),
+                           accum_steps=accum)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Transformer(cfg, tree, device=dev, trainable=True)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        _, m = step(model, init_opt_state(params), batch)
+        out[dev] = (float(m["loss"]), {n: p.cpu() for n, p in params.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, want in out["cpu"][1].items():
+        err = (out["cuda"][1][name] - want).abs().max()
+        assert err <= 1e-4 * want.abs().max(), (name, float(err))

@@ -69,3 +69,27 @@ def test_sharded_tier_and_calibration_import_alone():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"imported {proc.stdout.strip()}"
+
+
+_TRAIN_PROBE = """
+import importlib, sys
+for name in ("repro_torch.training", "repro_torch.training.data",
+             "repro_torch.training.optimizer",
+             "repro_torch.training.train_step",
+             "repro_torch.training.checkpoint", "repro_torch.launch.train"):
+    importlib.import_module(name)
+print(" ".join(sorted(n for n in sys.modules
+                      if n.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
+def test_training_modules_import_alone():
+    """The trainer (data, optimizer, step, checkpoints, launcher) imports
+    neither JAX nor the reference package."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"imported {proc.stdout.strip()}"
