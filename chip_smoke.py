@@ -49,7 +49,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ranked from host rows);
 6. the RAG decode path, after the phase-2 database is freed: the full-width
    ``qwen3-0.6b`` in bf16 (random weights from ``torch.Generator`` seed 0)
-   behind a ``ContextDatabase`` holding WIKI-Dir at scale 0.04 (entries
+   behind a ``ContextDatabase`` holding WIKI-Dir at scale 0.02 (entries
    added one by one through ``add_context``; the deployment's 0.1 is cut
    to fit the time limit, and the cut is printed), and
    ``RAGServer.answer`` on the 64-request mix (k = 10, a 512-token budget,
@@ -125,13 +125,42 @@ Phases (each prints one JSON line; any failure exits non-zero):
    tokens/s, peak device memory and the checkpoint's snapshot and write
    times beside the card. The training path reaches no TPU kernel, so it
    adds no kernel and no launch to the kernels line.
+11. the other LM families (after phase 6, on its context database, whose
+   payload tokens lie below the smallest vocabulary served, hymba's
+   32,001; before phase 10), each in bf16 from ``torch.Generator`` seed 0,
+   built, driven and freed before the next, each printing its init s,
+   prefill s, decode step ms, tokens/s and peak memory beside the card:
+   (11a) deepseek-moe-16b at full width and depth: ``RAGServer.answer`` on
+   phase 6's mix twice (equal tokens; 28 x 16 kernel-10 launches each;
+   finite logits; stats == ``retrieve_batch``), the hits each layer drops
+   at prefill and decode, and layer 0's routed experts on 2,048 of its
+   prefill tokens with capacity_factor = E / K held against ``dense_tp``;
+   (11b) hymba-1.5b: the answer (32 x 16 launches), decode against the
+   forward on its contexts (phase 6's gate), a direct b = 4, 2,048-token
+   prompt past the 1,024 window with its 128 meta tokens, decode against
+   the forward, kernel 10 on a global and a local layer's calls against
+   its plain version; (11c) mamba2-130m: the answer with no kernel-10
+   launch, decode against the forward; (11d) phi-3-vision-4.2b: the
+   answer, a direct prefill behind 144 stub patch embeddings with decode
+   against the forward, kernel 10 at head dim 96; (11e) whisper-large-v3
+   driven directly (the RAG server passes no frames): b = 16, 1,500 stub
+   frames, 64-token prompts, 16 steps, 32 x 2 x 16 launches (self and
+   cross), decode against the forward, the cross-attention call at
+   s = 1,500 against its plain version; (11f) llama4-scout-17b-a16e at
+   full width and 4 layers (one global, three chunked; the 48 layers do
+   not fit one card, and the cut is printed): the answer and the MoE
+   check of 11a; (11g) the full-width mamba2-130m trained by
+   ``launch/train.py``'s loop at 8 x 512 tokens for 20 steps: every loss
+   finite, the last 5 below the first 5. The MoE configs' decode is not
+   gated against the forward: their capacity drops depend on the tokens
+   in the call. Phase 11's kernel-10 launches count on the kernels line.
 
 Phase 1 also holds kernel 10 against its plain version at the reference's
 sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
 cache, and kernel 2 at ``gather_rescore``'s shapes.
 
-The kernels line's launch counts are the main path's: in phases 2-9, the
-launches made around the entry points each phase drives (``MainPath``),
+The kernels line's launch counts are the main path's: in phases 2-9 and
+11, the launches made around the entry points each phase drives (``MainPath``),
 not those of its checks (loops held against a batch, reference batches,
 warm-ups, timings, profiler sessions, the kernel records).
 
@@ -3093,11 +3122,12 @@ def phase7_pg(torch, ops, ref, path, gate, tmp: str) -> dict:
 
 # --------------------------------------------------------------- phase 6
 # WIKI-Dir at a tenth (194,000 context entries) is the deployment's scale;
-# ``add_context`` one entry at a time takes ~1.4 ms on the H100 host, so
-# that ingest would take ~270 s and the scale is cut to 0.04 (77,600
-# entries, ~110 s), fixed so that every run serves the same database
+# ``add_context`` one entry at a time takes 1.4-2.1 ms on the H100 host, so
+# that ingest would take 270-410 s and the scale is cut to 0.02 (38,800
+# entries, 55-85 s; 0.04 until phase 11 joined the script's time limit),
+# fixed so that every run serves the same database
 RAG_SCALE_PLANNED = 0.1
-RAG_SCALE = 0.04
+RAG_SCALE = 0.02
 RAG_STEPS = 16             # max_new_tokens
 RAG_PROMPT = 4
 # bf16 logits of two independent paths over 28 layers (full-sequence
@@ -3274,18 +3304,37 @@ def serve_rag(ops, ctx, server, rcfg, reqs, prompt, tokens, path,
             "retrieve_p50_ms": rsnap["p50_ms"]}
 
 
-def phase6(torch, ops, args, cfg=None, device="cuda"):
-    """The RAG decode path on the card (module docstring, phase 6) with the
-    LM ``cfg`` (full-width ``qwen3-0.6b`` when None). Every failed check is
-    collected and reported at once. Returns the launch counts of the two
-    answers and the recorded kernel-10 calls. ``cfg`` and ``device`` exist
-    for the CPU rehearsal (a smoke config, ``device="cpu"``)."""
-    from repro_torch.configs import get_arch
+def rag_database(args, vocab: int, device="cuda") -> dict:
+    """The RAG deployment's ``ContextDatabase`` (WIKI-Dir at RAG_SCALE,
+    every entry through ``add_context``, payload tokens below ``vocab``),
+    built once and served by phases 6 and 11: ``{"ds", "ctx", "gen_s",
+    "ingest"}``."""
     from repro_torch.datasets import make_wiki_dir
+    from repro_torch.serving import ContextDatabase
+    t0 = time.perf_counter()
+    scale = RAG_SCALE * args.scale
+    ds = make_wiki_dir(scale=scale, dim=128, n_queries=64, seed=0)
+    gen_s = time.perf_counter() - t0
+    ctx = ContextDatabase(dim=128, device=device)
+    ingest = rag_ingest(ds, ctx, vocab, scale)
+    emit({"phase": "6-ingest", "vocab": vocab, **ingest})
+    ctx.build("flat")
+    return {"ds": ds, "ctx": ctx, "gen_s": gen_s, "ingest": ingest}
+
+
+def phase6(torch, ops, args, cfg=None, device="cuda", rag_db=None):
+    """The RAG decode path on the card (module docstring, phase 6) with the
+    LM ``cfg`` (full-width ``qwen3-0.6b`` when None), on ``rag_db``
+    (:func:`rag_database`; built here when None, payload tokens below
+    ``cfg``'s vocabulary). Every failed check is collected and reported at
+    once. Returns the launch counts of the two answers and the recorded
+    kernel-10 calls. ``cfg`` and ``device`` exist for the CPU rehearsal (a
+    smoke config, ``device="cpu"``)."""
+    from repro_torch.configs import get_arch
     from repro_torch.models import (Transformer, decode_step, forward,
                                     init_params, logits_from_hidden,
                                     model_schema, prefill)
-    from repro_torch.serving import ContextDatabase, RAGConfig, RAGServer
+    from repro_torch.serving import RAGConfig, RAGServer
     from repro_torch.serving import rag
     failed = []
 
@@ -3300,14 +3349,9 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
     cfg = cfg or get_arch("qwen3-0.6b")
     info = {"phase": 6, "model": cfg.name, "dtype": cfg.dtype,
             "params": cfg.param_count()}
-    t0 = time.perf_counter()
-    scale = RAG_SCALE * args.scale
-    ds = make_wiki_dir(scale=scale, dim=128, n_queries=64, seed=0)
-    info["gen_s"] = time.perf_counter() - t0
-    ctx = ContextDatabase(dim=128, device=device)
-    info["ingest"] = rag_ingest(ds, ctx, cfg.vocab_size, scale)
-    emit({"phase": "6-ingest", **info["ingest"]})
-    ctx.build("flat")
+    rag_db = rag_db or rag_database(args, cfg.vocab_size, device)
+    ds, ctx = rag_db["ds"], rag_db["ctx"]
+    info["gen_s"], info["ingest"] = rag_db["gen_s"], rag_db["ingest"]
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     model = Transformer(cfg, init_params(model_schema(cfg), gen,
@@ -3439,21 +3483,8 @@ def phase6(torch, ops, args, cfg=None, device="cuda"):
     del cache
     h, _ = forward(model, tk, cfg)
     full = logits_from_hidden(model, h[:, -1:], cfg)[:, 0]
-    dec = dec[:, 0]
-    diff = (dec - full).abs()
-    a_dec, a_full = dec.argmax(-1), full.argmax(-1)
-    gap_full = (full.max(-1).values - full.gather(1, a_dec[:, None])[:, 0])
-    gap_dec = (dec.max(-1).values - dec.gather(1, a_full[:, None])[:, 0])
-    info["decode_vs_forward"] = {
-        "max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
-        "max_abs_logit": float(full.abs().max()),
-        "top1_equal": float((a_dec == a_full).float().mean()),
-        "top1_cross_gap": float(torch.maximum(gap_full, gap_dec).max()),
-        "tol": LOGIT_TOL, "mean_tol": LOGIT_MEAN_TOL}
-    dv = info["decode_vs_forward"]
-    gate(dv["max_abs"] <= LOGIT_TOL and dv["mean_abs"] <= LOGIT_MEAN_TOL
-         and dv["top1_cross_gap"] <= LOGIT_TOL,
-         f"decode vs forward logits: {dv}")
+    info["decode_vs_forward"] = dv = logit_gap(torch, dec[:, 0], full)
+    gate(logits_ok(dv), f"decode vs forward logits: {dv}")
     info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     info["failed"] = failed
     emit(info)
@@ -3477,6 +3508,557 @@ def phase6_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     real["calls_checked"] = len(errs)
     measured["flash_decode"] = {**real, "synthetic": measured["flash_decode"]}
     emit({"phase": "6-kernels", "flash_decode": real})
+
+
+# ---------------------------------------------------------------- phase 11
+FAMILY_VOCAB = 32_001      # hymba-1.5b's vocabulary, the smallest served:
+                           # the shared context database's tokens fit all
+FAMILY_STEPS = RAG_STEPS
+# decode vs the full forward (bf16) where phase 6's fixed tolerances do
+# not hold (deeper or wider than qwen3-0.6b, or an SSM's recurrence): the
+# decode's distance from the fp32 forward of the same parameters within
+# twice the bf16 forward's own (each bf16 path rounds on its own)
+ANCHOR_RATIO = 2.0
+MOE_CHECK_TOKENS = 2_048
+MOE_CHECK_REL = 2e-2       # bf16 grouped vs dense: each rounds the expert
+                           # products to bf16 on its own (2^-8 relative)
+LLAMA4_LAYERS = 4          # one global + three chunked layers: ~11B
+                           # parameters (~22 GB); the 48 layers' 107.8B
+                           # (215 GB in bf16) do not fit one card
+HYMBA_DIRECT = (4, 2_048)  # b, prompt tokens: past the 1,024 window
+PHI_DIRECT = (4, 64)       # b, prompt tokens after the 144 patches
+WHISPER_DIRECT = (16, 64)  # b, prompt tokens; 1,500 frames each
+TRAIN11_STEPS = 20
+
+
+@contextlib.contextmanager
+def moe_probe(moe_mod, drops: list, first: dict):
+    """While open, every MoE call appends (hits, dropped hits) as device
+    scalars to ``drops`` (no sync), and the first call's normed input is
+    kept in ``first["x"]``."""
+    plan, apply = moe_mod.capacity_plan, moe_mod.moe_apply
+
+    def counted(idx, n_experts, capacity):
+        out = plan(idx, n_experts, capacity)
+        drops.append((idx.numel(), (~out[3]).sum()))
+        return out
+
+    def kept(p, x, cfg):
+        first.setdefault("x", x)
+        return apply(p, x, cfg)
+
+    moe_mod.capacity_plan, moe_mod.moe_apply = counted, kept
+    try:
+        yield drops
+    finally:
+        moe_mod.capacity_plan, moe_mod.moe_apply = plan, apply
+
+
+def attention_launches(cfg) -> int:
+    """Kernel-10 launches of one decode step: one per attention layer,
+    two (self and cross) with an encoder."""
+    if cfg.attn_free:
+        return 0
+    return cfg.n_layers * (2 if cfg.is_encdec else 1)
+
+
+def logit_gap(torch, dec, full) -> dict:
+    """Phase 6's bf16 comparison of two logit rows (decode vs forward):
+    the largest and mean differences and the tie-aware top-1 gap."""
+    diff = (dec - full).abs()
+    a_dec, a_full = dec.argmax(-1), full.argmax(-1)
+    gap_full = full.max(-1).values - full.gather(1, a_dec[:, None])[:, 0]
+    gap_dec = dec.max(-1).values - dec.gather(1, a_full[:, None])[:, 0]
+    return {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+            "max_abs_logit": float(full.abs().max()),
+            "top1_equal": float((a_dec == a_full).float().mean()),
+            "top1_cross_gap": float(torch.maximum(gap_full, gap_dec).max()),
+            "tol": LOGIT_TOL, "mean_tol": LOGIT_MEAN_TOL}
+
+
+def fp32_logits(torch, cfg, tree, tokens, extra):
+    """The last position's logits of the full forward in fp32, the bf16
+    parameters ``tree`` widened exactly: the function both bf16 paths
+    round."""
+    from repro_torch.models import Transformer, forward, logits_from_hidden
+    cfg32 = cfg.replace(dtype="float32")
+    model = Transformer(cfg32, tree, device=tokens.device)
+    h, _ = forward(model, tokens, cfg32,
+                   {k: v.float() for k, v in extra.items()})
+    out = logits_from_hidden(model, h[:, -1:], cfg32)[:, 0]
+    del model, h
+    return out
+
+
+def anchored(torch, dec, full, ref) -> dict:
+    """The bf16 decode's and the bf16 forward's distances from the fp32
+    forward ``ref`` (largest and mean), and how far the fp32 logit of the
+    decode's top-1 lies below the fp32 best."""
+    e_dec, e_fwd = (dec - ref).abs(), (full - ref).abs()
+    top = ref.gather(1, dec.argmax(-1)[:, None])[:, 0]
+    return {"dec_max": float(e_dec.max()), "dec_mean": float(e_dec.mean()),
+            "fwd_max": float(e_fwd.max()), "fwd_mean": float(e_fwd.mean()),
+            "dec_top1_gap": float((ref.max(-1).values - top).max()),
+            "ratio": ANCHOR_RATIO}
+
+
+def logits_ok(dv: dict) -> bool:
+    """Phase 6's bf16 gate on :func:`logit_gap`'s record."""
+    return (dv["max_abs"] <= LOGIT_TOL and dv["mean_abs"] <= LOGIT_MEAN_TOL
+            and dv["top1_cross_gap"] <= LOGIT_TOL)
+
+
+def decode_ok(dv: dict, an: dict) -> bool:
+    """Phase 6's bf16 gate, or the decode no farther from the fp32 forward
+    than ANCHOR_RATIO times the bf16 forward is (largest, mean, and the
+    top-1's fp32 gap against the forward's largest error)."""
+    if logits_ok(dv):
+        return True
+    r = ANCHOR_RATIO
+    return (an["dec_max"] <= r * an["fwd_max"]
+            and an["dec_mean"] <= r * an["fwd_mean"]
+            and an["dec_top1_gap"] <= r * an["fwd_max"])
+
+
+def direct_decode(torch, ops, model, cfg, tokens, extra, steps, path,
+                  gate, label, keep=(), captured=None, tree=None):
+    """Prefill ``tokens`` (with ``extra``), then ``steps`` greedy decode
+    steps, timed and counted on the main path; kernel 10 must launch
+    ``attention_launches(cfg)`` times a step. Then one more step under the
+    profiler, and the last timed step's logits against the full forward
+    over the prompt and the fed tokens (reported). Given the model's
+    stacked bf16 parameters ``tree``, that comparison is gated
+    (:func:`decode_ok`) against the fp32 forward of the same parameters.
+    ``keep`` records those kernel-10 calls (running index over the decode
+    steps) into ``captured``."""
+    from repro_torch.models import (decode_step, forward, logits_from_hidden,
+                                    prefill)
+    B, S = tokens.shape
+    batch = {"tokens": tokens, **extra}
+    fed = []
+    before = ops.launch_counts()["flash_decode"]
+    with path.counted():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch, cfg,
+                                S + cfg.meta_tokens + steps + 1)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        cur = torch.argmax(logits[:, -1], -1)[:, None]
+        with contextlib.ExitStack() as stack:
+            if keep:
+                stack.enter_context(recorded_calls(ops, "flash_decode",
+                                                   set(keep), captured))
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fed.append(cur)
+                logits, cache = decode_step(model, cache, cur, cfg)
+                cur = torch.argmax(logits[:, -1], -1)[:, None]
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+    n_fd = ops.launch_counts()["flash_decode"] - before
+    want = attention_launches(cfg) * steps
+    gate(n_fd == want, f"{label}: flash_decode launched {n_fd}, want {want}")
+    last = logits[:, 0].clone()
+    gate(bool(torch.isfinite(last).all()), f"{label}: non-finite logits")
+    box = {"cache": cache, "cur": cur}
+
+    def one_step():
+        box["logits"], box["cache"] = decode_step(model, box["cache"],
+                                                  box["cur"], cfg)
+    traced = trace(torch, one_step, "flash_decode_kernel",
+                   attention_launches(cfg))
+    del box, cache, logits
+    seq = torch.cat([tokens] + fed, dim=1)
+    h, _ = forward(model, seq, cfg, extra)
+    full = logits_from_hidden(model, h[:, -1:], cfg)[:, 0]
+    del h
+    out = {"batch": B, "prompt": S, "steps": steps, "prefill_s": t_pre,
+           "decode_step_ms": t_dec / steps * 1e3,
+           "decode_tokens_per_s": B * steps / t_dec,
+           "tokens_per_s": B * steps / (t_pre + t_dec),
+           "flash_decode_launches": n_fd, "trace_decode_step": traced,
+           "decode_vs_forward": logit_gap(torch, last.float(),
+                                          full.float()),
+           "gated_vs_forward": tree is not None}
+    if tree is not None:
+        an = anchored(torch, last, full, fp32_logits(torch, cfg, tree, seq,
+                                                     extra))
+        out["vs_fp32_forward"] = an
+        gate(decode_ok(out["decode_vs_forward"], an),
+             f"{label}: decode vs forward {out['decode_vs_forward']}, vs "
+             f"the fp32 forward {an}")
+    return out
+
+
+def family_answer(torch, ops, ctx, server, cfg, reqs, prompt, path, gate,
+                  label):
+    """``RAGServer.answer`` on the 64-request mix (phase 6's k, budget,
+    prompt and steps): tokens (64, 16), every logit finite, stats equal to
+    a direct ``retrieve_batch``, kernel 10 launched
+    ``attention_launches(cfg) x 16`` times. Returns (its record, its
+    tokens)."""
+    from repro_torch.serving import rag
+    queries, paths, rec = reqs
+    B = len(paths)
+    direct = ctx.retrieve_batch(queries, paths, server.cfg, recursive=rec)
+    flags = []
+    before = ops.launch_counts()["flash_decode"]
+    with finite_logits(torch, rag, flags), path.counted():
+        t0 = time.perf_counter()
+        out = server.answer(queries, paths, prompt,
+                            max_new_tokens=FAMILY_STEPS, recursive=rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_fd = ops.launch_counts()["flash_decode"] - before
+    per = attention_launches(cfg) * FAMILY_STEPS
+    toks = out["tokens"]
+    gate(toks.shape == (B, FAMILY_STEPS) and toks.dtype == np.int32
+         and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+         f"{label}: tokens {toks.shape} {toks.dtype}")
+    gate(n_fd == per, f"{label}: flash_decode launched {n_fd}, want {per}")
+    gate(all(bool(f) for f in flags) and len(flags) == 1 + FAMILY_STEPS,
+         f"{label}: non-finite logits in {sum(not bool(f) for f in flags)} "
+         f"of {len(flags)} calls")
+    strip = [{k: v for k, v in st.items() if k not in _TIMING_KEYS}
+             for st in out["retrieval_stats"]]
+    gate(strip == [{k: v for k, v in st.items() if k not in _TIMING_KEYS}
+                   for _, st in direct],
+         f"{label}: retrieval_stats != retrieve_batch")
+    return {"wall_s": wall, "retrieve_s": out["retrieve_s"],
+            "decode_s": out["decode_s"], "tokens_per_s": B * FAMILY_STEPS
+            / wall, "flash_decode_launches": n_fd}, toks
+
+
+def rag_contexts(ctx, server, reqs, prompt) -> np.ndarray:
+    """The answer's contexts, padded as ``_decode_batch`` pads them."""
+    queries, paths, rec = reqs
+    contexts = [server.assemble_with_prompt(h, prompt[0]) for h, _ in
+                ctx.retrieve_batch(queries, paths, server.cfg,
+                                   recursive=rec)]
+    S = max(len(c) for c in contexts)
+    toks = np.zeros((len(contexts), S), np.int32)
+    for i, c in enumerate(contexts):
+        toks[i, :len(c)] = c
+    return toks
+
+
+def moe_layer_check(torch, model, cfg, x, gate, label) -> dict:
+    """Layer 0's ``moe_apply`` on MOE_CHECK_TOKENS of its prefill input
+    with capacity_factor = E / K (nothing can drop), grouped against
+    ``dense_tp``: within MOE_CHECK_REL of the output's largest magnitude.
+    The routed experts only: the shared experts are the same code on both
+    paths and would hide a difference in the routed part."""
+    from repro_torch.models import moe as MOE
+    x = x.reshape(-1, x.shape[-1])[:MOE_CHECK_TOKENS][None]
+    ccfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k,
+                       n_shared_experts=0)
+    p = model.layers[0].moe
+    drops = []
+    with moe_probe(MOE, drops, {}):
+        grouped = MOE.moe_apply(p, x, ccfg).float()
+    dense = MOE.moe_apply(p, x, ccfg.replace(moe_impl="dense_tp")).float()
+    err = float((grouped - dense).abs().max())
+    mag = float(dense.abs().max())
+    dropped = int(drops[0][1])
+    gate(dropped == 0 and err <= MOE_CHECK_REL * mag,
+         f"{label}: grouped vs dense_tp {err} of {mag} (limit "
+         f"{MOE_CHECK_REL}), {dropped} hits dropped")
+    return {"tokens": x.shape[1], "capacity_factor": ccfg.capacity_factor,
+            "max_abs_err": err, "max_abs": mag, "rel": err / max(mag, 1e-30),
+            "limit": MOE_CHECK_REL, "dropped": dropped}
+
+
+def drop_table(drops: list, n_layers: int, steps: int, gate) -> dict:
+    """Hits and dropped hits per layer at prefill and summed over the
+    decode steps, from :func:`moe_probe`'s records of one answer (one a
+    layer a call)."""
+    vals = [int(d) for _, d in drops]
+    hits = [h for h, _ in drops]
+    gate(len(vals) == n_layers * (1 + steps),
+         f"{len(vals)} MoE calls in an answer, want {n_layers * (1 + steps)}")
+    if len(vals) != n_layers * (1 + steps):
+        return {}
+    pre = vals[:n_layers]
+    dec = [sum(vals[n_layers * (1 + s) + i] for s in range(steps))
+           for i in range(n_layers)]
+    return {"prefill_hits_per_layer": hits[0], "prefill_dropped": pre,
+            "decode_hits_per_layer": hits[n_layers] * steps,
+            "decode_dropped": dec}
+
+
+FAMILIES = {"a": "deepseek-moe-16b", "b": "hymba-1.5b", "c": "mamba2-130m",
+            "d": "phi-3-vision-4.2b", "e": "whisper-large-v3",
+            "f": "llama4-scout-17b-a16e", "g": "mamba2-130m"}
+
+
+def phase11(torch, ops, ref, peaks, rag_db, card: str, measured: dict,
+            device="cuda", cfgs=None):
+    """The other LM families on the card (module docstring, phase 11), on
+    phase 6's context database. Each model is built, driven and freed
+    before the next. Every failed check is collected and reported at once.
+    Returns the main path's launch counts. ``cfgs`` (label -> config, in
+    place of FAMILIES' full configs) and ``device`` exist for the CPU
+    rehearsal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import Transformer, init_params, model_schema
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving import RAGConfig, RAGServer
+    from repro_torch.training import (DataConfig, OptConfig,
+                                      SyntheticLMData, make_train_step)
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    t_phase = time.perf_counter()
+    ds, ctx = rag_db["ds"], rag_db["ctx"]
+    reqs = requests(ds)
+    path = MainPath(ops)
+    rcfg = RAGConfig(k=10, token_budget=512)
+    gen = np.random.default_rng(11)
+    info = {"phase": 11, "card": card, "context_vocab": FAMILY_VOCAB}
+    records = {}
+
+    def config(label):
+        return (cfgs or {}).get(label) or get_arch(FAMILIES[label])
+
+    def build(cfg):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = torch.Generator(device=device).manual_seed(0)
+        tree = init_params(model_schema(cfg), g, cfg.param_dtype(), device)
+        model = Transformer(cfg, tree, device=device)   # views of ``tree``
+        torch.cuda.synchronize()
+        return model, tree, {"model": cfg.name, "family": cfg.family,
+                       "layers": cfg.n_layers, "dtype": cfg.dtype,
+                       "params": cfg.param_count(),
+                       "params_held": sum(p.numel()
+                                          for p in model.parameters()),
+                       "init_s": time.perf_counter() - t0}
+
+    def prompt_for(cfg):
+        return [np.random.default_rng(1).integers(
+            0, min(cfg.vocab_size, FAMILY_VOCAB),
+            size=RAG_PROMPT).astype(np.int32)]
+
+    def done(rec, label):
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        rec["card"] = card
+        emit({"phase": f"11{label}", **rec})
+        records[label] = rec
+
+    def kernel_cases(calls, label, timed_idx):
+        out = {}
+        for idx, args, kw in calls:
+            if idx == timed_idx:
+                out[idx] = flash_record(torch, ops, ref, peaks, *args)
+            else:
+                err, at = flash_case(torch, ops, ref,
+                                     f"{label} flash_decode call {idx}",
+                                     *args, **kw)
+                b, h, d = args[0].shape
+                out[idx] = {"max_abs_err": err, "err_at_value": at,
+                            "shape": f"b={b} h={h} kv={args[1].shape[1]} "
+                                     f"s={args[1].shape[2]} d={d}"}
+        return out
+
+    # (11a) deepseek-moe-16b, full width and depth
+    cfg = config("a")
+    model, tree, rec = build(cfg)
+    server = RAGServer(ctx, model, cfg, rcfg)
+    prompt = prompt_for(cfg)
+    drops, first = [], {}
+    with moe_probe(MOE, drops, first):
+        rec["answer"], toks = family_answer(torch, ops, ctx, server, cfg,
+                                            reqs, prompt, path, gate, "11a")
+    rec["moe_drops"] = drop_table(drops, cfg.n_layers, FAMILY_STEPS, gate)
+    rec["answer_again"], again = family_answer(
+        torch, ops, ctx, server, cfg, reqs, prompt, path, gate, "11a again")
+    gate(np.array_equal(again, toks),
+         "11a: the same batch answered twice gave other tokens")
+    rec["moe_check"] = moe_layer_check(torch, model, cfg, first["x"], gate,
+                                       "11a")
+    del first, drops
+    tk = torch.from_numpy(rag_contexts(ctx, server, reqs, prompt)).to(device)
+    rec["direct"] = direct_decode(torch, ops, model, cfg, tk, {},
+                                  FAMILY_STEPS, path, gate, "11a")
+    del model, tree, server, tk
+    done(rec, "a")
+
+    # (11b) hymba-1.5b, full width and depth
+    cfg = config("b")
+    model, tree, rec = build(cfg)
+    server = RAGServer(ctx, model, cfg, rcfg)
+    prompt = prompt_for(cfg)
+    rec["answer"], _ = family_answer(torch, ops, ctx, server, cfg, reqs,
+                                     prompt, path, gate, "11b")
+    tk = torch.from_numpy(rag_contexts(ctx, server, reqs, prompt)).to(device)
+    last = (FAMILY_STEPS - 1) * cfg.n_layers
+    calls = []
+    rec["rag_direct"] = direct_decode(torch, ops, model, cfg, tk, {},
+                                      FAMILY_STEPS, path, gate, "11b rag",
+                                      keep=(last, last + 1), captured=calls,
+                                      tree=tree)
+    gate(len(calls) == 2, f"11b: recorded {len(calls)} kernel-10 calls")
+    rec["kernel10_rag"] = kernel_cases(calls, "11b rag global/local", last)
+    b, s = HYMBA_DIRECT
+    tk = torch.from_numpy(gen.integers(0, cfg.vocab_size, size=(b, s))
+                          .astype(np.int64)).to(device)
+    calls = []
+    rec["direct"] = direct_decode(torch, ops, model, cfg, tk, {},
+                                  FAMILY_STEPS, path, gate, "11b long",
+                                  keep=(last, last + 1), captured=calls,
+                                  tree=tree)
+    rec["direct"]["positions"] = s + cfg.meta_tokens + FAMILY_STEPS
+    rec["direct"]["window"] = cfg.sliding_window
+    gate(len(calls) == 2, f"11b: recorded {len(calls)} kernel-10 calls")
+    rec["kernel10"] = kernel_cases(calls, "11b global/local", last)
+    del model, tree, server, tk, calls
+    done(rec, "b")
+
+    # (11c) mamba2-130m
+    cfg = config("c")
+    model, tree, rec = build(cfg)
+    server = RAGServer(ctx, model, cfg, rcfg)
+    prompt = prompt_for(cfg)
+    rec["answer"], _ = family_answer(torch, ops, ctx, server, cfg, reqs,
+                                     prompt, path, gate, "11c")
+    tk = torch.from_numpy(rag_contexts(ctx, server, reqs, prompt)).to(device)
+    rec["direct"] = direct_decode(torch, ops, model, cfg, tk, {},
+                                  FAMILY_STEPS, path, gate, "11c", tree=tree)
+    del model, tree, server, tk
+    done(rec, "c")
+
+    # (11d) phi-3-vision-4.2b
+    cfg = config("d")
+    model, tree, rec = build(cfg)
+    server = RAGServer(ctx, model, cfg, rcfg)
+    prompt = prompt_for(cfg)
+    rec["answer"], _ = family_answer(torch, ops, ctx, server, cfg, reqs,
+                                     prompt, path, gate, "11d")
+    b, s = PHI_DIRECT
+    s += cfg.num_patches
+    tk = torch.from_numpy(gen.integers(0, cfg.vocab_size, size=(b, s))
+                          .astype(np.int64)).to(device)
+    # stub patch embeddings at the token embeddings' scale (std 0.02)
+    pg = torch.Generator(device=device).manual_seed(2)
+    patches = (torch.randn(b, cfg.num_patches, cfg.d_model, generator=pg,
+                           device=device) * 0.02).to(cfg.param_dtype())
+    last = (FAMILY_STEPS - 1) * cfg.n_layers
+    calls = []
+    rec["direct"] = direct_decode(torch, ops, model, cfg, tk,
+                                  {"patch_embeds": patches}, FAMILY_STEPS,
+                                  path, gate, "11d patches", keep=(last,),
+                                  captured=calls, tree=tree)
+    gate(len(calls) == 1, f"11d: recorded {len(calls)} kernel-10 calls")
+    rec["kernel10"] = kernel_cases(calls, "11d d=96", last)
+    del model, tree, server, tk, patches, calls
+    done(rec, "d")
+
+    # (11e) whisper-large-v3, driven directly (the RAG server passes no
+    # frames, as the reference's does not)
+    cfg = config("e")
+    model, tree, rec = build(cfg)
+    b, s = WHISPER_DIRECT
+    tk = torch.from_numpy(gen.integers(0, cfg.vocab_size, size=(b, s))
+                          .astype(np.int64)).to(device)
+    fg = torch.Generator(device=device).manual_seed(3)
+    frames = torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=fg,
+                         device=device).to(cfg.param_dtype())
+    last = (FAMILY_STEPS - 1) * 2 * cfg.n_layers
+    calls = []
+    rec["direct"] = direct_decode(torch, ops, model, cfg, tk,
+                                  {"frames": frames}, FAMILY_STEPS, path,
+                                  gate, "11e", keep=(last, last + 1),
+                                  captured=calls, tree=tree)
+    rec["direct"]["frames"] = cfg.encoder_seq
+    gate(len(calls) == 2, f"11e: recorded {len(calls)} kernel-10 calls")
+    rec["kernel10"] = kernel_cases(calls, "11e self/cross", last + 1)
+    del model, tree, tk, frames, calls
+    done(rec, "e")
+
+    # (11f) llama4-scout-17b-a16e at full width, depth cut
+    full = config("f")
+    cfg = full.replace(n_layers=min(LLAMA4_LAYERS, full.n_layers))
+    model, tree, rec = build(cfg)
+    rec["cut"] = {"layers": [full.n_layers, cfg.n_layers],
+                  "params": [full.param_count(), cfg.param_count()],
+                  "windows": [int(w) for w in cfg.layer_windows()]}
+    server = RAGServer(ctx, model, cfg, rcfg)
+    prompt = prompt_for(cfg)
+    drops, first = [], {}
+    with moe_probe(MOE, drops, first):
+        rec["answer"], _ = family_answer(torch, ops, ctx, server, cfg, reqs,
+                                         prompt, path, gate, "11f")
+    rec["moe_drops"] = drop_table(drops, cfg.n_layers, FAMILY_STEPS, gate)
+    rec["moe_check"] = moe_layer_check(torch, model, cfg, first["x"], gate,
+                                       "11f")
+    del first, drops
+    tk = torch.from_numpy(rag_contexts(ctx, server, reqs, prompt)).to(device)
+    rec["direct"] = direct_decode(torch, ops, model, cfg, tk, {},
+                                  FAMILY_STEPS, path, gate, "11f")
+    del model, tree, server, tk
+    done(rec, "f")
+
+    # (11g) training the full-width mamba2-130m through launch/train.py
+    cfg = config("g")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, opt = launcher.build(cfg, device, seed=0)
+    torch.cuda.synchronize()
+    rec = {"model": cfg.name, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "remat": cfg.remat,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN11_STEPS,
+           "init_s": time.perf_counter() - t0}
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH))
+    step_fn = make_train_step(cfg, OptConfig(
+        lr=TRAIN_LR, total_steps=TRAIN11_STEPS,
+        warmup_steps=max(1, TRAIN11_STEPS // 10)))
+    lines = []
+    launches0 = dict(ops.launch_counts())
+    opt, recs = launcher.train(model, opt, step_fn, data,
+                               range(TRAIN11_STEPS), device, log_every=5,
+                               log=lines.append)
+    losses = [r["loss"] for r in recs]
+    step_s = [r["s"] for r in recs[1:]]
+    med = statistics.median(step_s)
+    rec.update({"losses": losses, "step_ms_median": med * 1e3,
+                "step_ms_min": min(step_s) * 1e3,
+                "step_ms_max": max(step_s) * 1e3,
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "log": lines,
+                "port_kernel_launches": sum(ops.launch_counts().values())
+                - sum(launches0.values())})
+    gate(all(np.isfinite(losses)), f"11g: a loss is not finite {losses}")
+    gate(np.mean(losses[-5:]) < np.mean(losses[:5]),
+         f"11g: loss did not fall: first 5 {losses[:5]}, last 5 "
+         f"{losses[-5:]}")
+    del model, params, opt
+    done(rec, "g")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    measured["flash_decode"]["phase11"] = {
+        "hymba_rag": records["b"]["kernel10_rag"],
+        **{FAMILIES[label]: records[label]["kernel10"]
+           for label in ("b", "d", "e")}}
+    info["launches_main_path"] = dict(path.counts)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["models"] = {label: {key: records[label].get(key) for key in (
+        "model", "init_s", "peak_device_bytes")} for label in records}
+    info["failed"] = failed
+    emit(info)
+    check(not failed, "; ".join(failed))
+    return dict(path.counts)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3718,14 +4300,20 @@ def main() -> int:
         del ds, db, batched, looped
     gc.collect()
     torch.cuda.empty_cache()
-    c6, captured = phase6(torch, ops, args)
+    rag_db = rag_database(args, FAMILY_VOCAB)
+    c6, captured = phase6(torch, ops, args, rag_db=rag_db)
     phase6_kernels(torch, ops, ref, peaks, captured, measured)
     del captured
     gc.collect()
     torch.cuda.empty_cache()
+    c11 = phase11(torch, ops, ref, peaks, rag_db, smi, measured)
+    del rag_db
+    gc.collect()
+    torch.cuda.empty_cache()
     phase10(torch, ops, smi)
     launches = {key: c2[key] + c3[key] + c4[key] + c5[key] + c6[key]
-                + c7[key] + c8[key] + c8g[key] + c9[key] for key in c2}
+                + c7[key] + c8[key] + c8g[key] + c9[key] + c11[key]
+                for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

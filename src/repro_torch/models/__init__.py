@@ -1,8 +1,7 @@
-"""The LM stack the RAG server decodes with and the trainer trains: the
-dense decoder families of the reference (``qwen3-0.6b``, ``qwen2.5-3b``,
-``granite-8b``, ``minitron-4b``), with the reference's parameter shapes and
-entry points, decode attention through kernel 10, and ``loss_fn`` for
-training."""
+"""The LM stack the RAG server decodes with and the trainer trains: the ten
+configs of the reference (dense, MoE, SSM, hybrid, encoder-decoder, VLM),
+with the reference's parameter shapes and entry points, decode attention
+through kernel 10, and ``loss_fn`` for training."""
 from .common import ArchConfig
 from .convert import from_reference, to_reference
 from .layers import init_params

@@ -12,9 +12,9 @@ chunk; ``attention.py:382-390``) as a ``(B, S)`` mask and calls
 ``kernels.ops.flash_decode``: the hand-written kernel on a card, its plain
 version on the CPU. The reference's ``decode_attention`` is a plain einsum
 and never reaches its Pallas ``flash_decode``; both compute the same
-function. The static-band variants (``local_attention``,
-``chunked_attention``, only with ``layer_group > 1``) wait for the hybrid
-configs (ROADMAP queue 1).
+function. With ``layer_group > 1`` the local layers take the static-band
+variants (:func:`local_attention`, :func:`chunked_attention`), which issue
+only the in-band work, over whichever attention the caller names.
 
 Training differentiates through :func:`flash_attention`, a
 ``torch.autograd.Function`` carrying the reference's custom VJP
@@ -287,6 +287,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  int(chunk), int(q_offset),
                                  max(1, min(block_q, q.shape[1])),
                                  max(1, min(block_k, k.shape[1])))
+
+
+# ------------------------------------------------ static-local band variants
+
+
+def attend(impl: str, q, k, v, **kw) -> torch.Tensor:
+    """Attention by name: ``"flash"`` / ``"naive"`` (the training paths,
+    as the reference's ``attention(impl=...)`` names them; ``block_q`` /
+    ``block_k`` go to flash only) or ``"prefill"`` (:func:`attention`,
+    serving without autograd)."""
+    fns = {"flash": flash_attention, "naive": naive_attention,
+           "prefill": attention}
+    if impl not in fns:
+        raise ValueError(f"impl {impl!r}: flash | naive | prefill")
+    if impl != "flash":
+        kw.pop("block_q", None)
+        kw.pop("block_k", None)
+    return fns[impl](q, k, v, **kw)
+
+
+def _pad_seq(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad dim 1 up to a multiple of ``mult``."""
+    pad = (-x.shape[1]) % mult
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])],
+                      dim=1)
+    return x
+
+
+def local_attention(q, k, v, *, window: int, impl: str = "flash",
+                    **kw) -> torch.Tensor:
+    """Sliding-window attention with a static window
+    (``repro/models/attention.py:309``): query band i attends key bands
+    i-1 and i (2w keys) with the window mask, so O(S 2w) work instead of
+    O(S^2). Bands fold into the batch; band 0 runs as plain causal
+    attention."""
+    B, S, H, hd = q.shape
+    w = int(window)
+    if S <= w:
+        return attend(impl, q, k, v, causal=True, window=0, chunk=0, **kw)
+    q2, k2, v2 = _pad_seq(q, w), _pad_seq(k, w), _pad_seq(v, w)
+    nb = q2.shape[1] // w
+    KVh = k.shape[2]
+    qb = q2.reshape(B, nb, w, H, hd)
+    kb = k2.reshape(B, nb, w, KVh, hd)
+    vb = v2.reshape(B, nb, w, KVh, hd)
+    out0 = attend(impl, qb[:, 0], kb[:, 0], vb[:, 0], causal=True, window=0,
+                chunk=0, **kw)
+    q1 = qb[:, 1:].reshape(B * (nb - 1), w, H, hd)
+    kcat = torch.cat([kb[:, :-1], kb[:, 1:]], dim=2).reshape(
+        B * (nb - 1), 2 * w, KVh, hd)
+    vcat = torch.cat([vb[:, :-1], vb[:, 1:]], dim=2).reshape(
+        B * (nb - 1), 2 * w, KVh, hd)
+    out1 = attend(impl, q1, kcat, vcat, causal=True, window=w, q_offset=w,
+                **kw)
+    out = torch.cat([out0[:, None], out1.reshape(B, nb - 1, w, H, hd)],
+                    dim=1).reshape(B, nb * w, H, hd)
+    return out[:, :S]
+
+
+def chunked_attention(q, k, v, *, chunk: int, impl: str = "flash",
+                      **kw) -> torch.Tensor:
+    """Chunked local attention (llama4's local layers) with a static chunk
+    (``repro/models/attention.py:343``): block-diagonal causal attention,
+    O(S c) instead of O(S^2)."""
+    B, S, H, hd = q.shape
+    c = int(chunk)
+    if S <= c:
+        return attend(impl, q, k, v, causal=True, window=0, chunk=0, **kw)
+    q2, k2, v2 = _pad_seq(q, c), _pad_seq(k, c), _pad_seq(v, c)
+    nc = q2.shape[1] // c
+    KVh = k.shape[2]
+    out = attend(impl, q2.reshape(B * nc, c, H, hd),
+               k2.reshape(B * nc, c, KVh, hd),
+               v2.reshape(B * nc, c, KVh, hd),
+               causal=True, window=0, chunk=0, **kw)
+    return out.reshape(B, nc * c, H, hd)[:, :S]
 
 
 # --------------------------------------------------------------- decode path

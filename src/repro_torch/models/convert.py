@@ -3,7 +3,9 @@
 The reference keeps parameters as a pytree of arrays whose layer leaves are
 stacked ``(L, ...)`` (``repro.models.layers.init_params``); given as numpy
 arrays (bf16 ones as ``ml_dtypes.bfloat16``), :func:`from_reference` checks
-every shape against the port's schema and builds the port's
+every shape against the port's schema (every leaf of every family:
+``router`` and the (E, ., .) expert stacks, ``shared``, the ``ssm``
+leaves, ``meta``, ``encoder.*``, ``xattn.*``) and builds the port's
 :class:`~.transformer.Transformer` on a device. :func:`to_reference` is the
 inverse: the stacked numpy tree of a port model, in the same layout.
 """
@@ -52,30 +54,37 @@ def from_reference(tree: Dict[str, Any], cfg: ArchConfig,
 
 def to_reference(model: Transformer) -> Dict[str, Any]:
     """The port model's parameters as the reference's stacked numpy tree
-    (fp32 leaves; bf16 widens exactly)."""
+    (fp32 leaves; bf16 widens exactly): the layer leaves stacked over
+    ``model.layers`` (and ``model.encoder.layers``), every other leaf read
+    from the module at its path."""
     cfg = model.cfg
 
-    def stacked(get):
-        return np.stack([get(lay).detach().float().cpu().numpy()
-                         for lay in model.layers])
+    def numpy(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
 
-    def layer_tree(spec, path):
+    def walk(spec, path, get):
         if isinstance(spec, dict):
-            return {key: layer_tree(spec[key], path + (key,)) for key in spec}
+            return {key: walk(spec[key], path + (key,), get) for key in spec}
+        return get(path)
 
-        def get(lay):
-            obj = lay
-            for key in path:
-                obj = obj[key] if isinstance(obj, torch.nn.ParameterDict) \
-                    else getattr(obj, key)
-            return obj
-        return stacked(get)
+    def attr(obj, path):
+        for key in path:
+            obj = getattr(obj, key)
+        return obj
+
+    def stacked(layers):
+        return lambda path: np.stack([numpy(attr(lay, path))
+                                      for lay in layers])
 
     schema = model_schema(cfg)
-    tree = {"embed": model.embed.detach().float().cpu().numpy(),
-            "final_norm": model.final_norm.detach().float().cpu().numpy(),
-            "layers": layer_tree(schema["layers"], ())}
-    if model.lm_head is not None:
-        tree["lm_head"] = model.lm_head.detach().float().cpu().numpy()
+    tree = {key: walk(spec, (key,), lambda path: numpy(attr(model, path)))
+            for key, spec in schema.items()
+            if key not in ("layers", "encoder")}
+    tree["layers"] = walk(schema["layers"], (), stacked(model.layers))
+    if "encoder" in schema:
+        tree["encoder"] = {
+            "layers": walk(schema["encoder"]["layers"], (),
+                           stacked(model.encoder.layers)),
+            "final_norm": numpy(model.encoder.final_norm)}
     check_tree(tree, cfg)
     return tree

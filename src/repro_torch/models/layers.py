@@ -63,7 +63,9 @@ def init_params(schema, generator: torch.Generator, dtype: torch.dtype,
                             else 1.0 / math.sqrt(max(fan_in, 1)))
         x = torch.randn(spec.shape, generator=generator,
                         device=generator.device, dtype=torch.float32)
-        return (x * std).to(device=dev, dtype=dtype)
+        # scaled in place: one fp32 copy of the leaf at a time (deepseek's
+        # expert stack is 20.7 GB in fp32)
+        return x.mul_(std).to(device=dev, dtype=dtype)
 
     return map_schema(one, schema)
 

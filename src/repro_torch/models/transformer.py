@@ -1,20 +1,27 @@
-"""The dense decoder LM (the port of ``repro/models/transformer.py``'s dense
-GQA path) as ``nn.Module``s, with the reference's entry points:
+"""The LM stack (the port of ``repro/models/transformer.py``) as
+``nn.Module``s, for all ten configs: dense GQA, MoE, SSM, the hybrid
+attention + SSM mixer, the encoder-decoder and the patch-embedding VLM.
+The reference's entry points:
 
 * ``forward``     — full-sequence forward (hidden states, optionally caches)
-* ``prefill``     — forward that also fills KV caches sized ``cache_seq`` and
+* ``prefill``     — forward that also fills the caches (K/V sized
+                    ``cache_seq``, SSM states, cross-attention K/V) and
                     returns the last position's logits
-* ``decode_step`` — one token against the caches, attention through kernel
-                    10 (``kernels.ops.flash_decode``)
+* ``decode_step`` — one token against the caches, every attention through
+                    kernel 10 (``kernels.ops.flash_decode``)
 * ``loss_fn``     — the training forward (:func:`forward_train`) and the
                     mean cross entropy, optionally in ``cfg.loss_chunk``
                     chunks of the sequence
 
 Parameters keep the reference's shapes (``wq`` (D, H, hd), ``wo``
-(H, hd, D), ...), one :class:`DecoderLayer` per layer instead of stacked
-``(L, ...)`` leaves; layers run as a Python loop (no scan). The KV cache
-keeps the reference's ``(L, B, KV, S, hd)`` layout, so each layer's slice is
-already the kernel's ``(b, kv_h, s, d)``.
+(H, hd, D), ``w_gate`` (E, D, F), ...), one :class:`DecoderLayer` per layer
+instead of stacked ``(L, ...)`` leaves; layers run as a Python loop (no
+scan). Each layer holds what its config gives it: ``attn``, ``ssm``,
+``moe`` or ``mlp``, ``xattn`` (whisper's decoder). Caches keep the
+reference's layouts: ``k`` / ``v`` (L, B, KV, S, hd), so each layer's slice
+is already the kernel's (b, kv_h, s, d); ``conv`` (L, B, C, K-1) and ``h``
+(L, B, H, hd, N) fp32; ``xk`` / ``xv`` (L, B, KV, S_enc, hd). Hymba's meta
+tokens stand in front of the prompt: its caches and ``len`` count them.
 
 Serving (``forward``, ``prefill``, ``decode_step``) runs without autograd
 and with the prefill attention. Training (:func:`forward_train`,
@@ -22,11 +29,9 @@ and with the prefill attention. Training (:func:`forward_train`,
 (``attention.flash_attention`` or ``naive_attention``) and ``cfg.remat``
 per layer (:func:`_remat`); a model is trainable once its parameters
 require grad (``Transformer(..., trainable=True)`` or
-``model.requires_grad_()``).
-
-The MoE, SSM, hybrid, encoder-decoder, meta-token and patch-embedding
-families and ``layer_group > 1`` bands are not ported yet (ROADMAP queue 1):
-building them raises ``NotImplementedError``.
+``model.requires_grad_()``). With ``cfg.layer_group > 1`` local layers run
+the static-band attention (``attention.local_attention`` /
+``chunked_attention``), as the reference's grouped scan does.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from . import attention as A
+from . import moe as MOE
+from . import ssm as SSM
 from .common import ArchConfig
 from .layers import (Spec, cross_entropy, mlp_apply, mlp_schema, rms_norm,
                      stack_schema)
@@ -48,31 +55,33 @@ from .layers import (Spec, cross_entropy, mlp_apply, mlp_schema, rms_norm,
 # ------------------------------------------------------------------- schemas
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a family this port does not run yet."""
-    reasons = [why for bad, why in (
-        (cfg.n_experts > 0, "MoE (n_experts > 0)"),
-        (cfg.attn_free or cfg.hybrid or cfg.family in ("ssm", "hybrid"),
-         "SSM / hybrid mixers"),
-        (cfg.is_encdec, "encoder-decoder"),
-        (cfg.meta_tokens > 0, "meta tokens"),
-        (cfg.num_patches > 0, "patch embeddings"),
-        (cfg.layer_group > 1, "layer_group > 1 static bands")) if bad]
-    if reasons:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(reasons)} not ported to repro_torch yet "
-            "(ROADMAP queue 1)")
-
-
 def layer_schema(cfg: ArchConfig) -> Dict[str, Any]:
-    check_supported(cfg)
     D = cfg.d_model
-    s: Dict[str, Any] = {"ln1": Spec((D,), (None,), "ones"),
-                         "attn": A.attn_schema(cfg)}
-    if cfg.d_ff > 0:
+    s: Dict[str, Any] = {"ln1": Spec((D,), (None,), "ones")}
+    if not cfg.attn_free:
+        s["attn"] = A.attn_schema(cfg)
+    if cfg.attn_free or cfg.hybrid:
+        s["ssm"] = SSM.ssm_schema(cfg)
+    if cfg.n_experts > 0:
+        s["moe"] = MOE.moe_schema(cfg)
+        s["ln2"] = Spec((D,), (None,), "ones")
+    elif cfg.d_ff > 0:
         s["mlp"] = mlp_schema(D, cfg.d_ff, cfg.act)
         s["ln2"] = Spec((D,), (None,), "ones")
+    if cfg.is_encdec:                       # decoder cross-attention
+        s["xattn"] = A.attn_schema(cfg)
+        s["lnx"] = Spec((D,), (None,), "ones")
     return s
+
+
+def encoder_layer_schema(cfg: ArchConfig) -> Dict[str, Any]:
+    D = cfg.d_model
+    return {
+        "ln1": Spec((D,), (None,), "ones"),
+        "attn": A.attn_schema(cfg),
+        "ln2": Spec((D,), (None,), "ones"),
+        "mlp": mlp_schema(D, cfg.d_ff, cfg.act),
+    }
 
 
 def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
@@ -85,20 +94,43 @@ def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = Spec((D, V), ("embed_fsdp", "vocab"))
+    if cfg.meta_tokens > 0:
+        s["meta"] = Spec((cfg.meta_tokens, D), (None, "embed"), "embed")
+    if cfg.is_encdec:
+        s["encoder"] = {
+            "layers": stack_schema(encoder_layer_schema(cfg),
+                                   cfg.encoder_layers),
+            "final_norm": Spec((D,), (None,), "ones"),
+        }
     return s
 
 
 def cache_schema(cfg: ArchConfig, batch: int, cache_seq: int
                  ) -> Dict[str, Spec]:
     """Allocation-free cache description (shapes + logical axes)."""
-    check_supported(cfg)
     L, KV, hd = cfg.n_layers, cfg.kv_heads, cfg.hd
-    kv_shape = (L, batch, KV, cache_seq, hd)
-    axes = ("layers", "cache_batch", "kv_heads", "cache_seq", "head_dim")
-    return {"len": Spec((batch,), ("cache_batch",), "zeros"),
-            "k": Spec(kv_shape, axes, "zeros"),
-            "v": Spec(kv_shape, axes, "zeros")}
+    s: Dict[str, Spec] = {"len": Spec((batch,), ("cache_batch",), "zeros")}
+    if not cfg.attn_free:
+        kv_shape = (L, batch, KV, cache_seq, hd)
+        axes = ("layers", "cache_batch", "kv_heads", "cache_seq", "head_dim")
+        s["k"] = Spec(kv_shape, axes, "zeros")
+        s["v"] = Spec(kv_shape, axes, "zeros")
+    if cfg.attn_free or cfg.hybrid:
+        shapes = SSM.ssm_state_shapes(cfg, batch)
+        s["conv"] = Spec((L,) + shapes["conv"],
+                         ("layers", "cache_batch", "mlp", None), "zeros")
+        s["h"] = Spec((L,) + shapes["h"],
+                      ("layers", "cache_batch", None, None, "state"), "zeros")
+    if cfg.is_encdec:
+        xkv = (L, batch, KV, cfg.encoder_seq, hd)
+        axes = ("layers", "cache_batch", "kv_heads", None, "head_dim")
+        s["xk"] = Spec(xkv, axes, "zeros")
+        s["xv"] = Spec(xkv, axes, "zeros")
+    return s
 
+
+#: cache keys a layer reads and writes, in the reference's order
+LAYER_KEYS = ("k", "v", "conv", "h", "xk", "xv")
 
 # ------------------------------------------------------------------- modules
 
@@ -107,79 +139,205 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class ParamTree(nn.Module):
+    """A nested parameter dict as a module: leaves are parameters named by
+    their keys, sub-dicts are sub-trees (``moe.shared.w_gate``), and
+    ``tree[key]`` reads either."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                self.add_module(key, ParamTree(sub))
+            else:
+                self.register_parameter(key, _frozen(sub))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def _opt_tree(p: Dict[str, Any], key: str) -> Optional[ParamTree]:
+    return ParamTree(p[key]) if key in p else None
+
+
+def _opt_param(p: Dict[str, Any], key: str) -> Optional[nn.Parameter]:
+    return _frozen(p[key]) if key in p else None
+
+
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: ``ln1``, ``attn`` (``wq``, ``wk``,
-    ``wv``, ``wo`` and the optional biases / qk norms), ``ln2``, ``mlp``."""
+    """One pre-norm decoder layer: ``ln1`` and the sequence mixer
+    (``attn``, ``ssm``, or both averaged for the hybrid), then ``lnx`` and
+    ``xattn`` (encoder-decoder), then ``ln2`` and ``moe`` or ``mlp``."""
 
     def __init__(self, cfg: ArchConfig, p: Dict[str, Any]):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _frozen(p["ln1"])
-        self.attn = nn.ParameterDict(
-            {key: _frozen(t) for key, t in p["attn"].items()})
-        if "mlp" in p:
-            self.ln2 = _frozen(p["ln2"])
-            self.mlp = nn.ParameterDict(
-                {key: _frozen(t) for key, t in p["mlp"].items()})
-        else:
-            self.mlp = None
+        self.attn = _opt_tree(p, "attn")
+        self.ssm = _opt_tree(p, "ssm")
+        self.moe = _opt_tree(p, "moe")
+        self.mlp = _opt_tree(p, "mlp")
+        self.ln2 = _opt_param(p, "ln2")
+        self.xattn = _opt_tree(p, "xattn")
+        self.lnx = _opt_param(p, "lnx")
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        if self.mlp is None:
-            return h
-        return h + mlp_apply(self.mlp, rms_norm(h, self.ln2,
-                                                self.cfg.norm_eps),
-                             self.cfg.act)
+        cfg = self.cfg
+        if self.moe is not None:
+            return h + MOE.moe_apply(self.moe, rms_norm(h, self.ln2,
+                                                        cfg.norm_eps), cfg)
+        if self.mlp is not None:
+            return h + mlp_apply(self.mlp, rms_norm(h, self.ln2,
+                                                    cfg.norm_eps), cfg.act)
+        return h
+
+    def _attention(self, q, k, v, window: int, impl: str) -> torch.Tensor:
+        """The layer's causal self-attention: static bands with
+        ``layer_group > 1`` (``repro/models/transformer.py:95-107``), else
+        masks (window for sliding-window configs, chunk for chunked ones;
+        0 = global)."""
+        cfg = self.cfg
+        if cfg.layer_group > 1 and window > 0:
+            if cfg.attn_chunk:
+                return A.chunked_attention(q, k, v, chunk=window, impl=impl)
+            return A.local_attention(q, k, v, window=window, impl=impl)
+        if cfg.layer_group > 1:
+            window = 0
+        return A.attend(impl, q, k, v, causal=True,
+                        window=window if cfg.sliding_window else 0,
+                        chunk=window if cfg.attn_chunk else 0)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int,
-                kv_out=None, train: bool = False) -> torch.Tensor:
-        """Full-sequence layer (x (B, S, D)). ``kv_out`` = (k, v) cache
-        slices (B, KV, >= S, hd) that receive this layer's keys/values.
-        ``train`` selects the differentiable attention of
+                cache=None, enc_out=None, train: bool = False
+                ) -> torch.Tensor:
+        """Full-sequence layer (x (B, S, D)). ``cache`` = this layer's
+        slices of the stacked caches (``k`` / ``v`` (B, KV, >= S, hd),
+        ``conv``, ``h``, ``xk``, ``xv``), which receive its keys, values
+        and states. ``train`` selects the differentiable attention of
         ``cfg.attn_impl`` instead of the prefill attention."""
         cfg = self.cfg
-        q, k, v = A.qkv_project(self.attn, rms_norm(x, self.ln1,
-                                                    cfg.norm_eps),
-                                cfg, positions)
-        local = dict(window=window if cfg.sliding_window else 0,
-                     chunk=window if cfg.attn_chunk else 0)
-        if not train:
-            attend = A.attention
-        elif cfg.attn_impl == "naive":
-            attend = A.naive_attention
-        else:
-            attend = A.flash_attention
-        attn = attend(q, k, v, causal=True, **local)
-        if kv_out is not None:
-            S = x.shape[1]
-            kv_out[0][:, :, :S].copy_(k.transpose(1, 2))
-            kv_out[1][:, :, :S].copy_(v.transpose(1, 2))
-        return self._ffn(x + A.out_project(attn, self.attn["wo"]))
+        impl = cfg.attn_impl if train else "prefill"
+        hn = rms_norm(x, self.ln1, cfg.norm_eps)
+        outs = []
+        if self.attn is not None:
+            q, k, v = A.qkv_project(self.attn, hn, cfg, positions)
+            attn = self._attention(q, k, v, window, impl)
+            outs.append(A.out_project(attn, self.attn["wo"]))
+            if cache is not None:
+                S = x.shape[1]
+                cache["k"][:, :, :S].copy_(k.transpose(1, 2))
+                cache["v"][:, :, :S].copy_(v.transpose(1, 2))
+        if self.ssm is not None:
+            if cache is not None:
+                y, (conv, hs) = SSM.ssm_apply(self.ssm, hn, cfg,
+                                              return_state=True)
+                cache["conv"].copy_(conv)
+                cache["h"].copy_(hs)
+            else:
+                y = SSM.ssm_apply(self.ssm, hn, cfg)
+            outs.append(y)
+        h = x + (outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1]))
+        if self.xattn is not None and enc_out is not None:
+            # no bias, RoPE or qk norm (repro/models/transformer.py:150-153)
+            q = A._project(rms_norm(h, self.lnx, cfg.norm_eps),
+                           self.xattn["wq"])
+            k = A._project(enc_out, self.xattn["wk"])
+            v = A._project(enc_out, self.xattn["wv"])
+            xa = A.attend(impl, q, k, v, causal=False, window=0, chunk=0)
+            h = h + A.out_project(xa, self.xattn["wo"])
+            if cache is not None:
+                cache["xk"].copy_(k.transpose(1, 2))
+                cache["xv"].copy_(v.transpose(1, 2))
+        return self._ffn(h)
 
-    def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, new_len: torch.Tensor,
-               window: int) -> torch.Tensor:
-        """One-token layer: x (B, 1, D); k/v_cache (B, KV, S, hd) are
-        written IN PLACE at ``new_len - 1`` (the reference returns updated
-        copies); new_len (B,) counts the new token."""
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               new_len: torch.Tensor, window: int) -> torch.Tensor:
+        """One-token layer: x (B, 1, D); ``cache`` holds this layer's
+        slices, updated IN PLACE (the reference returns updated copies):
+        the new token's K/V rows at ``new_len - 1``, the SSM ``conv`` and
+        ``h`` states; ``xk`` / ``xv`` are read only. new_len (B,) counts
+        the new token. Every attention (self and cross) is kernel 10."""
         cfg = self.cfg
         B = x.shape[0]
-        pos = (new_len - 1)[:, None]                          # (B, 1)
-        q, k, v = A.qkv_project(self.attn, rms_norm(x, self.ln1,
-                                                    cfg.norm_eps), cfg, pos)
-        rows = torch.arange(B, device=x.device)
-        at = (new_len - 1).long()
-        k_cache[rows, :, at] = k[:, 0]
-        v_cache[rows, :, at] = v[:, 0]
-        attn = A.decode_attention(q[:, 0], k_cache, v_cache, new_len,
-                                  window=window, chunk=cfg.attn_chunk)
-        h = x + A.out_project(attn, self.attn["wo"])[:, None]
+        hn = rms_norm(x, self.ln1, cfg.norm_eps)
+        outs = []
+        if self.attn is not None:
+            pos = (new_len - 1)[:, None]                      # (B, 1)
+            q, k, v = A.qkv_project(self.attn, hn, cfg, pos)
+            rows = torch.arange(B, device=x.device)
+            at = (new_len - 1).long()
+            cache["k"][rows, :, at] = k[:, 0]
+            cache["v"][rows, :, at] = v[:, 0]
+            # the reference passes the config's chunk to every layer,
+            # global ones included (repro/models/transformer.py:182-184)
+            attn = A.decode_attention(q[:, 0], cache["k"], cache["v"],
+                                      new_len, window=window,
+                                      chunk=cfg.attn_chunk)
+            outs.append(A.out_project(attn, self.attn["wo"])[:, None])
+        if self.ssm is not None:
+            y, conv, hs = SSM.ssm_decode_step(self.ssm, hn, cfg,
+                                              cache["conv"], cache["h"])
+            cache["conv"].copy_(conv)
+            cache["h"].copy_(hs)
+            outs.append(y)
+        h = x + (outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1]))
+        if self.xattn is not None:
+            q = A._project(rms_norm(h, self.lnx, cfg.norm_eps),
+                           self.xattn["wq"])
+            enc_len = torch.full((B,), cache["xk"].shape[2],
+                                 dtype=new_len.dtype, device=x.device)
+            xa = A.decode_attention(q[:, 0], cache["xk"], cache["xv"],
+                                    enc_len)
+            h = h + A.out_project(xa, self.xattn["wo"])[:, None]
         return self._ffn(h)
 
 
+class EncoderLayer(nn.Module):
+    """One pre-norm encoder layer (whisper): bidirectional ``attn`` and an
+    ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, p: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _frozen(p["ln1"])
+        self.attn = ParamTree(p["attn"])
+        self.ln2 = _frozen(p["ln2"])
+        self.mlp = ParamTree(p["mlp"])
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        impl = cfg.attn_impl if train else "prefill"
+        q, k, v = A.qkv_project(self.attn, rms_norm(x, self.ln1,
+                                                    cfg.norm_eps),
+                                cfg, positions)
+        attn = A.attend(impl, q, k, v, causal=False, window=0, chunk=0)
+        h = x + A.out_project(attn, self.attn["wo"])
+        return h + mlp_apply(self.mlp, rms_norm(h, self.ln2, cfg.norm_eps),
+                             cfg.act)
+
+
+def _unstack(i: int, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Layer i's views of a stacked ``(L, ...)`` tree."""
+    return {key: _unstack(i, sub) if isinstance(sub, dict) else sub[i]
+            for key, sub in tree.items()}
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: ``layers`` and ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, p: Dict[str, Any]):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, _unstack(i, p["layers"]))
+            for i in range(cfg.encoder_layers))
+        self.final_norm = _frozen(p["final_norm"])
+
+
 class Transformer(nn.Module):
-    """The LM: ``embed`` (V, D), ``layers``, ``final_norm`` and, unless
-    embeddings are tied, ``lm_head`` (D, V).
+    """The LM: ``embed`` (V, D), ``layers``, ``final_norm`` and, as the
+    config has them, ``lm_head`` (D, V), ``meta`` (meta tokens, D) and
+    ``encoder``.
 
     ``params`` is the reference's nested parameter dict (layer leaves
     stacked ``(L, ...)``, tensors), as :func:`~.layers.init_params` or
@@ -194,7 +352,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any],
                  device=None, trainable: bool = False):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = cfg.param_dtype()
@@ -207,17 +364,13 @@ class Transformer(nn.Module):
         params = put(params)
         self.embed = _frozen(params["embed"])
         self.final_norm = _frozen(params["final_norm"])
-        self.lm_head = (None if cfg.tie_embeddings
-                        else _frozen(params["lm_head"]))
-        stacked = params["layers"]
-
-        def layer(i: int, tree):
-            return {key: layer(i, sub) if isinstance(sub, dict) else sub[i]
-                    for key, sub in tree.items()}
-
+        self.lm_head = _opt_param(params, "lm_head")
+        self.meta = _opt_param(params, "meta")
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, layer(i, stacked))
+            DecoderLayer(cfg, _unstack(i, params["layers"]))
             for i in range(cfg.n_layers))
+        self.encoder = (Encoder(cfg, params["encoder"]) if cfg.is_encdec
+                        else None)
         self.requires_grad_(trainable)
 
     @property
@@ -234,6 +387,17 @@ def _tokens(params: Transformer, tokens) -> torch.Tensor:
     return tokens.to(device=params.device, dtype=torch.long)
 
 
+def _extra(params: Transformer, extra: Optional[Dict[str, Any]], key: str
+           ) -> Optional[torch.Tensor]:
+    """``extra[key]`` on the model's device in its type, or None."""
+    x = (extra or {}).get(key)
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+    return x.to(device=params.device, dtype=params.embed.dtype)
+
+
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
          torch.ops.aten.addmm.default)
 
@@ -243,7 +407,7 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(cfg: ArchConfig, layer: DecoderLayer):
+def _remat(cfg: ArchConfig, layer: nn.Module):
     """The reference's ``_remat`` (``repro/models/transformer.py:209``) for
     one layer: ``"none"`` keeps every activation; ``"full"`` (its
     ``nothing_saveable``) keeps only the layer's input and recomputes the
@@ -265,44 +429,104 @@ def _remat(cfg: ArchConfig, layer: DecoderLayer):
     return run
 
 
-def _run(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
-         kv_out=None, train: bool = False) -> torch.Tensor:
+def _embed(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
+           extra) -> torch.Tensor:
+    """Token embeddings; the first ``num_patches`` replaced by
+    ``extra["patch_embeds"]`` when given; the meta tokens in front
+    (``repro/models/transformer.py:217-228``)."""
     x = F.embedding(tokens, params.embed)
-    B, S = tokens.shape
+    pe = _extra(params, extra, "patch_embeds")
+    if cfg.num_patches > 0 and pe is not None:
+        x = torch.cat([pe, x[:, cfg.num_patches:]], dim=1)
+    if cfg.meta_tokens > 0:
+        meta = params.meta[None].expand(x.shape[0], -1, -1)
+        x = torch.cat([meta.to(x.dtype), x], dim=1)
+    return x
+
+
+def _encode(params: Transformer, cfg: ArchConfig, extra,
+            train: bool = False) -> torch.Tensor:
+    """Whisper's encoder over the stub frame embeddings ``extra["frames"]``
+    (B, S_enc, D) (``repro/models/transformer.py:231``)."""
+    x = _extra(params, extra, "frames")
+    if x is None:
+        raise ValueError(f"{cfg.name}: the encoder-decoder needs "
+                         "extra['frames'] (B, S_enc, d_model)")
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for lay in params.encoder.layers:
+        if train:
+            x = _remat(cfg, lay)(x, positions, True)
+        else:
+            x = lay(x, positions)
+    return rms_norm(x, params.encoder.final_norm, cfg.norm_eps)
+
+
+def _run(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
+         extra=None, cache=None, train: bool = False) -> torch.Tensor:
+    x = _embed(params, tokens, cfg, extra)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    enc_out = _encode(params, cfg, extra, train) if cfg.is_encdec else None
     windows = cfg.layer_windows()
     for i, lay in enumerate(params.layers):
         if train:
-            x = _remat(cfg, lay)(x, positions, int(windows[i]), None, True)
+            x = _remat(cfg, lay)(x, positions, int(windows[i]), None,
+                                 enc_out, True)
         else:
             x = lay(x, positions, int(windows[i]),
-                    None if kv_out is None else (kv_out[0][i], kv_out[1][i]))
+                    None if cache is None else
+                    {key: t[i] for key, t in cache.items()}, enc_out)
+    if cfg.meta_tokens > 0:
+        x = x[:, cfg.meta_tokens:]
     return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def _alloc_cache(params: Transformer, cfg: ArchConfig, batch: int,
+                 seq: int, enc_seq: int) -> Dict[str, torch.Tensor]:
+    """Zeroed stacked caches: k / v with ``seq`` positions and xk / xv with
+    ``enc_seq`` in the params' type, conv in the params' type, h in fp32
+    (the types prefill's states have)."""
+    sch = cache_schema(cfg.replace(encoder_seq=enc_seq), batch, seq)
+    dt = params.embed.dtype
+    return {key: torch.zeros(sch[key].shape,
+                             dtype=torch.float32 if key == "h" else dt,
+                             device=params.device)
+            for key in LAYER_KEYS if key in sch}
+
+
+def _enc_seq(cfg: ArchConfig, extra) -> int:
+    frames = (extra or {}).get("frames")
+    return 0 if frames is None or not cfg.is_encdec else frames.shape[1]
 
 
 @torch.no_grad()
 def forward(params: Transformer, tokens, cfg: ArchConfig,
             extra: Optional[Dict[str, Any]] = None,
             collect_cache: bool = False):
-    """Full-sequence forward. Returns hidden states (B, S, D) and, with
-    ``collect_cache``, ``((k, v), None, None)`` with k, v
-    (L, B, KV, S, hd) — the reference's ``(kv, ssm_state, xkv)``."""
+    """Full-sequence forward. Returns hidden states (B, S, D) (meta
+    positions dropped) and, with ``collect_cache``, the reference's
+    ``(kv, ssm_state, xkv)``: ``(k, v)`` (L, B, KV, S + meta, hd),
+    ``(conv, h)`` and ``(xk, xv)``, each None where the config has none."""
     tokens = _tokens(params, tokens)
     if not collect_cache:
-        return _run(params, tokens, cfg), None
+        return _run(params, tokens, cfg, extra), None
     B, S = tokens.shape
-    shape = (cfg.n_layers, B, cfg.kv_heads, S, cfg.hd)
-    k = torch.empty(shape, dtype=params.embed.dtype, device=params.device)
-    v = torch.empty_like(k)
-    h = _run(params, tokens, cfg, (k, v))
-    return h, ((k, v), None, None)
+    cache = _alloc_cache(params, cfg, B, S + cfg.meta_tokens,
+                         _enc_seq(cfg, extra))
+    h = _run(params, tokens, cfg, extra, cache)
+
+    def pair(a, b):
+        return (cache[a], cache[b]) if a in cache else None
+    return h, (pair("k", "v"), pair("conv", "h"), pair("xk", "xv"))
 
 
-def forward_train(params: Transformer, tokens, cfg: ArchConfig
-                  ) -> torch.Tensor:
+def forward_train(params: Transformer, tokens, cfg: ArchConfig,
+                  extra: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """The training forward: hidden states (B, S, D) with autograd, the
-    attention of ``cfg.attn_impl`` and ``cfg.remat`` per layer."""
-    return _run(params, _tokens(params, tokens), cfg, train=True)
+    attention of ``cfg.attn_impl`` and ``cfg.remat`` per layer; ``extra``
+    carries ``frames`` / ``patch_embeds``."""
+    return _run(params, _tokens(params, tokens), cfg, extra, train=True)
 
 
 def logits_from_hidden(params: Transformer, h: torch.Tensor,
@@ -316,11 +540,14 @@ def loss_fn(params: Transformer, batch: Dict[str, Any],
             cfg: ArchConfig) -> torch.Tensor:
     """Mean next-token CE of ``batch["tokens"]`` against
     ``batch["labels"]`` (-1 ignored), a 0-dim fp32 tensor with autograd
-    (``repro/models/transformer.py:351-376``). With ``cfg.loss_chunk`` below
-    the sequence length the logits are formed ``loss_chunk`` positions at a
-    time and the chunks' losses weighted by their valid counts; positions
-    past the last whole chunk are left out, as in the reference."""
-    h = forward_train(params, batch["tokens"], cfg)
+    (``repro/models/transformer.py:351-376``); the batch's other keys
+    (``frames``, ``patch_embeds``) go to the forward. With
+    ``cfg.loss_chunk`` below the sequence length the logits are formed
+    ``loss_chunk`` positions at a time and the chunks' losses weighted by
+    their valid counts; positions past the last whole chunk are left out,
+    as in the reference."""
+    extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    h = forward_train(params, batch["tokens"], cfg, extra)
     labels = _tokens(params, batch["labels"])
     S = h.shape[1]
     if cfg.loss_chunk and cfg.loss_chunk < S:
@@ -339,37 +566,41 @@ def loss_fn(params: Transformer, batch: Dict[str, Any],
 @torch.no_grad()
 def prefill(params: Transformer, batch: Dict[str, Any], cfg: ArchConfig,
             cache_seq: int):
-    """Run the prompt ``batch["tokens"]`` (B, S), fill caches sized
-    ``cache_seq`` (zeros past S) and return (last logits (B, 1, V),
-    cache ``{"len", "k", "v"}``)."""
+    """Run the prompt ``batch["tokens"]`` (B, S) (with ``frames`` /
+    ``patch_embeds`` as the config needs), fill the caches (K/V sized
+    ``cache_seq``, zeros past S + meta tokens) and return (last logits
+    (B, 1, V), cache ``{"len", "k", "v", "conv", "h", "xk", "xv"}`` as the
+    config has them). ``len`` = S + ``cfg.meta_tokens``."""
     tokens = _tokens(params, batch["tokens"])
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
     B, S = tokens.shape
-    if cache_seq < S:
-        raise ValueError(f"cache_seq {cache_seq} < prompt length {S}")
-    sch = cache_schema(cfg, B, cache_seq)
-    k = torch.zeros(sch["k"].shape, dtype=params.embed.dtype,
-                    device=params.device)
-    v = torch.zeros_like(k)
-    h = _run(params, tokens, cfg, (k, v))
+    S_tot = S + cfg.meta_tokens
+    if cache_seq < S_tot:
+        raise ValueError(f"cache_seq {cache_seq} < prompt length {S_tot}")
+    cache = _alloc_cache(params, cfg, B, cache_seq, _enc_seq(cfg, extra))
+    h = _run(params, tokens, cfg, extra, cache)
     logits = logits_from_hidden(params, h[:, -1:], cfg)
-    length = torch.full((B,), S, dtype=torch.int32, device=params.device)
-    return logits, {"len": length, "k": k, "v": v}
+    cache["len"] = torch.full((B,), S_tot, dtype=torch.int32,
+                              device=params.device)
+    return logits, cache
 
 
 @torch.no_grad()
 def decode_step(params: Transformer, cache: Dict[str, torch.Tensor], tokens,
                 cfg: ArchConfig, extra: Optional[Dict[str, Any]] = None):
     """One greedy decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
-    The new token's K/V rows are written into ``cache["k"]`` /
-    ``cache["v"]`` in place (the reference returns new arrays); the
-    returned cache holds the same tensors and ``len + 1``."""
+    The caches are updated in place (the new token's K/V rows, the SSM
+    states; the reference returns new arrays); the returned cache holds the
+    same tensors and ``len + 1``. ``extra`` is accepted and unused, as in
+    the reference (the cross-attention reads ``xk`` / ``xv``)."""
     tokens = _tokens(params, tokens)
     x = params.embed[tokens]
     new_len = cache["len"] + 1
     windows = cfg.layer_windows()
+    keys = [key for key in LAYER_KEYS if key in cache]
     for i, lay in enumerate(params.layers):
-        x = lay.decode(x, cache["k"][i], cache["v"][i], new_len,
+        x = lay.decode(x, {key: cache[key][i] for key in keys}, new_len,
                        int(windows[i]))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = logits_from_hidden(params, x, cfg)
-    return logits, {"len": new_len, "k": cache["k"], "v": cache["v"]}
+    return logits, {**{key: cache[key] for key in keys}, "len": new_len}

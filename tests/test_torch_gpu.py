@@ -1289,3 +1289,103 @@ def test_train_step_on_card_matches_cpu(accum):
     for name, want in out["cpu"][1].items():
         err = (out["cuda"][1][name] - want).abs().max()
         assert err <= 1e-4 * want.abs().max(), (name, float(err))
+
+
+_FAMILIES = ["deepseek-moe-16b", "llama4-scout-17b-a16e", "mamba2-130m",
+             "hymba-1.5b", "whisper-large-v3", "phi-3-vision-4.2b"]
+
+
+def _family_batch(cfg, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    size=(B, S)).astype(np.int32)}
+    if cfg.num_patches:
+        batch["patch_embeds"] = rng.normal(
+            size=(B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _FAMILIES)
+def test_family_prefill_decode_on_card_matches_cpu(name):
+    """The smoke config of each new family (fp32): prefill, then two
+    decode steps teacher-forced with the CPU's tokens, on the card (kernel
+    10 for every attention, self and cross) against the port on the CPU
+    (plain versions): logits and every cache leaf within 1e-4 of their
+    largest magnitude (plain IEEE fp32 on both, products summed in other
+    orders); whisper within 5e-4 (observed 9e-5 of it: its smoke
+    encoder's std-0.71 leaves amplify the roundings, as in
+    tests/test_torch_models.py's NEW_TOL_BY)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import (Transformer, decode_step, init_params,
+                                    model_schema, prefill)
+    cfg = smoke_config(name)
+    tree = init_params(model_schema(cfg), torch.Generator().manual_seed(0),
+                       cfg.param_dtype(), "cpu")
+    batch = _family_batch(cfg, 3, 12)
+    steps = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                              size=(2, 3, 1))
+    out = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        model = Transformer(cfg, tree, device=dev)
+        logits, cache = prefill(model, batch, cfg, 12 + cfg.meta_tokens + 4)
+        seen = [logits.cpu()]
+        for nxt in steps:
+            logits, cache = decode_step(model, cache, nxt, cfg)
+            seen.append(logits.cpu())
+        out[dev] = seen, {k: t.cpu() for k, t in cache.items()}
+    per_step = 0 if cfg.attn_free else cfg.n_layers * (
+        2 if cfg.is_encdec else 1)
+    assert ops.launch_counts()["flash_decode"] == 2 * per_step
+    tol = 5e-4 if cfg.is_encdec else 1e-4
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    for key, want in out["cpu"][1].items():
+        got = out["cuda"][1][key]
+        if key == "len":
+            assert torch.equal(got, want)
+            continue
+        err = (got.float() - want.float()).abs().max()
+        assert err <= tol * want.float().abs().max(), (key, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-130m",
+                                  "hymba-1.5b"])
+def test_family_train_step_on_card_matches_cpu(name):
+    """One ``make_train_step`` step of the MoE, SSM and hybrid smoke
+    configs (fp32) on the card against the CPU, from the same parameters
+    and batch: losses within rtol 1e-5, every updated parameter within
+    1e-3 of its largest magnitude (AdamW's first update is ~lr * sign(g)
+    for gradients near zero, so a rounding-level gradient difference moves
+    a parameter by up to 2 lr = 2e-3 of a leaf; eps 1e-3 keeps that
+    smooth, as in tests/test_torch_training.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Transformer, init_params, model_schema
+    from repro_torch.training import (DataConfig, OptConfig,
+                                      SyntheticLMData, init_opt_state,
+                                      make_train_step)
+    cfg = smoke_config(name)
+    tree = init_params(model_schema(cfg), torch.Generator().manual_seed(0),
+                       cfg.param_dtype(), "cpu")
+    batch = SyntheticLMData(DataConfig(cfg.vocab_size, 32, 8)).batch(0)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                          eps=1e-3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Transformer(cfg, tree, device=dev, trainable=True)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        _, m = step(model, init_opt_state(params), batch)
+        out[dev] = (float(m["loss"]), {n: p.cpu() for n, p in params.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for pname, want in out["cpu"][1].items():
+        err = (out["cuda"][1][pname] - want).abs().max()
+        assert err <= 1e-3 * want.abs().max(), (pname, float(err))

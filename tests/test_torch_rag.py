@@ -156,6 +156,44 @@ def test_ragged_batch_pads_as_content(wiki):
     np.testing.assert_array_equal(got[1], server._decode_batch([long], 4)[0])
 
 
+@pytest.mark.parametrize("name", ["deepseek-moe-16b",
+                                  "llama4-scout-17b-a16e", "mamba2-130m",
+                                  "hymba-1.5b", "phi-3-vision-4.2b"])
+def test_decode_batch_every_token_only_family_matches_reference(wiki, name):
+    """``RAGServer._decode_batch`` for each family whose prefill needs only
+    tokens (MoE, SSM, hybrid with meta tokens, VLM without patches), at
+    smoke width from the reference's parameters: the same greedy tokens as
+    the reference's server on ragged contexts."""
+    _, ctx = _stores(wiki, 20, tiered=False, seed=6)
+    jcfg = jsmoke(name)
+    jp = jinit(jschema(jcfg), jax.random.PRNGKey(1), jcfg.param_dtype())
+    cfg = smoke_config(name)
+    model = from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    jserver = jrag.RAGServer(jrag.ContextDatabase(dim=32), jp, jcfg,
+                             jrag.RAGConfig())
+    server = rag.RAGServer(ctx, model, cfg, rag.RAGConfig())
+    rng = np.random.default_rng(3)
+    contexts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+                for n in (7, 12, 9)]
+    np.testing.assert_array_equal(server._decode_batch(contexts, 4),
+                                  jserver._decode_batch(contexts, 4))
+
+
+def test_decode_batch_of_the_encoder_decoder_needs_frames(wiki):
+    """Whisper's prefill needs ``frames``, which neither package's RAG
+    server passes (the reference fails on the missing key): the port
+    raises a ValueError that names them."""
+    _, ctx = _stores(wiki, 20, tiered=False, seed=6)
+    cfg = smoke_config("whisper-large-v3")
+    from repro_torch.models import Transformer, init_params, model_schema
+    model = Transformer(cfg, init_params(
+        model_schema(cfg), torch.Generator().manual_seed(0),
+        cfg.param_dtype(), "cpu"), device="cpu")
+    server = rag.RAGServer(ctx, model, cfg, rag.RAGConfig())
+    with pytest.raises(ValueError, match="frames"):
+        server._decode_batch([np.arange(1, 6, dtype=np.int32)], 2)
+
+
 def test_context_database_default_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is valid")
