@@ -247,6 +247,24 @@ def median_ms(torch, fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def host_us(torch, fn, calls: int = 100, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the host microseconds one ``fn`` call
+    takes while the card sleeps through all ``calls`` of them, so the
+    launch queue never fills and no call waits on the device: the caller's
+    own cost (checks, allocation, the launch), apart from device time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        torch.cuda._sleep(200_000_000)     # ~0.1 s of SM clocks
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def device_ms(torch, fn, runs: int, names=None):
     """Mean device time of one ``fn`` call from ``torch.profiler``: the
     kernels whose name contains one of ``names`` (every kernel when None).
@@ -1380,14 +1398,24 @@ FLASH_TOL_F32 = 3e-4
 FLASH_REL_BF16 = 2.0 ** -7
 RAG_SHAPE = (64, 16, 8, 532, 128)   # b, h, kv, cache positions, d
 LONG_S = 32_768                     # configs/__init__.py's decode_32k
+# phase 11's kernel-10 calls, timed in phase 1 on synthetic inputs: label ->
+# (b, h, kv, cache positions, d, sliding window or 0, shortest length)
+FAMILY_FLASH = {
+    "hymba_b64": (64, 25, 5, 661, 64, 0, 646),
+    "hymba_b4": (4, 25, 5, 2_193, 64, 1_024, 2_178),
+    "phi3_b4": (4, 32, 32, 224, 96, 0, 209),
+    "whisper_xattn": (16, 20, 20, 1_500, 64, 0, 1_500),
+}
+# kernel 10's split kernel and its combine: both are one call's device time
+FLASH_KERNELS = ("flash_decode_kernel", "flash_decode_combine")
 
 
-def flash_case(torch, ops, ref, label, q, k, v, mask):
-    """Kernel 10 vs its plain version on the same inputs, within
-    FLASH_TOL_F32 / FLASH_REL_BF16; a row that admits nothing must give
-    zeros. Returns the largest absolute difference and the plain value
-    where it occurs."""
-    got = ops.flash_decode(q, k, v, mask)
+def flash_case(torch, ops, ref, label, q, k, v, mask, fn=None):
+    """Kernel 10 (``fn``, else ``ops.flash_decode``) vs its plain version
+    on the same inputs, within FLASH_TOL_F32 / FLASH_REL_BF16; a row that
+    admits nothing must give zeros. Returns the largest absolute difference
+    and the plain value where it occurs."""
+    got = (fn or ops.flash_decode)(q, k, v, mask)
     want = ref.flash_decode_ref(q, k, v, mask)
     check(got.dtype == q.dtype and bool(torch.isfinite(got.float()).all()),
           f"{label}: dtype or non-finite output")
@@ -1409,21 +1437,26 @@ def flash_case(torch, ops, ref, label, q, k, v, mask):
     return err, at
 
 
-def flash_inputs(torch, g, b, h, kv, s, d, dtype, lo=1):
-    """Random q, k, v and a ragged (b, s) int8 mask (lengths in [lo, s])."""
+def flash_inputs(torch, g, b, h, kv, s, d, dtype, lo=1, window=0):
+    """Random q, k, v and a ragged (b, s) int8 mask (lengths in [lo, s]),
+    admitting only the last ``window`` positions of each row if > 0."""
     dev = g.device
     q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
     k = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
     v = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
     lens = torch.randint(lo, s + 1, (b,), generator=g, device=dev)
-    mask = (torch.arange(s, device=dev)[None] < lens[:, None]).to(torch.int8)
-    return q, k, v, mask
+    pos = torch.arange(s, device=dev)[None]
+    mask = pos < lens[:, None]
+    if window:
+        mask &= pos >= lens[:, None] - window
+    return q, k, v, mask.to(torch.int8)
 
 
 def flash_record(torch, ops, ref, peaks, q, k, v, mask, runs=30) -> dict:
     """Kernel 10 on (q, k, v, mask): held against its plain version, timed
-    beside it and beside one ``scaled_dot_product_attention`` call on the
-    same inputs (a yardstick the port never calls), and bounded by the
+    (with ``host_us``, the wrapper's host cost alone) beside it and beside
+    one ``scaled_dot_product_attention`` call on the same inputs (a
+    yardstick the port never calls), and bounded by the
     bytes it must move (q, the mask, K and V rows at admitted positions,
     the output) and its 4 h d operations per admitted position."""
     import torch.nn.functional as F
@@ -1436,9 +1469,15 @@ def flash_record(torch, ops, ref, peaks, q, k, v, mask, runs=30) -> dict:
     nbytes = 2 * q.numel() * elem + mask.numel() + 2 * admitted * kv * d * elem
     attn_mask = mask.bool()[:, None, None, :]
     kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
-    return {"max_abs_err": err, "err_at_value": at,
+    plan = getattr(ops._fd, "split_plan", None)
+    splits = {} if plan is None else {"n_split": plan(
+        b, kv, s, h // kv, q.dtype,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)}
+    return {"max_abs_err": err, "err_at_value": at, **splits,
             **timed(torch, lambda: ops.flash_decode(q, k, v, mask), runs,
-                    ("flash_decode_kernel",)),
+                    FLASH_KERNELS),
+            "host_us": host_us(torch, lambda: ops.flash_decode(q, k, v,
+                                                               mask)),
             "plain_ms": median_ms(
                 torch, lambda: ref.flash_decode_ref(q, k, v, mask), 10),
             "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1452,9 +1491,11 @@ def flash_record(torch, ops, ref, peaks, q, k, v, mask, runs=30) -> dict:
 def phase1_flash(torch, ops, ref, peaks, g, out) -> int:
     """Kernel 10 against its plain version: the reference sweep
     (tests/test_kernels.py:340-346), the CPU tests' edge cases (s = 1, a
-    ragged tail at s = 532, groups 1 / 3 / 8, d = 256, an odd d, holes,
-    rows that admit nothing), then timed at the RAG decode shape and at a
-    32,768-position cache."""
+    ragged tail at s = 532, groups 1 / 3 / 8 / 40, d = 256, an odd d,
+    holes, rows that admit nothing), each also with the cache forced into
+    one split per 64-position tile (the launch wrapper's ``n_split``), then
+    timed at the RAG decode shape, at a 32,768-position cache and at phase
+    11's four family shapes (``FAMILY_FLASH``)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = 0
     for b, h, kv, s, d, dt in (
@@ -1464,14 +1505,20 @@ def phase1_flash(torch, ops, ref, peaks, g, out) -> int:
             (3, 16, 8, 532, 128, f32), (3, 16, 8, 532, 128, bf16),
             (2, 4, 4, 200, 64, bf16), (2, 6, 2, 257, 48, f32),
             (2, 16, 2, 130, 64, bf16), (2, 8, 1, 300, 256, f32),
-            (3, 4, 2, 99, 13, bf16), (3, 4, 2, 99, 13, f32)):
+            (3, 4, 2, 99, 13, bf16), (3, 4, 2, 99, 13, f32),
+            (3, 80, 2, 300, 64, bf16), (3, 8, 1, 300, 256, bf16)):
         q, k, v, mask = flash_inputs(torch, g, b, h, kv, s, d, dt)
         if b > 2:
             mask[0] &= (torch.arange(s, device=g.device) % 7 < 5).to(
                 torch.int8)                                   # holes
             mask[-1] = 0                                      # admits nothing
-        flash_case(torch, ops, ref, f"flash_decode edge {b, h, kv, s, d} {dt}",
-                   q, k, v, mask)
+        label = f"flash_decode edge {b, h, kv, s, d} {dt}"
+        flash_case(torch, ops, ref, label, q, k, v, mask)
+        tiles = -(-s // ops._fd.SPLIT_TILE)
+        if tiles > 1:
+            flash_case(torch, ops, ref, f"{label} n_split={tiles}", q, k, v,
+                       mask, lambda *a: ops._fd.flash_decode(
+                           *a, n_split=tiles))
         cases += 1
     b, h, kv, s, d = RAG_SHAPE
     q, k, v, mask = flash_inputs(torch, g, b, h, kv, s, d, bf16, lo=s - 15)
@@ -1480,8 +1527,14 @@ def phase1_flash(torch, ops, ref, peaks, g, out) -> int:
     q, k, v, mask = flash_inputs(torch, g, 1, h, kv, LONG_S, d, bf16,
                                  lo=LONG_S)
     rec["long"] = flash_record(torch, ops, ref, peaks, q, k, v, mask, 10)
+    del q, k, v, mask
+    for label, (b, h, kv, s, d, window, lo) in FAMILY_FLASH.items():
+        q, k, v, mask = flash_inputs(torch, g, b, h, kv, s, d, bf16, lo=lo,
+                                     window=window)
+        rec[label] = flash_record(torch, ops, ref, peaks, q, k, v, mask)
+        del q, k, v, mask
     out["flash_decode"] = rec
-    return cases + 2
+    return cases + 2 + len(FAMILY_FLASH)
 
 
 # --------------------------------------------------------------- phase 2

@@ -45,7 +45,8 @@ SIGNATURES = {
                              _I, _P, _P, _P, _P, _P],
     "repro_bitmap_patch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_mask_and_popcount": [_P, _P, _P, _I, _P, _P],
-    "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
 }
 
 _lock = threading.Lock()

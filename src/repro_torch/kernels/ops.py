@@ -454,11 +454,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if length_mask is None:
         length_mask = torch.ones(k.shape[0], k.shape[2], dtype=torch.int8,
                                  device=k.device)
-    dev = _device_of(q, k, v, length_mask)
-    if dev.type == "cpu":
-        return ref.flash_decode_ref(q, k, v, length_mask)
-    return _fd.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
-                            length_mask.to(torch.int8).contiguous())
+    if not q.is_cuda:
+        dev = _device_of(q, k, v, length_mask)
+        if dev.type == "cpu":
+            return ref.flash_decode_ref(q, k, v, length_mask)
+    # every decode layer comes here: the launch wrapper checks the devices
+    # itself, and only what it cannot take is converted
+    if length_mask.dtype is not torch.int8:
+        length_mask = length_mask.to(torch.int8)
+    return _fd.flash_decode(*(t if t.is_contiguous() else t.contiguous()
+                              for t in (q, k, v, length_mask)))
 
 
 __all__ = ["scoped_topk", "multi_scope_topk", "scoped_topk_i8",

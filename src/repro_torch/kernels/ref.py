@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .common import row_sq_norms, unpack_words
+from .flash_decode import SPLIT_TILE, split_ranges
 
 __all__ = ["NEG_INF", "stable_topk", "row_sq_norms", "row_scores",
            "i8_scores", "pq_scores", "unpack_words", "scoped_topk_ref",
@@ -43,7 +44,8 @@ __all__ = ["NEG_INF", "stable_topk", "row_sq_norms", "row_scores",
            "ivf_gather_topk_i8_ref", "ivf_gather_topk_pq_ref",
            "ivf_probe_topk_ref", "ivf_probe_topk_i8_ref",
            "ivf_probe_topk_pq_ref", "bitmap_patch_ref", "popcount32",
-           "mask_and_popcount_ref", "flash_decode_ref", "topk_disagreement"]
+           "mask_and_popcount_ref", "flash_decode_ref",
+           "flash_decode_split_ref", "topk_disagreement"]
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -396,6 +398,56 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     p = torch.where(valid, p, torch.zeros_like(p))
     out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, length_mask: torch.Tensor,
+                           n_split: int) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch, a test oracle (never
+    on the main path): each split of ``flash_decode.split_ranges(s,
+    n_split)`` walks its 64-position tiles with ``_kernel``'s running fp32
+    (m, l, acc), p rounded to the cache's type against the split's running
+    max; then the splits merge in order, M = max m_i, l = sum l_i
+    e^(m_i - M), acc = sum acc_i e^(m_i - M), and the output is
+    acc / max(l, 1e-30) in q's type. A split that admits nothing keeps
+    (finfo.min, 0, 0) and drops out."""
+    b, h, d = q.shape
+    kv_h = k.shape[1]
+    qg = q.reshape(b, kv_h, h // kv_h, d).float()
+    scale = 1.0 / float(np.sqrt(d))
+    valid_all = length_mask.bool()[:, None, None, :]
+    parts = []
+    for start, stop in split_ranges(k.shape[2], n_split):
+        m = torch.full((*qg.shape[:3], 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qg)
+        for p0 in range(start, stop, SPLIT_TILE):
+            p1 = min(p0 + SPLIT_TILE, stop)
+            valid = valid_all[..., p0:p1]
+            sc = torch.einsum("bkgd,bksd->bkgs", qg,
+                              k[:, :, p0:p1].float()) * scale
+            sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(valid, torch.exp(sc - m_new),
+                            torch.zeros_like(sc))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bkgs,bksd->bkgd", p.to(v.dtype).float(),
+                v[:, :, p0:p1].float())
+            m = m_new
+        parts.append((m, l, acc))
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    l_all = torch.zeros_like(top)
+    acc_all = torch.zeros_like(qg)
+    for m, l, acc in parts:
+        f = torch.exp(m - top)
+        l_all = l_all + l * f
+        acc_all = acc_all + acc * f
+    out = acc_all / torch.clamp(l_all, min=1e-30)
     return out.reshape(b, h, d).to(q.dtype)
 
 

@@ -147,3 +147,110 @@ def test_flash_decode_wrapper_refuses_other_types(dtype):
     kv = torch.zeros(2, 2, 64, 32, dtype=dtype)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         fd.flash_decode(q, kv, kv, torch.ones(2, 64, dtype=torch.int8))
+
+
+# ------------------------------------------------- the split kernel's plan
+@pytest.mark.parametrize("s,n_split", [
+    (1, 1), (64, 1), (65, 2), (532, 1), (532, 2), (532, 7), (532, 9),
+    (661, 11), (1500, 24), (2193, 14), (32_768, 33), (130, 5)])
+def test_split_ranges_cover_the_cache_in_whole_tiles(s, n_split):
+    """Each split starts on a 64-position tile; the splits follow one
+    another without gap or overlap from 0 to s; empty splits (more splits
+    than tiles) are empty ranges."""
+    spans = fd.split_ranges(s, n_split)
+    assert len(spans) == n_split
+    assert spans[0][0] == 0 and spans[-1][1] == s
+    for (a0, a1), (b0, _) in zip(spans, spans[1:]):
+        assert a1 == b0
+    for start, stop in spans:
+        assert start % fd.SPLIT_TILE == 0 and start <= stop
+        assert stop == s or stop % fd.SPLIT_TILE == 0
+    tiles = -(-s // fd.SPLIT_TILE)
+    if n_split <= tiles:
+        assert all(stop > start for start, stop in spans)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (b, kv, s, group, dtype) at 132 SMs -> splits
+    ((64, 8, 532, 2, torch.bfloat16), 1),     # the RAG main shape
+    ((1, 8, 32_768, 2, torch.bfloat16), 33),  # the long cache
+    ((64, 5, 661, 5, torch.bfloat16), 1),     # hymba, b = 64
+    ((4, 5, 2_193, 5, torch.bfloat16), 13),   # hymba, b = 4
+    ((4, 32, 224, 1, torch.bfloat16), 2),     # phi-3, b = 4, group 1
+    ((16, 20, 1_500, 1, torch.bfloat16), 1),  # whisper's cross-attention
+    ((1, 1, 100, 40, torch.bfloat16), 2),     # a group of 3 mma slices
+    ((1, 1, 100, 40, torch.float32), 2),      # fp32 keeps the group whole
+    ((1, 1, 64, 1, torch.float32), 1),        # never above the tiles
+])
+def test_split_plan(shape, want):
+    """One split where b * kv blocks already fill more than half a wave of
+    two on every SM, else as many as fit in that wave, at most one per
+    tile; the plan is a pure function."""
+    b, kv, s, group, dtype = shape
+    got = fd.split_plan(b, kv, s, group, dtype, 132)
+    assert got == want
+    assert got == fd.split_plan(b, kv, s, group, dtype, 132)
+    assert 1 <= got <= -(-s // fd.SPLIT_TILE)
+
+
+def _split_inputs(b, h, kv, s, d, dtype, seed, masking):
+    rng = np.random.default_rng(seed)
+    q = jnp.asarray(rng.normal(size=(b, h, d)), dtype=dtype)
+    k = jnp.asarray(rng.normal(size=(b, kv, s, d)), dtype=dtype)
+    v = jnp.asarray(rng.normal(size=(b, kv, s, d)), dtype=dtype)
+    pos = np.arange(s)[None, :]
+    lens = rng.integers(1, s + 1, size=b)[:, None]
+    mask = pos < lens
+    if masking == "band":                      # a sliding window
+        mask &= pos >= lens - 100
+    elif masking == "holes":
+        mask[0] &= pos[0] % 7 < 5
+        mask[-1] = False                       # a row that admits nothing
+    elif masking == "short":                   # later splits admit nothing
+        mask = pos < rng.integers(1, 100, size=b)[:, None]
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype,n_split,masking", [
+    (2, 8, 2, 200, 128, np.float32, 1, "ragged"),
+    (2, 4, 4, 300, 64, np.float32, 2, "ragged"),       # group 1
+    (2, 8, 4, 532, 128, jnp.bfloat16, 7, "ragged"),    # group 2
+    (2, 8, 4, 532, 128, np.float32, 9, "holes"),       # s / 64 splits
+    (2, 10, 2, 700, 64, jnp.bfloat16, 11, "band"),     # group 5
+    (2, 16, 2, 257, 96, np.float32, 5, "holes"),       # group 8, d = 96
+    (3, 16, 2, 257, 96, jnp.bfloat16, 2, "holes"),
+    (3, 4, 2, 99, 13, jnp.bfloat16, 2, "holes"),       # odd d
+    (3, 4, 2, 99, 13, np.float32, 7, "band"),          # splits > tiles
+    (2, 4, 2, 640, 64, jnp.bfloat16, 10, "short"),     # empty splits
+    (2, 8, 8, 640, 128, np.float32, 10, "short"),
+    (2, 10, 2, 130, 64, jnp.bfloat16, 1, "band"),
+])
+def test_split_model_matches_pallas_and_oracle(b, h, kv, s, d, dtype,
+                                               n_split, masking):
+    """``ref.flash_decode_split_ref`` (the split kernel's arithmetic: p
+    rounded against each split's running max, splits merged in order)
+    against the Pallas ``flash_decode`` in interpret mode and the jnp
+    oracle, at ``chip_smoke.py``'s tolerances: 3e-4 (1 + |want|) at fp32,
+    2^-7 (|want| + A) at bf16 with A = sum p |v| / l."""
+    q, k, v, mask = _split_inputs(b, h, kv, s, d, dtype,
+                                  seed=s * 13 + n_split, masking=masking)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    tmask = torch.from_numpy(mask.astype(np.int8))
+    got = ref.flash_decode_split_ref(tq, tk, tv, tmask, n_split)
+    assert got.dtype == tq.dtype
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    pallas = np.asarray(jops.flash_decode(q, k, v, mask), np.float32)
+    oracle = np.asarray(jref.flash_decode_ref(q, k, v, jnp.asarray(mask)),
+                        np.float32)
+    if dtype == np.float32:
+        limit = 3e-4 * (1 + np.abs(oracle))
+    else:
+        spread = ref.flash_decode_ref(tq.float(), tk.float(),
+                                      tv.float().abs(), tmask).numpy()
+        limit = 2.0 ** -7 * (np.abs(oracle) + spread)
+    for label, want in (("Pallas", pallas), ("jnp oracle", oracle)):
+        err = np.abs(got - want)
+        assert (err <= limit).all(), (label, float(err.max()))
+    empty = ~mask.any(axis=1)
+    assert np.all(got[empty] == 0.0)

@@ -318,6 +318,108 @@ def test_flash_decode_refuses_a_group_beyond_shared_memory():
     assert ops.launch_counts()["flash_decode"] == 0
 
 
+def _flash_inputs(b, h, kv, s, d, dtype, seed, window=0, lo=1):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, kv, s, d, generator=g, device=dev).to(dtype)
+    lens = torch.randint(lo, s + 1, (b,), generator=g, device=dev)
+    pos = torch.arange(s, device=dev)[None, :]
+    mask = pos < lens[:, None]
+    if window:
+        mask &= pos > lens[:, None] - 1 - window
+    return q, k, v, mask.to(torch.int8)
+
+
+def _flash_agrees(got, q, k, v, mask, label):
+    """``chip_smoke.py``'s tolerance: 3e-4 (1 + |want|) at fp32; 2^-7
+    (|want| + A) at bf16, A = sum p |v| / l (p rounded to bf16 before the
+    PV product, output rounded to bf16); zeros where nothing is admitted."""
+    want = ref.flash_decode_ref(q, k, v, mask).float()
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all(), label
+    if q.dtype == torch.bfloat16:
+        spread = ref.flash_decode_ref(q.float(), k.float(), v.float().abs(),
+                                      mask)
+        limit = 2.0 ** -7 * (want.abs() + spread)
+    else:
+        limit = 3e-4 * (1 + want.abs())
+    err = (got.float() - want).abs()
+    assert bool((err <= limit).all()), f"{label}: max err {float(err.max())}"
+    assert bool((got[mask.sum(1) == 0] == 0).all()), label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,s,d,window,lo", [
+    (64, 16, 8, 532, 128, 0, 517),     # the RAG main shape: 2-warp blocks
+    (8, 16, 8, 532, 128, 0, 517),      # the same at b = 8: 4-warp blocks
+    (1, 16, 8, 32_768, 128, 0, 32_768),  # the long cache
+    (50, 8, 8, 130, 256, 0, 1),        # d = 256 on 2-warp blocks
+    (8, 25, 5, 661, 64, 0, 600),       # hymba, b = 64 -> 8
+    (4, 25, 5, 2_193, 64, 1_024, 2_100),  # hymba past its window
+    (4, 32, 32, 224, 96, 0, 200),      # phi-3, group 1
+    (4, 20, 20, 1_500, 64, 0, 1_500),  # whisper's cross-attention, b 16 -> 4
+])
+def test_flash_decode_family_shapes_split_and_repeat(b, h, kv, s, d, window,
+                                                     lo):
+    """Kernel 10 at the six timed shapes (bf16) and two more of its block
+    geometries: within the plain version's tolerance, one launch a call
+    however the cache is split, and two calls bitwise equal (the splits
+    merge in a fixed order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q, k, v, mask = _flash_inputs(b, h, kv, s, d, torch.bfloat16,
+                                  seed=s + d, window=window, lo=lo)
+    ops.reset_launch_counts()
+    one = ops.flash_decode(q, k, v, mask)
+    two = ops.flash_decode(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_decode"] == 2
+    assert torch.equal(one, two)
+    _flash_agrees(one, q, k, v, mask, f"{b, h, kv, s, d}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [13, 64, 128])
+def test_flash_decode_forced_splits(dtype, d):
+    """Forced splits through the launch wrapper's keyword: 1, 2, 7 and one
+    per tile, on ragged rows whose later splits admit nothing, holes and a
+    row that admits nothing; each within tolerance and repeatable bit for
+    bit. A split count past the tiles is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    fd = ops._fd                           # the launch-wrapper module
+    b, h, kv, s = 4, 10, 2, 640
+    q, k, v, mask = _flash_inputs(b, h, kv, s, d, dtype, seed=d)
+    mask[0, 100:] = 0                                  # empty later splits
+    mask[1] &= (torch.arange(s, device=mask.device) % 7 < 5).to(torch.int8)
+    mask[-1] = 0
+    for n_split in (1, 2, 7, s // fd.SPLIT_TILE):
+        got = fd.flash_decode(q, k, v, mask, n_split=n_split)
+        again = fd.flash_decode(q, k, v, mask, n_split=n_split)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), n_split
+        _flash_agrees(got, q, k, v, mask, f"n_split {n_split}")
+    before = ops.launch_counts()["flash_decode"]
+    for bad in (0, s // fd.SPLIT_TILE + 1):
+        with pytest.raises(ValueError, match="n_split"):
+            fd.flash_decode(q, k, v, mask, n_split=bad)
+    assert ops.launch_counts()["flash_decode"] == before
+
+
+@pytest.mark.gpu
+def test_flash_decode_group_above_one_mma_slice():
+    """A bf16 group of 40 takes three 16-row slices of the mma kernel; fp32
+    keeps it whole in one block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, mask = _flash_inputs(2, 80, 2, 300, 64, dtype, seed=40)
+        _flash_agrees(ops.flash_decode(q, k, v, mask), q, k, v, mask,
+                      f"group 40 {dtype}")
+
+
 # (kind, q, n, depth, k, block_q) of every tiled-pass-1 launch that
 # chip_smoke.py and these tests make: phase 1's edge sweep, main shapes,
 # lifted limits and int8 tier shapes, the tiled cases below and the

@@ -17,10 +17,14 @@ on a layout skewed like phase 5's k-means lists (64 lists, 8 probed per
 query, B = 64 over 1.94M rows): its candidate form, which every tree has,
 and its list form where the tree has one; and kernel 7 at the shape of
 its widest real launch, a PQ batch's gather plan (q = 5 over 41,829
-gathered rows, M = 32, k = 80, an all-ones mask). Each tree builds its own
-kernels under its own ``build/``. Prints one JSON line: the label, the package's
+gathered rows, M = 32, k = 80, an all-ones mask); and kernel 10 at the
+RAG decode shape, the 32,768-position cache and phase 11's four family
+shapes (``flash/*``). ``--kernels 10`` runs only those kernel-10 shapes
+(a few seconds after the build). Each tree builds its own kernels under
+its own ``build/``. Prints one JSON line: the label, the package's
 path, the card's name and power limit, and per kernel and shape the
-CUDA-event time (``ms``), the profiler's device time (``device_ms``, and
+CUDA-event time (``ms``; kernel 10 also its wrapper's host time alone,
+``host_us``), the profiler's device time (``device_ms``, and
 pass 1's alone where recorded), the bound (and the PQ scans' shared-memory
 lookup bound) and the library call's time. Compare two trees only within
 one run on one card, in turns (A, B, B, A), each in its own process.
@@ -112,9 +116,31 @@ def pq_gather(torch, ops, ref, here, peaks) -> dict:
         "scoped_topk_pq gather (synthetic)")}
 
 
+def flash_shapes(torch, ops, ref, here, peaks) -> dict:
+    """Kernel 10 at this checkout's ``chip_smoke.RAG_SHAPE``, ``LONG_S`` and
+    ``FAMILY_FLASH`` shapes (bf16), on inputs drawn from seed 3 in that
+    order, so both trees see the same bits; each held against its plain
+    version and timed by this checkout's ``chip_smoke.flash_record``."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, h, kv, s, d = here.RAG_SHAPE
+    shapes = {"main": (b, h, kv, s, d, 0, s - 15),
+              "long": (1, h, kv, here.LONG_S, d, 0, here.LONG_S),
+              **here.FAMILY_FLASH}
+    out = {}
+    for label, (b, h, kv, s, d, window, lo) in shapes.items():
+        args = here.flash_inputs(torch, g, b, h, kv, s, d, torch.bfloat16,
+                                 lo=lo, window=window)
+        out[f"flash/{label}"] = here.flash_record(torch, ops, ref, peaks,
+                                                  *args)
+        del args
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--label", required=True)
+    ap.add_argument("--kernels", choices=("all", "10"), default="all",
+                    help="10: kernel 10's shapes only")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -135,16 +161,20 @@ def main() -> int:
     peaks = next((v for key, v in here.CARD_PEAKS.items()
                   if key in torch.cuda.get_device_name(0)),
                  here.CARD_PEAKS["H100"])
-    measured = theirs.phase1(torch, ops, ref, peaks)
     table = {}
-    for name, rec in measured.items():
-        table[name] = {key: rec.get(key) for key in KEYS}
-        for sub, nested in rec.items():
-            if isinstance(nested, dict) and "ms" in nested:
-                table[f"{name}/{sub}"] = {key: nested.get(key)
-                                          for key in KEYS}
-    table.update(skewed_ivf(torch, ops, ref, here))
-    table.update(pq_gather(torch, ops, ref, here, peaks))
+    if args.kernels == "all":
+        measured = theirs.phase1(torch, ops, ref, peaks)
+        for name, rec in measured.items():
+            table[name] = {key: rec.get(key) for key in KEYS}
+            for sub, nested in rec.items():
+                if isinstance(nested, dict) and "ms" in nested:
+                    table[f"{name}/{sub}"] = {key: nested.get(key)
+                                              for key in KEYS}
+        table.update(skewed_ivf(torch, ops, ref, here))
+        table.update(pq_gather(torch, ops, ref, here, peaks))
+    for name, rec in flash_shapes(torch, ops, ref, here, peaks).items():
+        table[name] = {key: rec.get(key) for key in (*KEYS, "n_split",
+                                                     "plain_ms", "host_us")}
     print(json.dumps({"label": args.label, "package": repro_torch.__file__,
                       "card": card, "kernels": table}), flush=True)
     return 0
