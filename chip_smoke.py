@@ -155,14 +155,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
    gated against the forward: their capacity drops depend on the tokens
    in the call. Phase 11's kernel-10 launches count on the kernels line.
 
+12. the serving launcher and the dry-run tools (after phase 11, on phase
+   6's context database): ``launch/serve.py``'s ``build`` and ``serve``
+   with the full-width ``qwen3-0.6b`` (bf16, ``torch.Generator`` seed 0),
+   the dataset's 64 queries and anchors, each with its own 2-11-token
+   prompt, offered open-loop at 4 QPS (Poisson) to the continuous-batching
+   server (batch 8, 50 ms SLO, 16 new tokens, a 256-request queue): 64
+   served, none shed or failed, tokens (16,) below the vocabulary, each
+   request's hits and scope size equal to ``retrieve_batch`` of that
+   request alone, and 28 x 16 kernel-10 launches a batch served; it prints
+   the achieved QPS, p50 / p95 / p99 / max latency from each scheduled
+   arrival, the batches and their occupancy. Then ``dryrun.run_cell`` over
+   the 10 configs x 4 shapes (every record's bound and ``fits`` on one
+   line), and ``params_specs`` / ``cache_specs`` of phase 6's model and
+   decode shape against the bytes phase 6 allocated. The whole phase
+   stays within 60 s.
+
 Phase 1 also holds kernel 10 against its plain version at the reference's
 sweep shapes, its edge cases, the RAG decode shape and a 32,768-position
 cache, and kernel 2 at ``gather_rescore``'s shapes.
 
-The kernels line's launch counts are the main path's: in phases 2-9 and
-11, the launches made around the entry points each phase drives (``MainPath``),
-not those of its checks (loops held against a batch, reference batches,
-warm-ups, timings, profiler sessions, the kernel records).
+The kernels line's launch counts are the main path's: in phases 2-9, 11
+and 12, the launches made around the entry points each phase drives
+(``MainPath``), not those of its checks (loops held against a batch,
+reference batches, warm-ups, timings, profiler sessions, the kernel
+records).
 
 The last lines are the kernels' summary, then
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
@@ -190,10 +207,27 @@ MAIN_ROWS = 1_940_000      # WIKI-Dir's rows at scale 1.0: the main shapes'
 WIDE_ROWS = 100_000        # rows at d = 8192
 
 # data-sheet peaks (NVIDIA): HBM bytes/s, non-tensor fp32 FLOP/s, dense
-# int8 tensor-core OP/s and dense bf16 tensor-core FLOP/s
+# int8 tensor-core OP/s and dense bf16 tensor-core FLOP/s of the H100
+# variants other than the SXM card, whose figures the port's roofline holds
+# (``peaks_of``)
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12, 756e12),
-              "H100 NVL": (3.9e12, 60e12, 1671e12, 835e12),
-              "H100": (3.35e12, 67e12, 1979e12, 989e12)}
+              "H100 NVL": (3.9e12, 60e12, 1671e12, 835e12)}
+
+
+def peaks_of(name: str) -> tuple:
+    """The data-sheet peaks of the card called ``name`` (as
+    ``torch.cuda.get_device_name`` gives it): a listed variant's, else the
+    H100 SXM's from ``src/repro_torch/analysis/roofline.py``. That module
+    is loaded from this script's tree by its path, so a tool that runs
+    another tree's package (``tools/scan_ab.py``) reads the same figures."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_roofline",
+        SRC / "repro_torch" / "analysis" / "roofline.py")
+    rl = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rl)
+    sxm = (rl.HBM_BW, rl.PEAK_FLOPS_FP32, rl.PEAK_OPS_INT8, rl.PEAK_FLOPS)
+    return next((v for key, v in CARD_PEAKS.items() if key in name), sxm)
 
 _ST = "src/repro/kernels/scoped_topk.py"
 REPLACES = {
@@ -3412,6 +3446,9 @@ def phase6(torch, ops, args, cfg=None, device="cuda", rag_db=None):
                         device=device)
     info["lm_init_s"] = sync_s(t0)
     info["lm_params_held"] = sum(p.numel() for p in model.parameters())
+    # what the model and its decode cache allocate, for phase 12's specs
+    sizes = {"param_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters())}
     rcfg = RAGConfig(k=10, token_budget=512)
     server = RAGServer(ctx, model, cfg, rcfg)
     queries, paths, rec = requests(ds)
@@ -3499,6 +3536,8 @@ def phase6(torch, ops, args, cfg=None, device="cuda", rag_db=None):
         t0 = time.perf_counter()
         logits, cache = prefill(model, {"tokens": tk}, cfg, cache_seq)
         t_pre = sync_s(t0)
+        sizes.update(cache_batch=B, cache_seq=cache_seq, cache_bytes=sum(
+            t.numel() * t.element_size() for t in cache.values()))
         cur = torch.argmax(logits[:, -1], -1)[:, None]
         t0 = time.perf_counter()
         for _ in range(RAG_STEPS):
@@ -3539,10 +3578,11 @@ def phase6(torch, ops, args, cfg=None, device="cuda", rag_db=None):
     info["decode_vs_forward"] = dv = logit_gap(torch, dec[:, 0], full)
     gate(logits_ok(dv), f"decode vs forward logits: {dv}")
     info["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    info["sizes"] = sizes
     info["failed"] = failed
     emit(info)
     check(not failed, "; ".join(failed))
-    return counts, captured
+    return counts, captured, sizes
 
 
 def phase6_kernels(torch, ops, ref, peaks, captured, measured) -> None:
@@ -4114,6 +4154,125 @@ def phase11(torch, ops, ref, peaks, rag_db, card: str, measured: dict,
     return dict(path.counts)
 
 
+# ---------------------------------------------------------------- phase 12
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_REQUESTS = 64        # the RAG dataset's 64 queries and anchors
+SERVE_QPS = 4.0            # Poisson arrivals (launch/serve.py's default)
+SERVE_BATCH = 8
+SERVE_SLO_MS = 50.0
+SERVE_STEPS = 16           # new tokens a request
+SERVE_QUEUE = 256
+SERVE_LIMIT_S = 60.0       # the whole phase, set-up and dry-run included
+
+
+def phase12(torch, ops, rag_db, card: str, sizes: dict, device="cuda",
+            smoke: bool = False, memory_bytes=None) -> dict:
+    """The serving launcher (``launch/serve.py``) and the dry-run tools on
+    phase 6's context database (module docstring, phase 12). Every failed
+    check is collected and reported at once. Returns the launch counts of
+    the serving window. ``device``, ``smoke`` (the launcher's ``--smoke``
+    config, for a context database whose payloads lie below 256) and
+    ``memory_bytes`` (the dry-run's device memory) exist for the CPU
+    rehearsal."""
+    from repro_torch.configs import ARCHS, SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun, serve, specs
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    t_phase = time.perf_counter()
+    ds, ctx = rag_db["ds"], rag_db["ctx"]
+    args = serve.parse_args(
+        ["--arch", SERVE_ARCH, "--requests", str(SERVE_REQUESTS),
+         "--qps", str(SERVE_QPS), "--batch", str(SERVE_BATCH),
+         "--slo-ms", str(SERVE_SLO_MS), "--new-tokens", str(SERVE_STEPS),
+         "--queue-capacity", str(SERVE_QUEUE), "--device", device]
+        + (["--smoke"] if smoke else []))
+    built = serve.build(args, ctx=ctx, ds=ds)     # model, warm-up answer
+    cfg = built.cfg
+    path = MainPath(ops)
+    with path.counted():
+        out = serve.serve(built.server, built.queries, built.scopes,
+                          built.prompts, qps=args.qps, max_batch=args.batch,
+                          slo_ms=args.slo_ms,
+                          queue_capacity=args.queue_capacity,
+                          new_tokens=args.new_tokens, seed=args.seed)
+    counts = dict(path.counts)
+    results = out.pop("results")
+    gate((out["served"], out["shed"], out["failed"])
+         == (SERVE_REQUESTS, 0, 0),
+         f"12: served {out['served']}, shed {out['shed']}, failed "
+         f"{out['failed']} of {SERVE_REQUESTS}: {out['errors']}")
+    gate(all(r["tokens"].shape == (SERVE_STEPS,)
+             and bool(((r["tokens"] >= 0)
+                       & (r["tokens"] < cfg.vocab_size)).all())
+             for r in results), "12: a result's tokens")
+    # retrieval does not depend on the batch: each request's hits are
+    # those of the request retrieved alone
+    rcfg = built.server.cfg
+    alone = 0
+    for r in results:
+        i = r["index"]
+        (hits, st), = ctx.retrieve_batch(built.queries[i:i + 1],
+                                         [built.scopes[i]], rcfg)
+        alone += ([h.entry_id for h in hits] == r["hits"]
+                  and st["scope_size"] == r["scope_size"])
+    gate(alone == len(results),
+         f"12: {len(results) - alone} requests' hits != retrieve_batch")
+    want = cfg.n_layers * SERVE_STEPS * out["batches"]
+    gate(counts["flash_decode"] == want,
+         f"12: flash_decode launched {counts['flash_decode']}, want "
+         f"{cfg.n_layers} x {SERVE_STEPS} x {out['batches']} = {want}")
+    out["failed_requests"] = out.pop("failed")
+    model_s, warm_s = built.model_s, built.warm_s
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dry-run: every cell's records, and the specs against what phase
+    # 6's model and decode cache really allocated
+    t0 = time.perf_counter()
+    memory = (memory_bytes if memory_bytes is not None else
+              float(torch.cuda.get_device_properties(0).total_memory))
+    recs = [dryrun.run_cell(a, sh, 1, memory) for a in ARCHS for sh in SHAPES]
+    cells = {f"{r['arch']}/{r['shape']}": (
+        "skipped" if r["skipped"] else
+        [r["roofline"]["bound_s"] * 1e3, r["roofline"]["dominant"],
+         r["fits"]]) for r in recs}
+    # the served config is phase 6's (same arch, bf16 or the smoke one)
+    spec_bytes = {
+        "params": specs.tree_bytes(specs.params_specs(cfg)),
+        "cache": specs.tree_bytes(specs.cache_specs(cfg, ShapeSpec(
+            "phase6", sizes["cache_seq"], sizes["cache_batch"], "decode")))}
+    gate(len(recs) == len(ARCHS) * len(SHAPES)
+         and all(r["skipped"] or r["fits"] is not None for r in recs),
+         "12: dry-run records")
+    gate(spec_bytes["params"] == sizes["param_bytes"],
+         f"12: params_specs bytes {spec_bytes['params']} != phase 6's "
+         f"model {sizes['param_bytes']}")
+    gate(spec_bytes["cache"] == sizes["cache_bytes"],
+         f"12: cache_specs bytes {spec_bytes['cache']} != phase 6's cache "
+         f"{sizes['cache_bytes']}")
+    emit({"phase": "12-dryrun", "chips": 1, "memory_bytes": memory,
+          "cells": cells, "spec_bytes": spec_bytes,
+          "allocated_bytes": {"params": sizes["param_bytes"],
+                              "cache": sizes["cache_bytes"]},
+          "s": time.perf_counter() - t0})
+    phase_s = time.perf_counter() - t_phase
+    gate(phase_s <= SERVE_LIMIT_S,
+         f"12: took {phase_s:.1f} s, limit {SERVE_LIMIT_S}")
+    emit({"phase": 12, "card": card, "model": cfg.name, "dtype": cfg.dtype,
+          "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+          "slo_ms": SERVE_SLO_MS, "new_tokens": SERVE_STEPS, **out,
+          "model_s": model_s, "warm_s": warm_s,
+          "launches_main_path": counts, "phase_s": phase_s,
+          "failed": failed})
+    check(not failed, "; ".join(failed))
+    return counts
+
+
 # ---------------------------------------------------------------- phase 10
 TRAIN_BATCH = 8            # sequences a step
 TRAIN_SEQ = 512            # tokens a sequence: 4,096 tokens a step
@@ -4318,8 +4477,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    peaks = next((v for key, v in CARD_PEAKS.items() if key in name),
-                 CARD_PEAKS["H100"])
+    peaks = peaks_of(name)
     t0 = time.perf_counter()
     _build.library()
     regs = [line.strip() for line in _build.build_log.splitlines()
@@ -4354,19 +4512,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rag_db = rag_database(args, FAMILY_VOCAB)
-    c6, captured = phase6(torch, ops, args, rag_db=rag_db)
+    c6, captured, sizes6 = phase6(torch, ops, args, rag_db=rag_db)
     phase6_kernels(torch, ops, ref, peaks, captured, measured)
     del captured
     gc.collect()
     torch.cuda.empty_cache()
     c11 = phase11(torch, ops, ref, peaks, rag_db, smi, measured)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c12 = phase12(torch, ops, rag_db, smi, sizes6)
     del rag_db
     gc.collect()
     torch.cuda.empty_cache()
     phase10(torch, ops, smi)
     launches = {key: c2[key] + c3[key] + c4[key] + c5[key] + c6[key]
                 + c7[key] + c8[key] + c8g[key] + c9[key] + c11[key]
-                for key in c2}
+                + c12[key] for key in c2}
     for key, n in launches.items():
         check(n > 0, f"{key} was not launched on the main path")
     emit({"kernels": [

@@ -18,7 +18,11 @@ host arrays into that layout. The serving tier's entry points are
 :func:`make_sharded_batch_search` and its ``_i8`` / ``_pq`` twins, consumed
 by ``vectordb.sharded.ShardedExecutor``: one call ranks a heterogeneous
 request batch against a resident packed scope table with the store's alive
-words ANDed in.
+words ANDed in. The reference's ``local_search`` closure of each builder
+is the ``scan`` callback each builder hands :func:`_per_shard`.
+:func:`search_input_specs` and :func:`multi_scope_search_input_specs`
+describe the builders' arguments as meta tensors (no storage), for the
+dry-run (``launch/dryrun.py``).
 
 Sentinels: a lane with no candidate comes back as ``finfo(float32).min``
 with id -1, as from the kernels; a local -1 keeps its -1 (adding the shard
@@ -32,9 +36,14 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels import ref as kref
 
 NEG_INF = float(np.finfo(np.float32).min)
 Tensors = Sequence[torch.Tensor]
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _local_rows(mesh, n_total: int) -> int:
@@ -143,23 +152,81 @@ def _per_shard(mesh, n_loc: int, k: int, scan: Callable
     return merge_local_topk(vals, ids, n_loc, k)
 
 
+def _local_scores(db_l: torch.Tensor, queries: torch.Tensor,
+                  metric: str) -> torch.Tensor:
+    """The reference's ``local_search`` scores (``search.py:67-76``) for
+    bf16 or int8 rows: int8 rows upcast to bf16 times bf16(1/127), queries
+    cast to bf16, and the bf16 products summed in fp32 (a bf16 x bf16
+    product is exact in fp32, so the fp32 matmul of the widened operands
+    is that contraction)."""
+    if db_l.dtype == torch.int8:
+        db_l = db_l.to(torch.bfloat16) * torch.tensor(
+            1.0 / 127, dtype=torch.bfloat16, device=db_l.device)
+    x = db_l.float()
+    scores = queries.to(device=db_l.device, dtype=torch.bfloat16).float() @ x.T
+    if metric == "l2":
+        scores = 2 * scores - (x * x).sum(dim=-1)[None, :]
+    return scores
+
+
 def make_scoped_search(mesh, n_total: int, dim: int, k: int,
-                       metric: str = "ip") -> Callable:
+                       metric: str = "ip", dtype=None) -> Callable:
     """``search(db, mask, queries, sq=None)`` with ``db[s]`` (n_loc, dim)
-    fp32 and ``mask[s]`` (n_loc,) int8 per shard and ``queries`` (q, dim):
-    kernel 1 on each shard, then the merge. Returns (scores (q, k), global
-    ids (q, k) int64). ``sq[s]`` are the shard's squared row norms (l2
-    only; computed from its rows when omitted)."""
+    and ``mask[s]`` (n_loc,) int8 per shard and ``queries`` (q, dim).
+    Returns (scores (q, k), global ids (q, k) int64).
+
+    fp32 rows (``dtype`` None or ``torch.float32``): kernel 1 on each
+    shard, then the merge; ``sq[s]`` are the shard's squared row norms (l2
+    only; computed from its rows when omitted). ``torch.bfloat16`` or
+    ``torch.int8`` rows: the reference's ``local_search`` on each shard
+    (:func:`_local_scores`, no kernel: the reference computes it outside
+    Pallas too), the scope mask, a tie-stable top-k, then the merge."""
     n_loc = _local_rows(mesh, n_total)
     _check_depth(k, n_loc)
+    if dtype not in (None, torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"rows of {dtype}: fp32, bf16 or int8 only")
+    low = dtype in (torch.bfloat16, torch.int8)
 
     def search(db: Tensors, mask: Tensors, queries: torch.Tensor,
                sq: Optional[Tensors] = None):
         def scan(s, dev):
+            if low:
+                scores = _local_scores(db[s], queries, metric)
+                return kref.stable_topk(torch.where(
+                    mask[s].to(dev)[None, :] != 0, scores,
+                    torch.full_like(scores, NEG_INF)), k)
             return kops.scoped_topk(queries.to(dev), db[s], mask[s], k,
                                     metric, sq=None if sq is None else sq[s])
         return _per_shard(mesh, n_loc, k, scan)
     return search
+
+
+def search_input_specs(mesh, n_total: int, dim: int, n_queries: int,
+                       dtype=torch.bfloat16):
+    """Meta tensors of :func:`make_scoped_search`'s arguments (no
+    storage): per shard ``db`` (n_loc, dim) ``dtype`` and ``mask``
+    (n_loc,) int8, and the (q, dim) bf16 queries."""
+    n_loc = _local_rows(mesh, n_total)
+    db = [_meta((n_loc, dim), dtype) for _ in mesh]
+    mask = [_meta((n_loc,), torch.int8) for _ in mesh]
+    return db, mask, _meta((n_queries, dim), torch.bfloat16)
+
+
+def multi_scope_search_input_specs(mesh, n_total: int, dim: int,
+                                   n_queries: int, n_scopes: int,
+                                   dtype=torch.float32):
+    """Meta tensors of :func:`make_sharded_batch_search`'s arguments: per
+    shard ``db`` (n_loc, dim) ``dtype``, the scope table's ``words``
+    (n_scopes, n_loc/32) and ``alive`` (n_loc/32,) words (int32 views of
+    the packed uint32 words, as the kernels take them), then ``sids`` (q,)
+    int32 and the (q, dim) fp32 queries. ``n_total`` must split into
+    whole words per shard (a multiple of 32 x shards)."""
+    n_loc = _word_aligned(mesh, n_total)
+    db = [_meta((n_loc, dim), dtype) for _ in mesh]
+    words = [_meta((n_scopes, n_loc // 32), torch.int32) for _ in mesh]
+    alive = [_meta((n_loc // 32,), torch.int32) for _ in mesh]
+    return (db, words, alive, _meta((n_queries,), torch.int32),
+            _meta((n_queries, dim), torch.float32))
 
 
 def make_multi_scope_search(mesh, n_total: int, dim: int, k: int,
@@ -272,4 +339,5 @@ def make_sharded_batch_search_pq(mesh, n_total: int, m: int,
 __all__ = ["merge_local_topk", "shard_rows", "shard_words",
            "make_scoped_search", "make_multi_scope_search",
            "make_sharded_batch_search", "make_sharded_batch_search_i8",
-           "make_sharded_batch_search_pq"]
+           "make_sharded_batch_search_pq", "search_input_specs",
+           "multi_scope_search_input_specs"]

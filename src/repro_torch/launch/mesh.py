@@ -59,6 +59,19 @@ def make_mesh_for_devices(n_devices: Optional[int] = None,
     return ShardMesh(devices[s % len(devices)] for s in range(n_shards))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Optional[DeviceLike] = None) -> ShardMesh:
+    """The serving mesh: one shard per visible card (the reference's
+    16 x 16 pod, or 2 x 16 x 16 across pods, is a TPU layout).
+    ``device="cpu"`` is one CPU shard. ``multi_pod=True`` raises: one host
+    has no pod axis to span (the rule of ``cross_pod_int8=True`` in
+    ``training/train_step.py``)."""
+    if multi_pod:
+        raise ValueError("multi_pod=True: one host has no pod axis; the "
+                         "production mesh is the host's cards")
+    return make_mesh_for_devices(device=device)
+
+
 def mesh_device_count(mesh: ShardMesh) -> int:
     """Shards of the mesh (the reference's device count: one shard each)."""
     return len(mesh)

@@ -45,11 +45,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+# HBM bandwidth of the roofline source: the H100 SXM data sheet's figure
+# (3.35 TB/s), the card this port targets -- not a measurement
+from ..analysis.roofline import HBM_BW
 from .quant import DEFAULT_RESCORE_FACTOR, resolve_rescore_k
 
-# HBM bandwidth of the roofline source: NVIDIA's H100 SXM data sheet figure
-# (3.35 TB/s), the card this port targets -- not a measurement
-HBM_BW = 3.35e12
 
 SCHEMA_VERSION = 1
 ENV_CALIBRATION = "REPRO_CALIBRATION"

@@ -1491,3 +1491,64 @@ def test_family_train_step_on_card_matches_cpu(name):
     for pname, want in out["cpu"][1].items():
         err = (out["cuda"][1][pname] - want).abs().max()
         assert err <= 1e-3 * want.abs().max(), (pname, float(err))
+
+
+def _top2_gaps(model, cfg, context, steps):
+    """The CPU path's greedy decode of one context: the gap between the
+    largest and second-largest logit at each of ``steps`` steps."""
+    from repro_torch.models import decode_step, prefill
+    toks = np.asarray(context, np.int32)[None, :]
+    logits, cache = prefill(model, {"tokens": toks}, cfg,
+                            toks.shape[1] + cfg.meta_tokens + steps)
+    gaps = []
+    for _ in range(steps):
+        top = torch.topk(logits[0, -1].float(), 2).values
+        gaps.append(float(top[0] - top[1]))
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        logits, cache = decode_step(model, cache, cur, cfg)
+    return gaps
+
+
+@pytest.mark.gpu
+def test_serve_smoke_on_card_matches_cpu():
+    """``launch.serve --smoke`` (fp32) on the card against its own CPU run,
+    both at ``--batch 1`` from the same parameters: every request served,
+    hits equal, and tokens equal up to a greedy near-tie. Where the tokens
+    first differ, the CPU logits' top-2 gap at that step must be under 1e-4
+    (the two paths sum products in other orders), and the test says so;
+    later tokens follow different contexts and are not compared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer, init_params, model_schema
+    argv = ["--smoke", "--batch", "1", "--requests", "6", "--qps", "20",
+            "--new-tokens", "6", "--contexts", "300"]
+    cfg = serve.model_config(serve.parse_args(argv))
+    tree = init_params(model_schema(cfg), torch.Generator().manual_seed(0),
+                       cfg.param_dtype(), "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        args = serve.parse_args(argv + ["--device", dev])
+        b = serve.build(args, params=Transformer(cfg, tree, device=dev))
+        out = serve.serve(b.server, b.queries, b.scopes, b.prompts,
+                          qps=args.qps, max_batch=1, slo_ms=args.slo_ms,
+                          queue_capacity=args.queue_capacity,
+                          new_tokens=args.new_tokens, seed=args.seed)
+        assert (out["served"], out["shed"], out["failed"]) == (6, 0, 0), dev
+        runs[dev] = (b, {r["index"]: r for r in out["results"]})
+    (cpu_b, cpu), (_, card) = runs["cpu"], runs["cuda"]
+    for i, want in cpu.items():
+        got = card[i]
+        assert got["hits"] == want["hits"] and \
+            got["scope_size"] == want["scope_size"], i
+        diff = np.nonzero(got["tokens"] != want["tokens"])[0]
+        if len(diff) == 0:
+            continue
+        j = int(diff[0])
+        ctx = cpu_b.server.ctx
+        context = cpu_b.server.assemble_with_prompt(
+            [ctx.payloads[e] for e in want["hits"]], cpu_b.prompts[i])
+        gap = _top2_gaps(cpu_b.server.params, cfg, context, j + 1)[j]
+        print(f"request {i}: tokens differ from step {j}, a near-tie of "
+              f"the CPU logits (top-2 gap {gap:.3g})")
+        assert gap < 1e-4, (i, j, gap)

@@ -93,3 +93,25 @@ def test_training_modules_import_alone():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"imported {proc.stdout.strip()}"
+
+
+_LAUNCH_PROBE = """
+import importlib, sys
+for name in ("repro_torch.analysis.roofline", "repro_torch.launch.specs",
+             "repro_torch.launch.dryrun", "repro_torch.launch.serve"):
+    importlib.import_module(name)
+print(" ".join(sorted(n for n in sys.modules
+                      if n.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
+def test_launch_tools_import_alone():
+    """The roofline, the specs, the dry-run and the serving launcher
+    import neither JAX nor the reference package."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, "-c", _LAUNCH_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"imported {proc.stdout.strip()}"

@@ -41,8 +41,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    peaks = next((v for key, v in chip_smoke.CARD_PEAKS.items()
-                  if key in name), chip_smoke.CARD_PEAKS["H100"])
+    peaks = chip_smoke.peaks_of(name)
     (ROOT / "build").mkdir(exist_ok=True)
     _build.library()
     rag_db = chip_smoke.rag_database(args, chip_smoke.FAMILY_VOCAB)

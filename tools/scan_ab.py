@@ -158,9 +158,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    peaks = next((v for key, v in here.CARD_PEAKS.items()
-                  if key in torch.cuda.get_device_name(0)),
-                 here.CARD_PEAKS["H100"])
+    peaks = here.peaks_of(torch.cuda.get_device_name(0))
     table = {}
     if args.kernels == "all":
         measured = theirs.phase1(torch, ops, ref, peaks)
