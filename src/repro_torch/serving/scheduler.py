@@ -58,7 +58,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, trace
 from ..core.interface import normalize_batch
 from ..vectordb.planner import BatchAccounting, ScopeKey
 
@@ -640,15 +640,16 @@ class ContinuousScheduler:
         if self.stage_fn is None:
             return None, 0.0
         t0 = self.clock()
-        try:
-            faults.fire("sched.stage")
-            staged = self.stage_fn([r.payload for r in batch])
-        except Exception:                # noqa: BLE001 — staging only warms
-            # token-validated caches: a failed stage costs performance, not
-            # correctness. Execute unstaged rather than killing the batch
-            # (or, threaded, the collector thread).
-            self.stage_faults += 1
-            return None, self.clock() - t0
+        with trace.span("sched.stage"):
+            try:
+                faults.fire("sched.stage")
+                staged = self.stage_fn([r.payload for r in batch])
+            except Exception:            # noqa: BLE001 — staging only warms
+                # token-validated caches: a failed stage costs performance,
+                # not correctness. Execute unstaged rather than killing the
+                # batch (or, threaded, the collector thread).
+                self.stage_faults += 1
+                return None, self.clock() - t0
         return staged, self.clock() - t0
 
     def _run_batch(self, batch: List[_Request], staged, stage_s: float,
@@ -660,7 +661,9 @@ class ContinuousScheduler:
             # breaker), "crash" = thread death (InjectedCrash is a
             # BaseException, so it escapes this handler by design).
             faults.fire("sched.execute")
-            results = self.execute_fn([r.payload for r in batch], staged)
+            with trace.span("sched.exec"):
+                results = self.execute_fn([r.payload for r in batch],
+                                          staged)
             if len(results) != len(batch):
                 raise RuntimeError(f"execute returned {len(results)} results "
                                    f"for {len(batch)} requests")
@@ -691,31 +694,34 @@ class ContinuousScheduler:
             self.cfg.max_wait_ms = min(
                 self._slo_wait_ms,
                 max(self.cfg.min_wait_ms, self._service_ewma_s * 1e3))
-        acct = self.acct_of(results) if self.acct_of is not None else None
-        if acct is not None:
-            # serving-pipeline timestamps onto the results' own accounting:
-            # the caller sees where its batch sat (queue vs stage vs service)
-            acct.sched_batches += 1
-            acct.sched_arrival_ns = int(
-                min(r.t_arrival for r in batch) * 1e9)
-            acct.sched_queue_ns += int(
-                sum(t0 - r.t_arrival for r in batch) * 1e9)
-            acct.sched_stage_ns += int(stage_s * 1e9)
-            acct.sched_service_ns += int((t1 - t0) * 1e9)
-            acct.sched_occupancy += len(batch) / self.cfg.max_batch
-        tickets = []
-        for r, res in zip(batch, results):
-            r.ticket.batch_size = len(batch)
-            r.ticket.flush = flush
-            r.ticket.t_done = t1
-            tickets.append(r.ticket)
-        self.metrics.record_batch(tickets, [t0 - r.t_arrival for r in batch],
-                                  acct)
-        for r, res in zip(batch, results):
-            r.ticket._resolve(res)
-        with self._cond:
-            self._inflight -= len(batch)
-            self._cond.notify_all()
+        with trace.span("sched.done"):
+            acct = (self.acct_of(results) if self.acct_of is not None
+                    else None)
+            if acct is not None:
+                # serving-pipeline timestamps onto the results' own
+                # accounting: the caller sees where its batch sat (queue vs
+                # stage vs service)
+                acct.sched_batches += 1
+                acct.sched_arrival_ns = int(
+                    min(r.t_arrival for r in batch) * 1e9)
+                acct.sched_queue_ns += int(
+                    sum(t0 - r.t_arrival for r in batch) * 1e9)
+                acct.sched_stage_ns += int(stage_s * 1e9)
+                acct.sched_service_ns += int((t1 - t0) * 1e9)
+                acct.sched_occupancy += len(batch) / self.cfg.max_batch
+            tickets = []
+            for r, res in zip(batch, results):
+                r.ticket.batch_size = len(batch)
+                r.ticket.flush = flush
+                r.ticket.t_done = t1
+                tickets.append(r.ticket)
+            self.metrics.record_batch(
+                tickets, [t0 - r.t_arrival for r in batch], acct)
+            for r, res in zip(batch, results):
+                r.ticket._resolve(res)
+            with self._cond:
+                self._inflight -= len(batch)
+                self._cond.notify_all()
 
     def pump(self) -> int:
         """Synchronously form + stage + execute ONE batch of whatever is
@@ -723,7 +729,7 @@ class ContinuousScheduler:
         served. The deterministic single-thread mode: tests and the
         bit-identity gates submit a known request set, pump once, and
         compare against the direct ``dsq_batch`` of the same batch."""
-        with self._cond:
+        with self._cond, trace.span("sched.form"):
             batch = self._form_batch()
         if not batch:
             self._maybe_maintain(force=True)
@@ -752,7 +758,9 @@ class ContinuousScheduler:
         self._since_maintenance = 0
         t0 = self.clock()
         try:
-            if self.maintenance_fn() is not None:
+            with trace.span("sched.maint"):
+                ran = self.maintenance_fn()
+            if ran is not None:
                 self.maintenance_steps += 1
                 dt = self.clock() - t0
                 self._maint_cost_ewma_s = (dt if not self._maint_cost_ewma_s
@@ -806,7 +814,8 @@ class ContinuousScheduler:
                     self._cond.wait(timeout=max(budget, 1e-4))
                 if self._pending == 0:
                     continue
-                batch = self._form_batch()   # stop(): drain what remains
+                with trace.span("sched.form"):
+                    batch = self._form_batch()   # stop(): drain what remains
                 flush = flush or "drain"
             if batch:
                 self._collecting = batch  # for fail-fast resolution on death

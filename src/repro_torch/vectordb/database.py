@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import (DSM, DSMBatchResult, DSMExecutor, DSMJournal, DSMStats,
                     ResolveStats, ScopeIndex, make_scope_index)
 from ..core.interface import normalize_batch
@@ -321,25 +322,30 @@ class DirectoryVectorDB:
                                             **executor_params)
 
         def launch_flat(groups, out_scores, out_ids, acct):
-            self._launch_gather(ex, queries, k, groups, out_scores, out_ids,
-                                acct, rescore_k)
-            # ONE launch per precision for every scan-plan request in the
-            # batch (a single-precision batch stays one launch)
-            for prec in PRECISIONS:
-                scan_groups = [g for g in groups
-                               if g.plan == "scan" and g.precision == prec]
-                if not scan_groups:
-                    continue
-                words = torch.stack([g.words for g in scan_groups])
-                rows, sids = self._scan_assembly(scan_groups)
-                s, i = ex.search_multi(queries[rows], words, sids, k,
-                                       precision=prec, rescore_k=rescore_k)
-                out_scores[rows] = s
-                out_ids[rows] = i
-                acct.launches += 1
-                if prec != "fp32":
-                    acct.rescore_candidates += len(rows) * resolve_rescore_k(
-                        k, rescore_k, len(self.store))
+            # the batch's own dispatch between executor calls counts as
+            # rank.run host time (no span: db.rank names it)
+            with trace.Tiles(trace.RUN, spans=False):
+                self._launch_gather(ex, queries, k, groups, out_scores,
+                                    out_ids, acct, rescore_k)
+                # ONE launch per precision for every scan-plan request in
+                # the batch (a single-precision batch stays one launch)
+                for prec in PRECISIONS:
+                    scan_groups = [g for g in groups if g.plan == "scan"
+                                   and g.precision == prec]
+                    if not scan_groups:
+                        continue
+                    words = torch.stack([g.words for g in scan_groups])
+                    rows, sids = self._scan_assembly(scan_groups)
+                    s, i = ex.search_multi(queries[rows], words, sids, k,
+                                           precision=prec,
+                                           rescore_k=rescore_k)
+                    out_scores[rows] = s
+                    out_ids[rows] = i
+                    acct.launches += 1
+                    if prec != "fp32":
+                        acct.rescore_candidates += (
+                            len(rows) * resolve_rescore_k(
+                                k, rescore_k, len(self.store)))
 
         return self._dsq_batch_planned(queries, paths, k, recursive, exclude,
                                        namespace, launch_flat,
@@ -549,57 +555,63 @@ class DirectoryVectorDB:
         B = queries.shape[0]
         idx = self.namespaces[namespace]
         acct = BatchAccounting()
-        t0 = time.perf_counter_ns()
-        specs = normalize_batch(paths, recursive, exclude)
-        groups = self.planner(namespace).plan(
-            idx, len(self.store), specs, k, acct, precision=precision,
-            rescore_k=rescore_k)
-        t1 = time.perf_counter_ns()
-        acct.directory_ns = t1 - t0
-        model = model_of(self.store)
-        acct.plan_source = model.source
-        acct.predicted_ann_ns = model.estimate_batch_ns(
-            [(g.plan, g.precision, g.scope_size, len(g.request_idx))
-             for g in groups],
-            n=len(self.store), k=k, rescore_k=rescore_k, dim=self.store.dim)
-        out_scores = np.full((B, k), -np.inf, np.float32)
-        out_ids = np.full((B, k), -1, np.int64)
-        store = self.store
-        fetch0 = store.rescore_fetch_bytes
-        retries0 = store.host_fetch_retries
-        launch(groups, out_scores, out_ids, acct)
-        acct.ann_ns = time.perf_counter_ns() - t1
-        # resident-store byte terms are *alive-row* bytes: tombstoned rows
-        # still occupy buffer slots but are not part of the serving corpus
-        if any(g.precision == "int8" for g in groups):
-            acct.db_bytes_fp32 = store.alive_nbytes()
-            acct.db_bytes_int8 = store.q_alive_nbytes()
-        if any(g.precision == "pq" for g in groups):
-            acct.db_bytes_fp32 = store.alive_nbytes()
-            acct.db_bytes_pq = store.pq_nbytes()
-        acct.rescore_fetch_bytes = store.rescore_fetch_bytes - fetch0
-        acct.host_fetch_retries = store.host_fetch_retries - retries0
-        acct.tiered = store.tiered_active()
-        if acct.tiered:
-            self._update_hot_pins(namespace, groups)
-        acct.rows_device_pinned, acct.rows_host = store.placement()
+        with trace.span("db.plan"):
+            t0 = time.perf_counter_ns()
+            specs = normalize_batch(paths, recursive, exclude)
+            groups = self.planner(namespace).plan(
+                idx, len(self.store), specs, k, acct, precision=precision,
+                rescore_k=rescore_k)
+            t1 = time.perf_counter_ns()
+            acct.directory_ns = t1 - t0
+            model = model_of(self.store)
+            acct.plan_source = model.source
+            acct.predicted_ann_ns = model.estimate_batch_ns(
+                [(g.plan, g.precision, g.scope_size, len(g.request_idx))
+                 for g in groups],
+                n=len(self.store), k=k, rescore_k=rescore_k,
+                dim=self.store.dim)
+            out_scores = np.full((B, k), -np.inf, np.float32)
+            out_ids = np.full((B, k), -1, np.int64)
+            store = self.store
+            fetch0 = store.rescore_fetch_bytes
+            retries0 = store.host_fetch_retries
+        with trace.span("db.rank"), trace.counting(acct):
+            launch(groups, out_scores, out_ids, acct)
+            acct.ann_ns = time.perf_counter_ns() - t1
+        with trace.span("db.finish"):
+            # resident-store byte terms are *alive-row* bytes: tombstoned
+            # rows still occupy buffer slots but are not part of the serving
+            # corpus
+            if any(g.precision == "int8" for g in groups):
+                acct.db_bytes_fp32 = store.alive_nbytes()
+                acct.db_bytes_int8 = store.q_alive_nbytes()
+            if any(g.precision == "pq" for g in groups):
+                acct.db_bytes_fp32 = store.alive_nbytes()
+                acct.db_bytes_pq = store.pq_nbytes()
+            acct.rescore_fetch_bytes = store.rescore_fetch_bytes - fetch0
+            acct.host_fetch_retries = store.host_fetch_retries - retries0
+            acct.tiered = store.tiered_active()
+            if acct.tiered:
+                self._update_hot_pins(namespace, groups)
+            acct.rows_device_pinned, acct.rows_host = store.placement()
 
-        plan_of = {}
-        for g in groups:
-            for i in g.request_idx:
-                plan_of[i] = g
-        dir_share = acct.directory_ns // max(B, 1)
-        ann_share = acct.ann_ns // max(B, 1)
-        results = []
-        for i in range(B):
-            g = plan_of[i]
-            plan = g.plan if label is None or g.plan == "empty" else label
-            results.append(DSQResult(
-                ids=out_ids[i:i + 1], scores=out_scores[i:i + 1],
-                scope_size=g.scope_size, directory_ns=dir_share,
-                ann_ns=ann_share, resolve_stats=acct.resolve_stats,
-                plan=plan, scope_shared=len(g.request_idx), batch=acct))
-        return results
+            plan_of = {}
+            for g in groups:
+                for i in g.request_idx:
+                    plan_of[i] = g
+            dir_share = acct.directory_ns // max(B, 1)
+            ann_share = acct.ann_ns // max(B, 1)
+            results = []
+            for i in range(B):
+                g = plan_of[i]
+                plan = (g.plan if label is None or g.plan == "empty"
+                        else label)
+                results.append(DSQResult(
+                    ids=out_ids[i:i + 1], scores=out_scores[i:i + 1],
+                    scope_size=g.scope_size, directory_ns=dir_share,
+                    ann_ns=ann_share, resolve_stats=acct.resolve_stats,
+                    plan=plan, scope_shared=len(g.request_idx), batch=acct))
+            return results
 
     def _update_hot_pins(self, namespace: str, groups) -> None:
         """Scope-aware tiered placement: pin the hottest directories' fp32

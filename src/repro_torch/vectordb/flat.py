@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops as kops
 from ..kernels.common import unpack_words
 # the hand-set crossover lives in costmodel (re-exported here because this
@@ -69,13 +70,23 @@ def pad_topk(scores: np.ndarray, ids: np.ndarray,
             np.concatenate([np.asarray(ids, np.int64), pad_i], axis=1))
 
 
-def _to_host(vals: torch.Tensor, ids: torch.Tensor
-             ) -> Tuple[np.ndarray, np.ndarray]:
-    """Kernel sentinels (finfo.min, -1) -> executor sentinels (-inf, -1)."""
-    vals = vals.cpu().numpy()
-    ids = ids.cpu().numpy().astype(np.int64)
-    vals[ids < 0] = -np.inf
-    return vals, ids
+def _to_host(vals: Optional[torch.Tensor], ids: torch.Tensor,
+             tiles: Optional[trace.Tiles] = None):
+    """The ranking layer's copies back to the host: ``ids`` as int64 and,
+    given ``vals``, (scores, ids) with the kernels' sentinels (finfo.min,
+    -1) turned into the executor's (-inf, -1). Inside an executor call
+    (``tiles``) the copies run in its ``rank.get`` phase and are counted:
+    each waits for the device work queued before it."""
+    if tiles is not None:
+        tiles.to(trace.GET)
+    host_vals = None if vals is None else vals.cpu().numpy()
+    host_ids = ids.cpu().numpy().astype(np.int64)
+    if tiles is not None:
+        tiles.synced(1 if vals is None else 2)
+    if host_vals is None:
+        return host_ids
+    host_vals[host_ids < 0] = -np.inf
+    return host_vals, host_ids
 
 
 def _check_precision(precision: str) -> None:
@@ -126,22 +137,26 @@ def gather_rescore(store: VectorStore, queries: np.ndarray,
     if kk == 0:
         return pad_topk(np.zeros((B, 0), np.float32),
                         np.zeros((B, 0), np.int64), k)
-    flat_ids = np.maximum(cand_ids, 0).reshape(-1)
-    dev = store.device
-    rows = store.device_rows(flat_ids, fetch=fetch)         # (B*R, d)
-    sq = None
-    if store.metric == "l2":
-        sq = store.device_sq_norms().index_select(
-            0, torch.from_numpy(flat_ids).to(dev))
-    words = torch.from_numpy(
-        _window_words(cand_ids >= 0).view(np.int32)).to(dev)
-    sids = torch.arange(B, dtype=torch.int32, device=dev)
-    vals, loc = kops.multi_scope_topk(
-        torch.from_numpy(queries).to(dev), rows, words, sids, kk,
-        store.metric, sq=sq)
-    vals, loc = _to_host(vals, loc)
-    ids = np.where(loc >= 0, cand_ids.reshape(-1)[np.maximum(loc, 0)], -1)
-    return pad_topk(vals, ids, k)
+    with trace.Tiles() as tiles:
+        flat_ids = np.maximum(cand_ids, 0).reshape(-1)
+        dev = store.device
+        q = torch.from_numpy(queries).to(dev)
+        words = torch.from_numpy(
+            _window_words(cand_ids >= 0).view(np.int32)).to(dev)
+        sq_idx = (torch.from_numpy(flat_ids).to(dev)
+                  if store.metric == "l2" else None)
+        tiles.to(trace.RUN)
+        rows = store.device_rows(flat_ids, fetch=fetch)     # (B*R, d)
+        sq = (None if sq_idx is None
+              else store.device_sq_norms().index_select(0, sq_idx))
+        sids = torch.arange(B, dtype=torch.int32, device=dev)
+        vals, loc = kops.multi_scope_topk(q, rows, words, sids, kk,
+                                          store.metric, sq=sq)
+        vals, loc = _to_host(vals, loc, tiles)
+        tiles.to(trace.RUN)
+        ids = np.where(loc >= 0, cand_ids.reshape(-1)[np.maximum(loc, 0)],
+                       -1)
+        return pad_topk(vals, ids, k)
 
 
 class FlatExecutor:
@@ -164,12 +179,14 @@ class FlatExecutor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(
             self.store.device)
 
-    def _scope_mask(self, candidate_ids: np.ndarray) -> torch.Tensor:
+    def _scope_words(self, candidate_ids: np.ndarray) -> torch.Tensor:
+        """A scope's packed words, uploaded."""
+        return self._to_dev(pack_ids_to_words(
+            candidate_ids, len(self.store)).view(np.int32))
+
+    def _scope_mask(self, words: torch.Tensor) -> torch.Tensor:
         """(n,) int8 device mask of a scope, from its packed words."""
-        n = len(self.store)
-        words = self._to_dev(pack_ids_to_words(candidate_ids, n).view(
-            np.int32))
-        return unpack_words(words, n).to(torch.int8)
+        return unpack_words(words, len(self.store)).to(torch.int8)
 
     def search(self, queries: np.ndarray, k: int,
                candidate_ids: Optional[np.ndarray] = None,
@@ -201,24 +218,30 @@ class FlatExecutor:
                                     precision)
                 return gather_rescore(self.store, queries, cand, k)
         kk = min(k, m)
-        q = self._to_dev(queries)
-        if plan == "gather":
-            cand_np = np.asarray(candidate_ids, dtype=np.int64)
-            cand = self._to_dev(cand_np)
-            rows = self.store.device_rows(cand_np)
-            sq = self._sq()
-            if sq is not None:
-                sq = sq.index_select(0, cand)
-            ones = torch.ones(m, dtype=torch.int8, device=q.device)
-            vals, local = kops.scoped_topk(q, rows, ones, kk,
-                                           self.store.metric, sq=sq)
-            ids = torch.where(local >= 0, cand[local.long().clamp(min=0)],
-                              torch.full_like(cand[:1], -1))
-        else:
-            vals, ids = kops.scoped_topk(q, self.store.device_vectors(),
-                                         self._scope_mask(candidate_ids), kk,
-                                         self.store.metric, sq=self._sq())
-        return pad_topk(*_to_host(vals, ids), k)
+        with trace.Tiles() as tiles:
+            q = self._to_dev(queries)
+            if plan == "gather":
+                cand_np = np.asarray(candidate_ids, dtype=np.int64)
+                cand = self._to_dev(cand_np)
+                tiles.to(trace.RUN)
+                rows = self.store.device_rows(cand_np)
+                sq = self._sq()
+                if sq is not None:
+                    sq = sq.index_select(0, cand)
+                ones = torch.ones(m, dtype=torch.int8, device=q.device)
+                vals, local = kops.scoped_topk(q, rows, ones, kk,
+                                               self.store.metric, sq=sq)
+                ids = torch.where(local >= 0,
+                                  cand[local.long().clamp(min=0)],
+                                  torch.full_like(cand[:1], -1))
+            else:
+                words = self._scope_words(candidate_ids)
+                tiles.to(trace.RUN)
+                vals, ids = kops.scoped_topk(q, self.store.device_vectors(),
+                                             self._scope_mask(words), kk,
+                                             self.store.metric, sq=self._sq())
+            vals, ids = _to_host(vals, ids, tiles)
+        return pad_topk(vals, ids, k)
 
     def _select(self, queries: np.ndarray, candidate_ids: np.ndarray,
                 plan: str, r: int, precision: str) -> np.ndarray:
@@ -226,34 +249,43 @@ class FlatExecutor:
         padded, that the int8 or PQ scan (or gather) keeps."""
         st = self.store
         n = len(st)
-        if plan == "gather":
-            cand = self._to_dev(np.asarray(candidate_ids, dtype=np.int64))
-            mask = torch.ones(len(candidate_ids), dtype=torch.int8,
-                              device=cand.device)
-            r_eff = r
-        else:
-            cand = None
-            mask = self._scope_mask(candidate_ids)
-            r_eff = min(r, n)
+        with trace.Tiles() as tiles:
+            if plan == "gather":
+                cand = self._to_dev(np.asarray(candidate_ids,
+                                               dtype=np.int64))
+                words = None
+                r_eff = r
+            else:
+                cand = None
+                words = self._scope_words(candidate_ids)
+                r_eff = min(r, n)
+            if precision == "int8":
+                q_i8, q_s = quantize_rows(queries)
+                q_dev = (self._to_dev(q_i8), self._to_dev(q_s))
+            else:
+                q_dev = (self._to_dev(st.pq_lut(queries)),)
+            tiles.to(trace.RUN)
+            mask = (torch.ones(len(candidate_ids), dtype=torch.int8,
+                               device=cand.device)
+                    if words is None else self._scope_mask(words))
 
-        def rows_of(t: torch.Tensor) -> torch.Tensor:
-            return t if cand is None else t.index_select(0, cand)
+            def rows_of(t: torch.Tensor) -> torch.Tensor:
+                return t if cand is None else t.index_select(0, cand)
 
-        if precision == "int8":
-            q_i8, q_s = quantize_rows(queries)
-            sq = self._q_sq()
-            _, ids = kops.scoped_topk_i8(
-                self._to_dev(q_i8), self._to_dev(q_s),
-                rows_of(st.device_q_vectors()), rows_of(st.device_q_scales()),
-                None if sq is None else rows_of(sq), mask, r_eff, st.metric)
-        else:
-            _, ids = kops.scoped_topk_pq(
-                self._to_dev(st.pq_lut(queries)),
-                rows_of(st.device_pq_codes()), mask, r_eff)
-        if cand is not None:
-            ids = torch.where(ids >= 0, cand[ids.long().clamp(min=0)],
-                              torch.full_like(cand[:1], -1))
-        return ids.cpu().numpy().astype(np.int64)
+            if precision == "int8":
+                sq = self._q_sq()
+                _, ids = kops.scoped_topk_i8(
+                    *q_dev, rows_of(st.device_q_vectors()),
+                    rows_of(st.device_q_scales()),
+                    None if sq is None else rows_of(sq), mask, r_eff,
+                    st.metric)
+            else:
+                _, ids = kops.scoped_topk_pq(
+                    *q_dev, rows_of(st.device_pq_codes()), mask, r_eff)
+            if cand is not None:
+                ids = torch.where(ids >= 0, cand[ids.long().clamp(min=0)],
+                                  torch.full_like(cand[:1], -1))
+            return _to_host(None, ids, tiles)
 
     def search_multi(self, queries: np.ndarray, mask_words: torch.Tensor,
                      scope_ids: np.ndarray, k: int, precision: str = "fp32",
@@ -268,23 +300,28 @@ class FlatExecutor:
         _check_precision(precision)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         st = self.store
-        words = kops.as_words(mask_words).to(st.device)
-        sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
-        if precision == "fp32":
-            vals, ids = kops.multi_scope_topk(
-                self._to_dev(queries), st.device_vectors(), words, sids, k,
-                st.metric, sq=self._sq())
-            return _to_host(vals, ids)
-        r = resolve_rescore_k(k, rescore_k, len(st))
-        if precision == "int8":
-            q_i8, q_s = quantize_rows(queries)
-            _, cand = kops.multi_scope_topk_i8(
-                self._to_dev(q_i8), self._to_dev(q_s), st.device_q_vectors(),
-                st.device_q_scales(), self._q_sq(), words, sids, r,
-                st.metric)
-        else:
-            _, cand = kops.multi_scope_topk_pq(
-                self._to_dev(st.pq_lut(queries)), st.device_pq_codes(),
-                words, sids, r)
-        return gather_rescore(st, queries, cand.cpu().numpy().astype(
-            np.int64), k)
+        with trace.Tiles() as tiles:
+            words = kops.as_words(mask_words).to(st.device)
+            sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
+            if precision == "fp32":
+                q = self._to_dev(queries)
+                tiles.to(trace.RUN)
+                vals, ids = kops.multi_scope_topk(
+                    q, st.device_vectors(), words, sids, k, st.metric,
+                    sq=self._sq())
+                return _to_host(vals, ids, tiles)
+            r = resolve_rescore_k(k, rescore_k, len(st))
+            if precision == "int8":
+                q_i8, q_s = quantize_rows(queries)
+                q_dev = (self._to_dev(q_i8), self._to_dev(q_s))
+                tiles.to(trace.RUN)
+                _, cand = kops.multi_scope_topk_i8(
+                    *q_dev, st.device_q_vectors(), st.device_q_scales(),
+                    self._q_sq(), words, sids, r, st.metric)
+            else:
+                q_dev = self._to_dev(st.pq_lut(queries))
+                tiles.to(trace.RUN)
+                _, cand = kops.multi_scope_topk_pq(
+                    q_dev, st.device_pq_codes(), words, sids, r)
+            cand = _to_host(None, cand, tiles)
+        return gather_rescore(st, queries, cand, k)

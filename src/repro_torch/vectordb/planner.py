@@ -316,6 +316,13 @@ class BatchAccounting:
     plan_groups: Dict[str, int] = field(default_factory=dict)
     directory_ns: int = 0            # total resolve+plan time, whole batch
     ann_ns: int = 0                  # total ranking time, whole batch
+    # executor phase terms (``repro_torch.trace``) inside ``ann_ns``,
+    # filled by the flat launch and ``gather_rescore``: host preparation,
+    # uploads and dispatch; the copies back, which wait for the device;
+    # and how many copies back there were
+    rank_host_ns: int = 0            # rank.put + rank.run
+    rank_wait_ns: int = 0            # rank.get
+    rank_syncs: int = 0              # device->host copies
     resolve_stats: ResolveStats = field(default_factory=ResolveStats)
     # sharded-executor terms (zero on single-device paths): what this batch
     # actually moved between host and mesh, and across the mesh
@@ -353,7 +360,6 @@ class BatchAccounting:
     sched_stage_ns: int = 0          # mask/query staging time (overlapped)
     sched_service_ns: int = 0        # batch execute wall-clock
     sched_occupancy: float = 0.0     # summed batch_size / max_batch
-    sched_shed: int = 0              # admissions rejected (backpressure)
     # cost-model observability: which decision layer produced the
     # plans, and what it predicted the ANN phase would cost — so planner
     # mispredictions show up in production counters, not only in benches
