@@ -1158,15 +1158,15 @@ def synthetic_layout(torch, g, n, B, dev):
 def expand(torch, layout, probe):
     """The (B, nprobe * max_aligned) candidate matrix of a layout's probes:
     probed list p's ids at positions p * max_aligned + o, -1 past its
-    region (from the layout's final -1 slot; the IVF executor's expansion,
-    which its card path never builds)."""
+    region (the IVF executor's expansion, which its card path never
+    builds)."""
     offsets, aligned, flat, max_aligned = layout
     within = torch.arange(max_aligned, device=flat.device)
     p = probe.long()
-    idx = offsets[p][..., None] + within
-    idx = torch.where(within < aligned[p][..., None], idx,
-                      flat.shape[0] - 1)
-    return flat[idx].reshape(probe.shape[0], -1)
+    inside = within < aligned[p][..., None]
+    idx = torch.where(inside, offsets[p][..., None] + within, 0)
+    cand = torch.where(inside, flat[idx], -1)
+    return cand.reshape(probe.shape[0], -1)
 
 
 def phase1_ivf(torch, ops, ref, peaks, g, out, X, words, sid) -> int:
@@ -1339,7 +1339,8 @@ def ivf_record(torch, ops, ref, peaks, mode, args, kw, runs=20) -> dict:
     cand = expand(torch, layout, probe)
     forms = {"list": (lname, dict(a)),
              "cand": (mode, {**{key: v for key, v in a.items()
-                                if key not in _LAYOUT}, "cand_ids": cand})}
+                                if key not in _LAYOUT + ("per_list",)},
+                             "cand_ids": cand})}
     words, sids, k = a["mask_words"], a["scope_ids"], a["k"]
     metric = a.get("metric", "ip")
     rows = a["codes"] if mode == "ivf_gather_topk_pq" else a.get(
@@ -1370,7 +1371,8 @@ def ivf_record(torch, ops, ref, peaks, mode, args, kw, runs=20) -> dict:
     for form, (name, call) in forms.items():
         kernel = getattr(ops, name)
         plain = getattr(ref, name + "_ref")
-        plain_kw = {key: v for key, v in call.items() if key != "check_ids"}
+        plain_kw = {key: v for key, v in call.items()
+                    if key not in ("check_ids", "per_list")}
         got[form] = kernel(**call)
         want = plain(**plain_kw)
         label = f"{name} {shape}"
@@ -1396,7 +1398,7 @@ def ivf_record(torch, ops, ref, peaks, mode, args, kw, runs=20) -> dict:
     import importlib                     # (the package exports a function
     st = importlib.import_module(        # of the module's name)
         "repro_torch.kernels.scoped_topk")
-    qt = min(B, st.LIST_Q)
+    qt = min(B, a.get("per_list") or B, st.LIST_Q)
     if rows.is_cuda:                     # the plan's tile (smaller at big k)
         qt = st.list_plan(IVF_KIND[mode], qt, depth, k).qt
     tiles = ivf_tiles(torch, cand, adm, probe, layout[3], qt)
@@ -1660,21 +1662,31 @@ def phase2(torch, args, ops, journal):
     path = MainPath(ops)
     captured, gathers = {}, []
     ta = time.perf_counter()
-    with path.counted(), first_calls(ops, ("multi_scope_topk",), captured), \
-            recorded_calls(ops, "scoped_topk", range(1 << 30), gathers):
+    with path.counted(), first_calls(
+            ops, ("multi_scope_topk", "ivf_probe_topk"), captured):
         batch = batched()
     tb = time.perf_counter()
-    if gathers:                 # kernel 1's widest gather-plan launch
+    per_batch = dict(path.counts)
+    with recorded_calls(ops, "scoped_topk", range(1 << 30), gathers):
+        loop = looped()
+    tc = time.perf_counter()
+    # kernel 1's widest gather-plan launch in the loop of dsq (a scan-plan
+    # dsq passes every row of the store)
+    gathers = [call for call in gathers
+               if call[1][1].shape[0] < len(db.store)]
+    if gathers:
         widest = max(gathers, key=lambda call: call[1][1].shape[0])
         captured["scoped_topk"] = widest[1:]
     del gathers
-    per_batch = dict(path.counts)
-    loop = looped()
-    tc = time.perf_counter()
     check(same_results(batch, loop), "dsq_batch != loop of dsq (bitwise)")
     plans = {r.plan for r in batch}
     check({"scan", "gather"} <= plans, f"plans {plans} lack scan or gather")
     acct = batch[0].batch
+    # the batch's gather scopes: one kernel-9 list launch, no kernel 1
+    check(per_batch["ivf_gather_topk"] == 1 and per_batch["scoped_topk"] == 0
+          and acct.gather_listed == acct.plan_groups["gather"],
+          f"gather scopes not in one list launch: {per_batch}, "
+          f"{acct.gather_listed} of {acct.plan_groups['gather']} listed")
     # on-device selectivity of every scan group's cached device mask
     scan_keys = list({ScopeKey.from_spec(spec) for spec, r in zip(
         normalize_batch(paths, rec), batch) if r.plan == "scan"})
@@ -1685,8 +1697,14 @@ def phase2(torch, args, ops, journal):
             size = device_popcount(ent.words)
         check(size == ent.scope_size,
               f"device_popcount != scope_size for {key}")
+    # the single-request path: dsq ranks both plans through kernel 1
+    with path.counted():
+        for plan in ("gather", "scan"):
+            i = next(j for j, r in enumerate(batch) if r.plan == plan)
+            db.dsq(queries[i], paths[i], k=k, recursive=rec[i])
     counts = dict(path.counts)
-    check(counts["multi_scope_topk"] > 0 and counts["scoped_topk"] > 0,
+    check(counts["multi_scope_topk"] > 0 and counts["scoped_topk"] > 0
+          and counts["ivf_gather_topk"] > 0,
           f"scan kernels not launched on the main path: {counts}")
 
     # warm timings (planner cache filled, kernels and allocator warm)
@@ -1708,6 +1726,7 @@ def phase2(torch, args, ops, journal):
           "batch_first_ms": (tb - ta) * 1e3, "loop_first_ms": (tc - tb) * 1e3,
           "batch_warm_ms": (te - td) * 1e3, "loop_warm_ms": (tf - te) * 1e3,
           "directory_ns": acct.directory_ns, "ann_ns": acct.ann_ns,
+          "gather_listed": acct.gather_listed,
           "scan_groups_popcount_checked": len(scan_groups),
           "recall_at_10": rec_k,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
@@ -1716,24 +1735,29 @@ def phase2(torch, args, ops, journal):
 
 def phase2_kernels(torch, ops, ref, peaks, captured, measured) -> None:
     """Kernel 2 on the arguments phase 2's flat batch gave it (the scan
-    plan's group on WIKI-Dir's real scope masks), by :func:`batch_record`,
-    and kernel 1 on the widest launch of that batch's gather plans (the
-    scope's gathered rows under an all-ones mask), by
-    :func:`dense_record`. Recorded beside phase 1's main shapes under
-    "flat_batch" and "flat_batch_gather"; launches here are not the main
+    plan's group on WIKI-Dir's real scope masks), by :func:`batch_record`;
+    kernel 9 on the batch's one list launch over its gather-plan scopes
+    (each scope's id list, every row admitted), by :func:`ivf_record`; and
+    kernel 1 on the widest gather-plan launch of the loop of dsq (the
+    scope's gathered rows under an all-ones mask), by :func:`dense_record`.
+    Recorded beside phase 1's main shapes under "flat_batch",
+    "flat_batch_gather" and "dsq_gather"; launches here are not the main
     path's."""
-    for name in ("multi_scope_topk", "scoped_topk"):
+    for name in ("multi_scope_topk", "ivf_probe_topk", "scoped_topk"):
         check(name in captured, f"phase 2 recorded no {name} launch")
     args, kw = captured["multi_scope_topk"]
     rec = batch_record(torch, ops, ref, peaks, "multi_scope_topk", args, kw,
                        "multi_scope_topk flat batch")
     measured["multi_scope_topk"]["flat_batch"] = rec
+    args, kw = captured["ivf_probe_topk"]
+    listed = ivf_record(torch, ops, ref, peaks, "ivf_gather_topk", args, kw)
+    measured["ivf_gather_topk"]["flat_batch_gather"] = listed
     args, kw = captured["scoped_topk"]
     gather = dense_record(torch, ops, ref, peaks, args, kw,
-                          "scoped_topk flat batch gather")
-    measured["scoped_topk"]["flat_batch_gather"] = gather
+                          "scoped_topk dsq gather")
+    measured["scoped_topk"]["dsq_gather"] = gather
     emit({"phase": "2-kernels", "multi_scope_topk": rec,
-          "scoped_topk": gather})
+          "ivf_gather_topk": listed, "scoped_topk": gather})
 
 
 # --------------------------------------------------------------- phase 3
@@ -2266,7 +2290,10 @@ def phase5_kernels(torch, ops, ref, peaks, captured, measured) -> None:
                 a["queries"])
             rec["shape"] += f"; library: {lib}"
         real[mode] = rec
-        measured[mode] = {**rec, "synthetic": measured[mode]}
+        prev = measured[mode]
+        kept = {key: prev.pop(key) for key in ("flat_batch_gather",)
+                if key in prev}
+        measured[mode] = {**rec, **kept, "synthetic": prev}
     emit({"phase": "5-kernels", **real})
 
 

@@ -181,8 +181,8 @@ flat = db.dsq_batch(queries, scopes, k=3, executor="flat")
 acct = results[0].batch
 assert all(np.array_equal(a.ids, b.ids) for a, b in zip(results, flat))
 print(f"sharded == flat (bit-identical) over {acct.batch_size} requests; "
-      f"{acct.n_shards} shard(s), {acct.launches} launches, "
-      f"mask upload {acct.shard_mask_bytes}B, "
+      f"{acct.n_shards} shard(s), {acct.launches} launches "
+      f"(plans: {acct.plan_groups}), mask upload {acct.shard_mask_bytes}B, "
       f"collective {acct.collective_bytes}B")
 db.dsm_batch([("mkdir", "/Staging/"), ("move", "/HR/Policies/", "/Staging/")])
 results = db.dsq_batch(queries, scopes, k=3, executor="sharded")

@@ -330,8 +330,17 @@ def ivf_gather_topk_pq(lut: torch.Tensor, codes: torch.Tensor,
                                   check_ids)
 
 
+def _contig(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor, ``t`` itself when it is one
+    already: a conversion call that changes nothing still releases the
+    interpreter lock, and another thread may hold it on the way back."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
 def _probe32(probe: torch.Tensor) -> torch.Tensor:
-    return probe.to(torch.int32).contiguous()
+    return _contig(probe, torch.int32)
 
 
 def ivf_probe_topk(queries: torch.Tensor, rows: torch.Tensor,
@@ -339,9 +348,11 @@ def ivf_probe_topk(queries: torch.Tensor, rows: torch.Tensor,
                    flat_ids: torch.Tensor, max_aligned: int,
                    probe: torch.Tensor, mask_words: torch.Tensor,
                    scope_ids: torch.Tensor, k: int = 10, metric: str = "ip",
-                   sq: Optional[torch.Tensor] = None, check_ids: bool = True
+                   sq: Optional[torch.Tensor] = None, check_ids: bool = True,
+                   per_list: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 9's list form, the IVF executor's scoring launch: query b
+    """Kernel 9's list form, the IVF executor's scoring launch and the flat
+    executor's batch of gather-plan scopes: query b
     ranks the rows of its probed lists ``probe[b]`` ((B, nprobe), distinct
     lists per row) of the padded-CSR layout (``offsets`` / ``aligned``
     int64 per list, ``flat_ids`` int32 with -1 padding, ``max_aligned`` the
@@ -351,21 +362,26 @@ def ivf_probe_topk(queries: torch.Tensor, rows: torch.Tensor,
     max_aligned) candidate matrix: (vals (B, k) f32, ids (B, k) int32 store
     ids), ties ranked by the lower position p * max_aligned + o.
     ``check_ids=False`` skips the checks of the probes and ids (a caller
-    whose come from an already checked layout)."""
+    whose come from an already checked layout). ``per_list``, the most
+    queries that probe one list (default B), sizes the card's grid: it
+    must be at least 1, and (checked with ``check_ids``) not below the
+    true count."""
     mask_words = _pad_words(mask_words, rows.shape[0])
     dev = _device_of(queries, rows, offsets, aligned, flat_ids, probe,
                      mask_words, scope_ids, sq)
     if metric == "l2" and sq is None:
         sq = row_sq_norms(rows)
     if dev.type == "cpu":
+        # the card's launch checks ``per_list`` itself
+        _st.check_per_list(probe, per_list, check_ids)
         return ref.ivf_probe_topk_ref(queries, rows, offsets, aligned,
                                       flat_ids, max_aligned, probe,
                                       mask_words, scope_ids, k, metric, sq)
     return _st.ivf_probe_topk(
-        queries.float().contiguous(), rows,
+        _contig(queries, torch.float32), rows,
         _st.Layout(offsets, aligned, flat_ids, int(max_aligned)),
-        _probe32(probe), mask_words.contiguous(),
-        scope_ids.to(torch.int32).contiguous(), k, metric, sq, check_ids)
+        _probe32(probe), _contig(mask_words, torch.int32),
+        _contig(scope_ids, torch.int32), k, metric, sq, check_ids, per_list)
 
 
 def ivf_probe_topk_i8(q_i8: torch.Tensor, q_scale: torch.Tensor,

@@ -398,6 +398,22 @@ def _check_layout(lay: Layout, probe: torch.Tensor, nq: int, n: int,
     return n_lists, nprobe
 
 
+def check_per_list(probe: torch.Tensor, per_list: Optional[int],
+                   check_ids: bool) -> None:
+    """``per_list`` (None: every query) at least 1 and, with ``check_ids``
+    (a device-to-host read), no list probed by more queries than it; a
+    list's queries past ``per_list`` would get no lane of the grid."""
+    if per_list is None:
+        return
+    if per_list < 1:
+        raise ValueError(f"per_list={per_list} must be >= 1")
+    if check_ids and probe.numel():
+        most = int(torch.unique(probe, return_counts=True)[1].max())
+        if most > per_list:
+            raise ValueError(f"a list is probed by {most} queries, more "
+                             f"than per_list={per_list}")
+
+
 def _launch_list(name: str, kind: str, q: torch.Tensor, q_scale,
                  rows: torch.Tensor, row_scale, sq, words, sids, depth: int,
                  k: int, l2: bool, lay: Layout, probe: torch.Tensor,
@@ -407,9 +423,12 @@ def _launch_list(name: str, kind: str, q: torch.Tensor, q_scale,
     device (a stable sort of the pairs by list and each list's first
     pair), pass 1 over (list x query tile, list chunk) blocks, pass 2.
     ``per_list`` bounds the queries that probe one list (default nq; 1 for
-    a candidate matrix, whose tiles then hold one query). It serves only
-    the candidate form (``ivf_gather_topk*``), which no executor calls: it
-    trims the grid's empty query tiles of B one-query lists."""
+    a candidate matrix, whose tiles then hold one query): it trims the
+    grid's empty query tiles when many lists each have few queries (the
+    candidate form's B one-query lists, the flat executor's batch of
+    gather-plan scopes). A list probed by more queries than ``per_list``
+    would lose the rest, so a caller passes the exact largest count
+    (:func:`check_per_list`)."""
     dev = q.device
     nq, n = q.shape[0], rows.shape[0]
     if k < 1:
@@ -420,6 +439,7 @@ def _launch_list(name: str, kind: str, q: torch.Tensor, q_scale,
             raise ValueError(f"sq has {sq.shape[0]} norms for {n} rows")
     n_scopes, n_words = _check_words(words, sids, nq, n, dev)
     n_lists, nprobe = _check_layout(lay, probe, nq, n, dev, check_ids)
+    check_per_list(probe, per_list, check_ids)
     per_list = nq if per_list is None else per_list
     plan = list_plan(kind, max(1, min(nq, per_list, LIST_Q)), depth, k)
     if plan.smem == 0:
@@ -567,18 +587,22 @@ def _cand(cand_ids) -> Tuple[Layout, torch.Tensor]:
 
 
 def ivf_probe_topk(queries, rows, layout: Layout, probe, mask_words,
-                   scope_ids, k, metric="ip", sq=None, check_ids=True):
-    """Kernel 9 (fp32), the IVF executor's scoring launch: query b scores
-    the rows of its probed lists ``probe[b]`` ((B, nprobe) int32) of the
-    padded-CSR ``layout`` that bit r%32 of ``mask_words[scope_ids[b],
-    r // 32]`` admits, reading rows (n, d) f32 in place. Returns (vals (B, k)
-    f32, ids (B, k) int32 store ids), ties ranked by the lower position
+                   scope_ids, k, metric="ip", sq=None, check_ids=True,
+                   per_list=None):
+    """Kernel 9 (fp32), the IVF executor's scoring launch and the flat
+    executor's batch of gather-plan scopes: query b scores the rows of its
+    probed lists ``probe[b]`` ((B, nprobe) int32) of the padded-CSR
+    ``layout`` that bit r%32 of ``mask_words[scope_ids[b], r // 32]``
+    admits, reading rows (n, d) f32 in place. Returns (vals (B, k) f32, ids
+    (B, k) int32 store ids), ties ranked by the lower position
     p * max_aligned + o. ``check_ids=False`` skips the range checks of the
-    probes and ids (the IVF executor's come from its checked layout)."""
+    probes and ids (the IVF executor's come from its checked layout);
+    ``per_list``, the most queries that probe one list (default B), sizes
+    the grid's query tiles."""
     d = _f32(queries, rows)
     return _launch_list("ivf_gather_topk", "f32", queries, None, rows, None,
                         sq, mask_words, scope_ids, d, k, _metric_l2(metric),
-                        layout, probe, check_ids)
+                        layout, probe, check_ids, per_list)
 
 
 def ivf_probe_topk_i8(q_i8, q_scale, rows_i8, row_scale, sq, layout: Layout,

@@ -266,8 +266,10 @@ class DirectoryVectorDB:
         its own anchor (and optionally its own ``recursive`` flag and
         ``exclude`` list). Repeated scopes across the batch resolve once;
         on the flat executor scan-plan scopes share a single
-        ``multi_scope_topk`` launch and each gather-plan scope is one
-        ``scoped_topk`` launch over its candidate rows; on the IVF executor
+        ``multi_scope_topk`` launch and the fp32 gather-plan scopes a single
+        launch of kernel 9's list form over their candidate ids (each
+        gather scope of a tiered store, and each int8 / PQ one, is its own
+        launch); on the IVF executor
         every request sharing an ``nprobe`` and a precision rides one
         ``ivf_probe_topk*`` launch (``nprobe`` may be one value or one per
         request). Results are bit-identical to calling :meth:`dsq` per
@@ -355,12 +357,29 @@ class DirectoryVectorDB:
     @staticmethod
     def _launch_gather(flat_ex, queries, k, groups, out_scores, out_ids,
                        acct, rescore_k=None) -> None:
-        """One gather launch per selective group, at the group's planned
-        precision (int8/pq only when the scope outsizes the rescore
-        window)."""
+        """The batch's selective groups. While every fp32 row is on the
+        device (the store not tiered), the fp32 groups rank in one executor
+        call, ``search_multi`` over their candidate lists: one launch of
+        kernel 9's list form, one upload and one pair of copies back. Every
+        other gather group, int8 / PQ (a scope that outsizes the rescore
+        window) or of a tiered store, is one gather launch at the group's
+        planned precision."""
+        resident = not flat_ex.store.tiered_active()
+        listed, alone = [], []
         for g in groups:
-            if g.plan != "gather":
-                continue
+            if g.plan == "gather":
+                (listed if resident and g.precision == "fp32"
+                 else alone).append(g)
+        if listed:
+            rows, sids = DirectoryVectorDB._scan_assembly(listed)
+            s, i = flat_ex.search_multi(
+                queries[rows], None, sids, k,
+                candidate_lists=[g.candidate_ids for g in listed])
+            out_scores[rows] = s
+            out_ids[rows] = i
+            acct.launches += 1
+            acct.gather_listed += len(listed)
+        for g in alone:
             rows = np.asarray(g.request_idx)
             s, i = flat_ex.search(queries[rows], k,
                                   candidate_ids=g.candidate_ids,
@@ -375,7 +394,8 @@ class DirectoryVectorDB:
 
     @staticmethod
     def _scan_assembly(scan_groups) -> Tuple[np.ndarray, np.ndarray]:
-        """(request rows, per-request group ordinals) for one scan launch."""
+        """(request rows, per-request group ordinals) for one launch over
+        several groups (scan groups, or fp32 gather groups)."""
         rows, sids = [], []
         for si, g in enumerate(scan_groups):
             rows.extend(g.request_idx)

@@ -9,28 +9,32 @@ vector databases do (pre- vs post-filter):
 * ``scan``: score all N rows with out-of-scope lanes masked — optimal for
   broad scopes.
 
-Both plans rank through the hand-written scan kernels (the gather plan with
-an all-ones mask over its gathered rows), and a batch of scan-plan requests
-through one ``multi_scope_topk*`` launch. ``precision="int8"`` / ``"pq"``
-run the two-phase plan: the int8 (or PQ/ADC) scan or gather keeps
-``rescore_k >= k`` candidates, and :func:`gather_rescore` ranks exactly
-those in exact fp32, so the final scores are true fp32 scores and the only
-approximation is which candidates survive phase 1.
+Both plans rank through the hand-written scan kernels: a single request's
+gather plan through kernel 1 with an all-ones mask over its gathered rows,
+a batch's scan-plan requests through one ``multi_scope_topk*`` launch, and
+a batch's fp32 gather-plan scopes through one launch of kernel 9's list
+form (``search_multi(..., candidate_lists=...)``): each request ranks its
+scope's id list, whose rows are read in place from the device mirror, with
+no gathered copy. ``precision="int8"`` / ``"pq"`` run the two-phase plan:
+the int8 (or PQ/ADC) scan or gather keeps ``rescore_k >= k`` candidates,
+and :func:`gather_rescore` ranks exactly those in exact fp32, so the final
+scores are true fp32 scores and the only approximation is which candidates
+survive phase 1.
 
 The kernels score every (query, row) pair with one fixed-order chain (fp32
 FMAs, exact int32 sums, or LUT adds in subspace order), and the rescore
 scores its gathered rows through the same fp32 kernel, so a request's
-scores do not depend on how many requests share a launch: ``dsq_batch``
-stays bit-identical to a loop of ``dsq`` at every precision. (A cuBLAS
-matmul or a torch reduction picks other kernels for other batch sizes and
-could not promise that.)
+scores do not depend on how many requests share a launch, nor on which of
+kernels 1, 2 and 9 ranks it: ``dsq_batch`` stays bit-identical to a loop of
+``dsq`` at every precision. (A cuBLAS matmul or a torch reduction picks
+other kernels for other batch sizes and could not promise that.)
 
 Sentinels: the kernels return ``finfo(float32).min`` / -1 for empty lanes;
 this executor returns ``-inf`` / -1 like the reference executor.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,11 +163,61 @@ def gather_rescore(store: VectorStore, queries: np.ndarray,
         return pad_topk(vals, ids, k)
 
 
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int64): torch.int64}
+
+
+def _staged(device: torch.device, parts):
+    """One host->device copy of several 1-D arrays: ``parts`` is a list of
+    (numpy dtype of 4 or 8 bytes, length). Returns (host views to fill,
+    ``upload``), where ``upload()`` copies the filled buffer to ``device``
+    and returns a device view of each part. The buffer is one int32
+    tensor, pinned on a card so that the copy does not block the host
+    (PyTorch's pinned allocator keeps the block until the copy has run);
+    each part starts on a 16-byte boundary.
+
+    Few torch calls: the executing thread shares the interpreter with the
+    scheduler's staging thread, and a torch call releases the interpreter
+    lock, which can take that thread's switch interval to come back. On
+    an H100 host under a saturating closed loop this form took 4-5 ms less
+    a list call than three pinned ``np.concatenate`` copies, one a dtype."""
+    spans, total = [], 0
+    for dtype, n in parts:
+        words = np.dtype(dtype).itemsize // 4 * n
+        spans.append((total, total + words))
+        total += -(-words // 4) * 4
+    host = torch.empty(max(total, 4), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    raw = host.numpy()
+    views = [raw[a:b].view(dtype) for (a, b), (dtype, _) in zip(spans, parts)]
+
+    def upload():
+        dev = host.to(device, non_blocking=True)
+        return [dev[a:b] if np.dtype(dtype) == np.int32
+                else dev[a:b].view(_TORCH_DTYPES[np.dtype(dtype)])
+                for (a, b), (dtype, _) in zip(spans, parts)]
+    return views, upload
+
+
 class FlatExecutor:
     name = "flat"
 
     def __init__(self, store: VectorStore):
         self.store = store
+        self._ones: Optional[torch.Tensor] = None
+
+    def _ones_row(self, n: int) -> torch.Tensor:
+        """(1, ceil(n/32)) int32 packed row that admits every row of an
+        n-row store, on the store's device (kept while n's word count
+        holds)."""
+        w = max(1, -(-n // 32))
+        ones = self._ones
+        if ones is None or ones.shape[1] != w or \
+                ones.device != self.store.device:
+            ones = torch.full((1, w), -1, dtype=torch.int32,
+                              device=self.store.device)
+            self._ones = ones
+        return ones
 
     def _sq(self) -> Optional[torch.Tensor]:
         """Cached device squared norms for l2, None for ip/cos."""
@@ -287,19 +341,39 @@ class FlatExecutor:
                                   torch.full_like(cand[:1], -1))
             return _to_host(None, ids, tiles)
 
-    def search_multi(self, queries: np.ndarray, mask_words: torch.Tensor,
+    def search_multi(self, queries: np.ndarray,
+                     mask_words: Optional[torch.Tensor],
                      scope_ids: np.ndarray, k: int, precision: str = "fp32",
-                     rescore_k: Optional[int] = None
+                     rescore_k: Optional[int] = None,
+                     candidate_lists: Optional[Sequence[np.ndarray]] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """One launch for a heterogeneous scan-plan batch: queries (B, d),
-        packed masks (n_scopes, ceil(n/32)) as an int32 tensor on the
-        store's device, per-query scope row ids (B,). Returns (scores, ids)
-        both (B, k), ids int64, -1 / -inf where the scope had no candidate.
-        ``precision="int8"`` / ``"pq"`` swap the launch for the quantized
-        scan and finish with the shared exact fp32 rescore."""
+        """One launch for a heterogeneous batch: queries (B, d), per-query
+        scope ids (B,). Returns (scores, ids) both (B, k), ids int64, -1 /
+        -inf where the scope had no candidate.
+
+        Scan-plan scopes: ``mask_words`` holds packed masks (n_scopes,
+        ceil(n/32)) as an int32 tensor on the store's device, and
+        ``scope_ids`` indexes its rows. ``precision="int8"`` / ``"pq"`` swap
+        the launch for the quantized scan and finish with the shared exact
+        fp32 rescore.
+
+        Gather-plan scopes: ``candidate_lists`` holds each scope's sorted,
+        distinct store ids, ``scope_ids`` indexes it and ``mask_words`` is
+        None. One launch of kernel 9's list form ranks each query over its
+        scope's rows, read in place from the device mirror (fp32 only, and
+        not while the store is tiered, whose rows live in host RAM); a tie
+        goes to the lower position in the list, the lower store id, as in
+        :meth:`search`'s gather plan, so each request equals its own
+        ``search`` bit for bit."""
         _check_precision(precision)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         st = self.store
+        if candidate_lists is not None:
+            if mask_words is not None or precision != "fp32":
+                raise ValueError("candidate lists rank at fp32 and take no "
+                                 "mask words")
+            return self._search_listed(queries, candidate_lists, scope_ids,
+                                       k)
         with trace.Tiles() as tiles:
             words = kops.as_words(mask_words).to(st.device)
             sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
@@ -325,3 +399,49 @@ class FlatExecutor:
                     q_dev, st.device_pq_codes(), words, sids, r)
             cand = _to_host(None, cand, tiles)
         return gather_rescore(st, queries, cand, k)
+
+    def _search_listed(self, queries: np.ndarray,
+                       lists: Sequence[np.ndarray], scope_ids: np.ndarray,
+                       k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`search_multi` over candidate lists: list g of kernel 9's
+        layout holds scope g's ids, unpadded, and query b probes list
+        ``scope_ids[b]`` alone, under a scope row that admits every row.
+        The layout, the queries and the probes go up in one copy."""
+        st = self.store
+        if st.tiered_active():
+            raise RuntimeError("the store is over its device byte budget: "
+                               "rank its gather scopes one by one")
+        sids = np.asarray(scope_ids, dtype=np.int64)
+        B, d = queries.shape
+        G = len(lists)
+        if B == 0 or G == 0:
+            return (np.full((B, k), -np.inf, np.float32),
+                    np.full((B, k), -1, np.int64))
+        with trace.Tiles() as tiles:
+            sizes = np.fromiter(map(len, lists), np.int64, G)
+            ends = np.cumsum(sizes)
+            (q, lay, probe, zeros, flat_ids), upload = _staged(
+                st.device, [(np.float32, B * d), (np.int64, 2 * G),
+                            (np.int32, B), (np.int32, B),
+                            (np.int32, int(ends[-1]))])
+            q[:] = queries.reshape(-1)
+            lay[0] = 0
+            lay[1:G] = ends[:-1]
+            lay[G:] = sizes
+            probe[:] = sids
+            zeros[:] = 0
+            # one join: numpy's concatenate releases the interpreter lock
+            # once an input (and may wait to get it back each time)
+            flat_ids[:] = np.frombuffer(b"".join(
+                np.ascontiguousarray(ids, dtype=np.uint32) for ids in lists),
+                dtype=np.int32)
+            q, lay, probe, zeros, flat_ids = upload()
+            tiles.to(trace.RUN)
+            rows = st.device_vectors()
+            vals, ids = kops.ivf_probe_topk(
+                q.view(B, d), rows, lay[:G], lay[G:], flat_ids,
+                int(sizes.max()), probe[:, None],
+                self._ones_row(rows.shape[0]), zeros, k, st.metric,
+                sq=self._sq(), check_ids=False,
+                per_list=int(np.bincount(sids, minlength=G).max()))
+            return _to_host(vals, ids, tiles)

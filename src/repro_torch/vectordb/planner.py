@@ -323,6 +323,7 @@ class BatchAccounting:
     rank_host_ns: int = 0            # rank.put + rank.run
     rank_wait_ns: int = 0            # rank.get
     rank_syncs: int = 0              # device->host copies
+    gather_listed: int = 0           # fp32 gather groups in one list launch
     resolve_stats: ResolveStats = field(default_factory=ResolveStats)
     # sharded-executor terms (zero on single-device paths): what this batch
     # actually moved between host and mesh, and across the mesh

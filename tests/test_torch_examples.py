@@ -21,7 +21,12 @@ MAY_DIFFER = ("model: CostModel(", "int8 request under the measured model")
 
 _TIME = re.compile(r"\s*\d+(?:\.\d+)?\s*(?:us|ms|s)\b")
 _BYTES = re.compile(r"\b\d+B\b")
-
+# launch counts: the reference launches once per gather-plan scope, the
+# port ranks a batch's fp32 gather scopes in one launch; the port's sharded
+# line also names its batch's plans, which the reference's does not
+_LAUNCHES = re.compile(r"\b(\d+) launches\b")
+_PLANS = re.compile(r" \(plans: \{[^}]*\}\)")
+_GATHER = re.compile(r"'gather': (\d+)")
 
 def _env():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
@@ -59,7 +64,26 @@ def test_quickstart_matches_reference_lines():
     ref = _start("quickstart.py")
     got, want = _finish(port), _finish(ref)
     assert "invariants OK" in got and "bit-identical" in got
-    assert _result_lines(got) == _result_lines(want)
+    got, want = _result_lines(got), _result_lines(want)
+    assert len(got) == len(want)
+    counted = 0
+    for mine, theirs in zip(got, want):
+        n, m = _LAUNCHES.search(mine), _LAUNCHES.search(theirs)
+        if n is None or m is None:
+            assert mine == theirs
+            continue
+        counted += 1
+        plans = _GATHER.search(theirs) or _GATHER.search(mine)
+        if not _PLANS.search(theirs):
+            mine = _PLANS.sub("", mine)
+        assert (_LAUNCHES.sub("<n> launches", mine)
+                == _LAUNCHES.sub("<n> launches", theirs))
+        # the batch's gather scopes (none on the IVF and PG lines) take one
+        # launch, not one each
+        gather = int(plans.group(1)) if plans else 0
+        n, m = int(n.group(1)), int(m.group(1))
+        assert n == m - gather + (gather > 0), (mine, n, m, gather)
+    assert counted == 4
 
 
 def test_rag_serve_example_runs():

@@ -1129,6 +1129,66 @@ def test_list_plan_fits_shared_memory(kind, q, depth, k):
         assert plan.qt == 4
 
 
+def _gather_batch_layout(n, d, n_lists, seed):
+    """The flat executor's batch of gather-plan scopes at WIKI-Dir's width:
+    ``n_lists`` sorted, distinct id lists of 10^2 to 10^5 of n rows
+    (log-uniform sizes), unpadded, each probed by 1 to 8 queries in a
+    shuffled order, one all-ones scope row."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sizes = (10 ** (2 + 3 * torch.rand(n_lists, generator=g, device=dev))
+             ).long()
+    lists = [torch.randperm(n, generator=g, device=dev)[:m].sort().values
+             .to(torch.int32) for m in sizes.tolist()]
+    per = (1 + torch.randint(0, 8, (n_lists,), generator=g,
+                             device=dev)).tolist()
+    probe = torch.tensor([c for c, p in enumerate(per) for _ in range(p)],
+                         dtype=torch.int32, device=dev)
+    probe = probe[torch.randperm(len(probe), generator=g, device=dev)]
+    offsets = torch.cumsum(sizes, 0) - sizes
+    X = torch.randn(n, d, generator=g, device=dev)
+    Q = torch.randn(len(probe), d, generator=g, device=dev)
+    ones = torch.full((1, (n + 31) // 32), -1, dtype=torch.int32, device=dev)
+    sid = torch.zeros(len(probe), dtype=torch.int32, device=dev)
+    layout = (offsets, sizes, torch.cat(lists), int(sizes.max()))
+    return Q, X, lists, layout, probe[:, None], ones, sid, max(per)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_list_form_at_gather_batch_shapes_equals_kernel_1(metric):
+    """Kernel 9's list form at the shapes of a WIKI-Dir batch's gather-plan
+    scopes (d = 1024, k = 10, 70 lists of 10^2 to 10^5 ids, 1 to 8 queries
+    a list, ``per_list`` the most): one launch, within the tolerance of its
+    plain version, and bit for bit what kernel 1 gives over each list's
+    gathered rows under an all-ones mask (the single-request gather
+    plan)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    k = 10
+    Q, X, lists, layout, probe, ones, sid, per = _gather_batch_layout(
+        400_000, 1024, 70, 28)
+    sq = ref.row_sq_norms(X) if metric == "l2" else None
+    ops.reset_launch_counts()
+    got = ops.ivf_probe_topk(Q, X, *layout, probe, ones, sid, k, metric, sq,
+                             check_ids=False, per_list=per)
+    assert ops.launch_counts()["ivf_gather_topk"] == 1
+    _agree(got, ref.ivf_probe_topk_ref(Q, X, *layout, probe, ones, sid, k,
+                                       metric, sq), "gather batch layout")
+    for c, ids in enumerate(lists):
+        b = (probe[:, 0] == c).nonzero().flatten()
+        if not len(b):
+            continue
+        idx = ids.long()
+        vals, loc = ops.scoped_topk(
+            Q[b], X[idx], torch.ones(len(ids), dtype=torch.int8,
+                                     device=X.device), k, metric,
+            None if sq is None else sq[idx])
+        mapped = torch.where(loc >= 0, ids[loc.long().clamp(min=0)], -1)
+        assert torch.equal(got[0][b], vals), c
+        assert torch.equal(got[1][b], mapped), c
+
+
 # ------------------------------------------- serving and maintenance on card
 def _wiki_db(with_ivf=False):
     """A small WIKI-Dir database on the card (flat; IVF when asked)."""
@@ -1149,6 +1209,58 @@ def _mix(ds, n):
     rec = [bool(i % 3) for i in range(n)]
     rec[0] = True                          # the whole tree: a scan group
     return ds.queries[np.arange(n) % len(ds.queries)], paths, rec
+
+
+def _gather_anchors(db, lo, hi, count):
+    """``count`` recursive anchors whose scopes hold lo..hi rows, spread
+    over that range by size."""
+    from repro_torch.core import paths as P
+    idx = db.namespaces["fs"]
+    sized = sorted((len(idx.resolve(P.to_str(d), recursive=True)
+                        .to_array()), P.to_str(d))
+                   for d in idx.list_dirs())
+    sized = [a for m, a in sized if lo <= m <= hi]
+    assert len(sized) >= count, (lo, hi, len(sized))
+    return [sized[i * len(sized) // count] for i in range(count)]
+
+
+@pytest.mark.gpu
+def test_gather_batch_at_d1024_is_one_list_launch_equal_to_dsq():
+    """A WIKI-Dir batch at d = 1024 (scale 0.01) with 40 gather-plan scopes
+    of 1 to 970 rows and a scan: one kernel-9 list launch and no kernel-1
+    launch rank its gather scopes, and every request equals its own
+    ``dsq`` (kernel 1 over the gathered rows) bit for bit; the sharded
+    executor's batch equals the flat one bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.datasets import make_wiki_dir
+    from repro_torch.vectordb import DirectoryVectorDB
+    ds = make_wiki_dir(scale=0.01, dim=1024, n_queries=64, seed=3)
+    db = DirectoryVectorDB(dim=1024, calibration=False, device="cuda")
+    db.ingest(ds.vectors, ds.entry_paths)
+    db.build_ann("flat")
+    anchors = _gather_anchors(db, 1, len(db.store) // 20, 40)
+    paths = anchors + ["/"] * 4 + anchors[::2]
+    queries = ds.queries[np.arange(len(paths)) % len(ds.queries)]
+    db.dsq_batch(queries, paths, k=10)                 # plans and caches
+    ops.reset_launch_counts()
+    batch = db.dsq_batch(queries, paths, k=10)
+    counts = ops.launch_counts()
+    acct = batch[0].batch
+    assert acct.plan_groups == {"gather": 40, "scan": 1}
+    assert acct.gather_listed == 40 and acct.launches == 2
+    assert counts["ivf_gather_topk"] == 1 and counts["scoped_topk"] == 0
+    assert counts["multi_scope_topk"] == 1
+    loop = [db.dsq(queries[i], paths[i], k=10) for i in range(len(paths))]
+    for i, (a, b) in enumerate(zip(batch, loop)):
+        np.testing.assert_array_equal(a.ids, b.ids, err_msg=str(i))
+        np.testing.assert_array_equal(a.scores, b.scores, err_msg=str(i))
+    db.build_ann("sharded", n_shards=4)
+    sharded = db.dsq_batch(queries, paths, k=10, executor="sharded")
+    assert sharded[0].batch.gather_listed == 40
+    for i, (a, b) in enumerate(zip(sharded, batch)):
+        np.testing.assert_array_equal(a.ids, b.ids, err_msg=str(i))
+        np.testing.assert_array_equal(a.scores, b.scores, err_msg=str(i))
 
 
 @pytest.mark.gpu

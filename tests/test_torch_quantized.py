@@ -61,8 +61,14 @@ def _query_tier(port, ref, reqs, precision, label, rescore_k=None):
     for key in ("precision_groups", "plan_groups", "rescore_candidates",
                 "db_bytes_fp32", "db_bytes_int8", "db_bytes_pq",
                 "rescore_fetch_bytes", "rows_device_pinned", "rows_host",
-                "tiered", "launches"):
+                "tiered"):
         assert getattr(pa, key) == getattr(ra, key), (label, key)
+    # the reference launches once per gather group; the port ranks the
+    # fp32 ones (every fp32 group of a quantized or tiered batch is a
+    # gather group) in one list launch while the store is not tiered
+    listed = 0 if pa.tiered else ra.precision_groups.get("fp32", 0)
+    assert pa.gather_listed == listed, label
+    assert pa.launches == ra.launches - listed + (listed > 0), label
     for i in range(len(paths)):
         assert pb[i].plan == rb[i].plan, (label, i)
         _assert_matches_ref(pb[i], rb[i], f"{label} batch {i}")
