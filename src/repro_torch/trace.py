@@ -30,15 +30,27 @@ open span's name, sorted and cut to 64 characters):
 ``rank.put``     executor: host preparation and host->device copies
 ``rank.run``     executor: row gathers, kernel calls, id remapping
 ``rank.get``     executor: the copies back to the host
+``rank.approx``  quantized executor call: phase 1 of the two-phase plan, the
+                 query quantisation or LUT, its uploads, the int8 / PQ scan
+                 or gather (kernels 5-8) and the copy back of the candidates
+``rank.rescore`` ``gather_rescore``: the exact fp32 rescore (phase 2)
 ================ ============================================================
 
-The three ``rank.*`` phases tile each executor call (:class:`Tiles`). The
-flat launch of ``dsq_batch`` runs inside one more ``Tiles``, in
-``rank.run`` without spans (``db.rank`` names it), which counts the batch's
-own dispatch between executor calls. The counters are ``rank_host_ns``
+The three phases ``rank.put``, ``rank.run`` and ``rank.get`` tile each
+executor call (:class:`Tiles`). The flat launch of ``dsq_batch`` runs inside
+one more ``Tiles``, in ``rank.run`` without spans (``db.rank`` names it),
+which counts the batch's own dispatch between executor calls. The counters are ``rank_host_ns``
 (``rank.put`` + ``rank.run``), ``rank_wait_ns`` (``rank.get``: a copy back
 blocks until the device work queued before it has finished) and
 ``rank_syncs`` (copies back).
+
+The two phases of a quantized plan are regions (:class:`Region`) around
+those tiles: ``rank.approx`` adds its host time, its wait for the candidates
+included, to ``approx_ns``, and ``rank.rescore`` to ``rescore_ns``. Both lie
+inside ``rank_host_ns + rank_wait_ns`` and leave those as they were. The
+benchmark reads them as ``bench/metrics/approx_ms.py`` and ``rescore_ms.py``
+(and ``BatchAccounting.gather_alone``, the gather groups ranked one executor
+call each, as ``gather_alone.py``).
 """
 from __future__ import annotations
 
@@ -48,10 +60,11 @@ import time
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["span", "recording", "counting", "current", "Tiles",
-           "PUT", "RUN", "GET"]
+__all__ = ["span", "recording", "counting", "current", "Tiles", "Region",
+           "approx", "rescore", "PUT", "RUN", "GET", "APPROX", "RESCORE"]
 
 PUT, RUN, GET = "rank.put", "rank.run", "rank.get"
+APPROX, RESCORE = "rank.approx", "rank.rescore"
 
 
 def recording() -> bool:
@@ -170,3 +183,45 @@ class Tiles:
         if self._outer is not None:
             self._outer._start(self._outer._name, t)
         return False
+
+
+class Region:
+    """A span ``name`` over a stretch of the ranking layer whose host time,
+    waits for the device included, adds to the current accounting's
+    counter ``field``. It leaves the tiles inside it as they are."""
+    __slots__ = ("_name", "_field", "_acct", "_t", "_rf")
+
+    def __init__(self, name: str, field: str):
+        self._name = name
+        self._field = field
+
+    def __enter__(self) -> "Region":
+        self._acct = current()
+        self._rf = None
+        if recording():
+            self._rf = torch.profiler.record_function(self._name)
+            self._rf.__enter__()
+        self._t = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t = time.perf_counter_ns()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        acct = self._acct
+        if acct is not None:
+            setattr(acct, self._field,
+                    getattr(acct, self._field) + t - self._t)
+        return False
+
+
+def approx() -> Region:
+    """Phase 1 of a quantized executor call (``rank.approx``,
+    ``approx_ns``)."""
+    return Region(APPROX, "approx_ns")
+
+
+def rescore() -> Region:
+    """The exact fp32 rescore (``rank.rescore``, ``rescore_ns``)."""
+    return Region(RESCORE, "rescore_ns")

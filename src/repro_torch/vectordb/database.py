@@ -363,7 +363,7 @@ class DirectoryVectorDB:
         kernel 9's list form, one upload and one pair of copies back. Every
         other gather group, int8 / PQ (a scope that outsizes the rescore
         window) or of a tiered store, is one gather launch at the group's
-        planned precision."""
+        planned precision (``gather_alone`` counts them)."""
         resident = not flat_ex.store.tiered_active()
         listed, alone = [], []
         for g in groups:
@@ -379,6 +379,7 @@ class DirectoryVectorDB:
             out_ids[rows] = i
             acct.launches += 1
             acct.gather_listed += len(listed)
+        acct.gather_alone += len(alone)
         for g in alone:
             rows = np.asarray(g.request_idx)
             s, i = flat_ex.search(queries[rows], k,

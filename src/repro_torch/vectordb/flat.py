@@ -124,43 +124,45 @@ def gather_rescore(store: VectorStore, queries: np.ndarray,
     host->device fetch. ``fetch=False`` ranks rows that are not a rescore
     window (the IVF executor's exact fp32 candidates in a tiered store):
     they are read as the flat gather plan reads its rows, neither counted
-    as fetched nor behind the ``store.host_fetch`` seam."""
-    queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-    cand_ids = np.asarray(cand_ids, dtype=np.int64)
-    cand_ids = np.where(cand_ids < len(store), cand_ids, -1)
-    B, R = cand_ids.shape
-    if fetch and store.tiered_active():
-        fetched = cand_ids >= 0
-        pm = store.pinned_mask()
-        if pm is not None:
-            fetched = fetched & ~pm[np.maximum(cand_ids, 0)]
-        n_fetch = int(np.count_nonzero(fetched))
-        store.rescore_fetch_rows += n_fetch
-        store.rescore_fetch_bytes += n_fetch * store.dim * 4
-    kk = min(k, R)
-    if kk == 0:
-        return pad_topk(np.zeros((B, 0), np.float32),
-                        np.zeros((B, 0), np.int64), k)
-    with trace.Tiles() as tiles:
-        flat_ids = np.maximum(cand_ids, 0).reshape(-1)
-        dev = store.device
-        q = torch.from_numpy(queries).to(dev)
-        words = torch.from_numpy(
-            _window_words(cand_ids >= 0).view(np.int32)).to(dev)
-        sq_idx = (torch.from_numpy(flat_ids).to(dev)
-                  if store.metric == "l2" else None)
-        tiles.to(trace.RUN)
-        rows = store.device_rows(flat_ids, fetch=fetch)     # (B*R, d)
-        sq = (None if sq_idx is None
-              else store.device_sq_norms().index_select(0, sq_idx))
-        sids = torch.arange(B, dtype=torch.int32, device=dev)
-        vals, loc = kops.multi_scope_topk(q, rows, words, sids, kk,
-                                          store.metric, sq=sq)
-        vals, loc = _to_host(vals, loc, tiles)
-        tiles.to(trace.RUN)
-        ids = np.where(loc >= 0, cand_ids.reshape(-1)[np.maximum(loc, 0)],
-                       -1)
-        return pad_topk(vals, ids, k)
+    as fetched nor behind the ``store.host_fetch`` seam. The whole call is
+    the ``rank.rescore`` region (``rescore_ns``)."""
+    with trace.rescore():
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        cand_ids = np.asarray(cand_ids, dtype=np.int64)
+        cand_ids = np.where(cand_ids < len(store), cand_ids, -1)
+        B, R = cand_ids.shape
+        if fetch and store.tiered_active():
+            fetched = cand_ids >= 0
+            pm = store.pinned_mask()
+            if pm is not None:
+                fetched = fetched & ~pm[np.maximum(cand_ids, 0)]
+            n_fetch = int(np.count_nonzero(fetched))
+            store.rescore_fetch_rows += n_fetch
+            store.rescore_fetch_bytes += n_fetch * store.dim * 4
+        kk = min(k, R)
+        if kk == 0:
+            return pad_topk(np.zeros((B, 0), np.float32),
+                            np.zeros((B, 0), np.int64), k)
+        with trace.Tiles() as tiles:
+            flat_ids = np.maximum(cand_ids, 0).reshape(-1)
+            dev = store.device
+            q = torch.from_numpy(queries).to(dev)
+            words = torch.from_numpy(
+                _window_words(cand_ids >= 0).view(np.int32)).to(dev)
+            sq_idx = (torch.from_numpy(flat_ids).to(dev)
+                      if store.metric == "l2" else None)
+            tiles.to(trace.RUN)
+            rows = store.device_rows(flat_ids, fetch=fetch)     # (B*R, d)
+            sq = (None if sq_idx is None
+                  else store.device_sq_norms().index_select(0, sq_idx))
+            sids = torch.arange(B, dtype=torch.int32, device=dev)
+            vals, loc = kops.multi_scope_topk(q, rows, words, sids, kk,
+                                              store.metric, sq=sq)
+            vals, loc = _to_host(vals, loc, tiles)
+            tiles.to(trace.RUN)
+            ids = np.where(loc >= 0, cand_ids.reshape(-1)[np.maximum(loc, 0)],
+                           -1)
+            return pad_topk(vals, ids, k)
 
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
@@ -268,8 +270,9 @@ class FlatExecutor:
         if precision != "fp32":
             r = resolve_rescore_k(k, rescore_k, m)
             if not (plan == "gather" and m <= r):
-                cand = self._select(queries, candidate_ids, plan, r,
-                                    precision)
+                with trace.approx():
+                    cand = self._select(queries, candidate_ids, plan, r,
+                                        precision)
                 return gather_rescore(self.store, queries, cand, k)
         kk = min(k, m)
         with trace.Tiles() as tiles:
@@ -374,17 +377,32 @@ class FlatExecutor:
                                  "mask words")
             return self._search_listed(queries, candidate_lists, scope_ids,
                                        k)
+        if precision != "fp32":
+            with trace.approx():
+                cand = self._select_multi(queries, mask_words, scope_ids,
+                                          resolve_rescore_k(k, rescore_k,
+                                                            len(st)),
+                                          precision)
+            return gather_rescore(st, queries, cand, k)
         with trace.Tiles() as tiles:
             words = kops.as_words(mask_words).to(st.device)
             sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
-            if precision == "fp32":
-                q = self._to_dev(queries)
-                tiles.to(trace.RUN)
-                vals, ids = kops.multi_scope_topk(
-                    q, st.device_vectors(), words, sids, k, st.metric,
-                    sq=self._sq())
-                return _to_host(vals, ids, tiles)
-            r = resolve_rescore_k(k, rescore_k, len(st))
+            q = self._to_dev(queries)
+            tiles.to(trace.RUN)
+            vals, ids = kops.multi_scope_topk(
+                q, st.device_vectors(), words, sids, k, st.metric,
+                sq=self._sq())
+            return _to_host(vals, ids, tiles)
+
+    def _select_multi(self, queries: np.ndarray, mask_words: torch.Tensor,
+                      scope_ids: np.ndarray, r: int,
+                      precision: str) -> np.ndarray:
+        """Phase 1 of :meth:`search_multi`'s two-phase plan: (B, r) int64
+        store ids, -1 padded, that one int8 or PQ scan launch keeps."""
+        st = self.store
+        with trace.Tiles() as tiles:
+            words = kops.as_words(mask_words).to(st.device)
+            sids = self._to_dev(np.asarray(scope_ids, dtype=np.int32))
             if precision == "int8":
                 q_i8, q_s = quantize_rows(queries)
                 q_dev = (self._to_dev(q_i8), self._to_dev(q_s))
@@ -397,8 +415,7 @@ class FlatExecutor:
                 tiles.to(trace.RUN)
                 _, cand = kops.multi_scope_topk_pq(
                     q_dev, st.device_pq_codes(), words, sids, r)
-            cand = _to_host(None, cand, tiles)
-        return gather_rescore(st, queries, cand, k)
+            return _to_host(None, cand, tiles)
 
     def _search_listed(self, queries: np.ndarray,
                        lists: Sequence[np.ndarray], scope_ids: np.ndarray,

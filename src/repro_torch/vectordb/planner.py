@@ -324,6 +324,12 @@ class BatchAccounting:
     rank_wait_ns: int = 0            # rank.get
     rank_syncs: int = 0              # device->host copies
     gather_listed: int = 0           # fp32 gather groups in one list launch
+    gather_alone: int = 0            # gather groups ranked one call each
+    # the two phases of the quantized plan, inside the terms above: phase
+    # 1 (int8 / PQ scan or gather, its wait for the candidates included)
+    # and the exact fp32 rescore
+    approx_ns: int = 0               # rank.approx
+    rescore_ns: int = 0              # rank.rescore
     resolve_stats: ResolveStats = field(default_factory=ResolveStats)
     # sharded-executor terms (zero on single-device paths): what this batch
     # actually moved between host and mesh, and across the mesh
